@@ -1,0 +1,9 @@
+"""Hand-written CUDA kernels of the matching hot path, with their plain
+PyTorch versions (``ref``) and the padding/dispatch wrappers (``ops``).
+Nothing is built at import: kernels compile on first launch."""
+
+from . import dfa_match, ops, ref
+from .ops import spec_match_merge, spec_match_merge_lanes
+
+__all__ = ["dfa_match", "ops", "ref", "spec_match_merge",
+           "spec_match_merge_lanes"]

@@ -1,0 +1,97 @@
+"""Public wrappers of the matching kernels: padding, block size, dispatch.
+
+Each op pads its inputs to kernel-legal shapes and dispatches on the device
+of its tensors: a CPU tensor runs the kernel's plain PyTorch version, a CUDA
+tensor launches the hand-written kernel (or the call raises).  Semantics are
+those of the ``ref.py`` oracles; the return contract is the JAX package's
+``kernels/ops.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import dfa_match
+
+__all__ = ["spec_match_merge", "spec_match_merge_lanes"]
+
+
+def _pad_to_block(n: int, target: int) -> tuple[int, int]:
+    """Block size and padded extent for a length-``n`` axis.
+
+    Returns ``(block, n_padded)`` with ``block = min(n, target)`` and
+    ``n_padded`` the next multiple of ``block``; callers pad the axis with
+    identity-class symbols, so the extra tail is a semantic no-op.
+    """
+    blk = max(1, min(n, target))
+    return blk, n + (-n) % blk
+
+
+def _pad_merge_chunks(chunks: torch.Tensor, pad_cls: int,
+                      l_blk_target: int) -> tuple[torch.Tensor, int]:
+    """Pad the symbol axis of [B, C, L] chunks with the identity pad class."""
+    l = chunks.shape[-1]
+    l_blk, l_pad = _pad_to_block(l, l_blk_target)
+    if l_pad != l:
+        chunks = F.pad(chunks, (0, l_pad - l), value=pad_cls)
+    return chunks.contiguous(), l_blk
+
+
+def _dispatch(cuda_fn, torch_fn, chunks, args, kw):
+    if chunks.device.type == "cuda":
+        return cuda_fn(*args, **kw)
+    if chunks.device.type == "cpu":
+        kw.pop("table_in_smem")
+        kw.pop("carry_in_smem")
+        return torch_fn(*args, **kw)
+    raise ValueError(f"no kernel for device {chunks.device}")
+
+
+def spec_match_merge(table, chunks, init_states, lookahead, cand_index, sinks,
+                     absorbing, *, pad_cls: int, pad_key: int | None = None,
+                     early_exit: bool = True, l_blk: int = 512,
+                     table_in_smem: bool | None = None,
+                     carry_in_smem: bool | None = None):
+    """Fused chunk scan + Eq. 8 merge of a document bucket (kernel B1).
+
+    ``table`` is the padded packed table (identity ``pad_cls`` column); L is
+    padded with ``pad_cls`` symbols up to the block multiple.  ``pad_key``
+    is the fold's passthrough boundary key: ``pad_cls`` under r=1,
+    ``n_classes ** 2`` under r=2.  Returns ``(finals [B, K], skipped [B],
+    l_blk)`` — symbol blocks skipped per document by the all-absorbed early
+    exit, and the block size that converts them into an exit position.
+    ``table_in_smem``/``carry_in_smem`` force the kernel's table and lane
+    carry placements (CUDA only; ``dfa_match.smem_plan``).
+    """
+    pad_key = pad_cls if pad_key is None else pad_key
+    chunks, l_blk = _pad_merge_chunks(chunks, pad_cls, l_blk)
+    out, skipped = _dispatch(
+        dfa_match.spec_match_merge_cuda, dfa_match.spec_match_merge_torch,
+        chunks, (table, chunks, init_states, lookahead, cand_index, sinks,
+                 absorbing),
+        dict(pad_key=pad_key, l_blk=l_blk, early_exit=early_exit,
+             table_in_smem=table_in_smem, carry_in_smem=carry_in_smem))
+    return out, skipped, l_blk
+
+
+def spec_match_merge_lanes(table, chunks, init_states, lookahead, cand_index,
+                           sinks, absorbing, *, pad_cls: int,
+                           pad_key: int | None = None,
+                           early_exit: bool = True, l_blk: int = 512,
+                           table_in_smem: bool | None = None,
+                           carry_in_smem: bool | None = None):
+    """Lane-carrying fused match + merge (kernel B2): the [K, S] candidate
+    lane axis survives the fold.  Returns ``(lanes [B, K, S], skipped [B],
+    l_blk)``; ``pad_key`` as in ``spec_match_merge``."""
+    pad_key = pad_cls if pad_key is None else pad_key
+    chunks, l_blk = _pad_merge_chunks(chunks, pad_cls, l_blk)
+    out, skipped = _dispatch(
+        dfa_match.spec_match_merge_lanes_cuda,
+        dfa_match.spec_match_merge_lanes_torch,
+        chunks, (table, chunks, init_states, lookahead, cand_index, sinks,
+                 absorbing),
+        dict(pad_key=pad_key, l_blk=l_blk, early_exit=early_exit,
+             table_in_smem=table_in_smem, carry_in_smem=carry_in_smem))
+    k = sinks.shape[0]
+    return out.reshape(out.shape[0], k, -1), skipped, l_blk

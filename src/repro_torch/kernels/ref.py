@@ -1,0 +1,173 @@
+"""Plain PyTorch oracles of the main-path matching kernels.
+
+Each ``*_ref`` function defines the exact semantics its kernel must
+reproduce, on int32 tensors of any device.  All outputs are integer state ids,
+so every comparison against them is exact.  Documents are batched on the
+leading axis: the folds loop over chunks and symbols, never over documents.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["classify_pad_ref", "spec_match_merge_ref",
+           "spec_match_merge_lanes_ref", "spec_merge_ref",
+           "spec_merge_lanes_ref", "cursor_merge_ref", "scan_lanes"]
+
+
+def classify_pad_ref(byte_to_class: torch.Tensor, bytes_buf: torch.Tensor,
+                     lengths: torch.Tensor, pad_cls: int) -> torch.Tensor:
+    """Batched padded classification: positions >= length become ``pad_cls``.
+
+    bytes_buf [B, W] uint8 (pad bytes arbitrary); lengths [B]; returns
+    [B, W] int32 class ids.
+    """
+    cls = byte_to_class[bytes_buf.long()]
+    pos = torch.arange(bytes_buf.shape[1], device=bytes_buf.device)[None, :]
+    return torch.where(pos < lengths.long()[:, None], cls,
+                       torch.full_like(cls, pad_cls)).to(torch.int32)
+
+
+def scan_lanes(table: torch.Tensor, chunks: torch.Tensor,
+               states: torch.Tensor) -> torch.Tensor:
+    """``states [R, N]`` through ``chunks [R, L]`` class columns -> [R, N].
+
+    table [Q, n_cls_pad] int32; one gather per symbol over all lanes.
+    """
+    n_cls_pad = table.shape[1]
+    flat = table.reshape(-1).long()
+    st = states.long()
+    cols = chunks.long()
+    for pos in range(cols.shape[1]):
+        st = flat[st * n_cls_pad + cols[:, pos:pos + 1]]
+    return st.to(torch.int32)
+
+
+def _merge_fold(start: torch.Tensor, lvecs: torch.Tensor,
+                lookahead: torch.Tensor, exact: torch.Tensor,
+                cand_index: torch.Tensor, sinks: torch.Tensor, *,
+                pad_cls: int, exact_lane0: bool) -> torch.Tensor:
+    """The one Eq. 8 fold shared by every merge entry point.
+
+    ``start [B, K, Sc]`` is the carried lane set (``Sc == 1`` for an exact
+    carry); each later chunk maps every carried state through its candidate
+    lanes (``lvecs [B, C-1, K, S]``, ``lookahead [B, C-1]``, ``exact
+    [C-1]``).  A carried state missing from the candidate row is the
+    pattern's absorbing sink; a ``pad_cls`` lookahead (the pad key) means the
+    whole chunk is padding (identity).  ``exact_lane0`` picks the rule for
+    chunks matched exactly from the entry states: an exact carry reads lane
+    0, a candidate-keyed carry composes lane-for-lane.
+    """
+    st = start.to(torch.int32)
+    cidx = cand_index.long()
+    sk = sinks.to(torch.int32)[None, :, None]
+    for i in range(lvecs.shape[1]):
+        lv_i = lvecs[:, i].to(torch.int32)                      # [B, K, S]
+        la_i = lookahead[:, i].long()                           # [B]
+        lane = cidx[la_i[:, None, None], st.long()]             # [B, K, Sc]
+        hit = torch.gather(lv_i, 2, lane.clamp(min=0))
+        nxt = torch.where(lane < 0, torch.where(sk >= 0, sk, st), hit)
+        nxt = torch.where((la_i == pad_cls)[:, None, None], st, nxt)
+        if bool(exact[i]):
+            nxt = lv_i[:, :, :1].expand_as(st) if exact_lane0 else lv_i
+        st = nxt.to(torch.int32)
+    return st
+
+
+def spec_merge_ref(lvecs: torch.Tensor, lookahead: torch.Tensor,
+                   cand_index: torch.Tensor, sinks: torch.Tensor, *,
+                   pad_cls: int, exact=None) -> torch.Tensor:
+    """Eq. 8 merge of batched per-chunk lane states.
+
+    lvecs [B, C, K, S]; lookahead [B, C] boundary keys (entry 0 unused);
+    returns [B, K] final packed states.  ``exact`` [C] optionally marks
+    chunks matched exactly from the start states (chunk 0 always is).
+    ``pad_cls`` is the fold's passthrough key (the pad key under r=2).
+    """
+    if exact is None:
+        exact = np.zeros(lvecs.shape[1], bool)
+    return _merge_fold(lvecs[:, 0, :, :1], lvecs[:, 1:], lookahead[:, 1:],
+                       exact[1:], cand_index, sinks, pad_cls=pad_cls,
+                       exact_lane0=True)[:, :, 0]
+
+
+def spec_merge_lanes_ref(lvecs: torch.Tensor, lookahead: torch.Tensor,
+                         cand_index: torch.Tensor, sinks: torch.Tensor, *,
+                         pad_cls: int, exact=None) -> torch.Tensor:
+    """Eq. 8 merge carrying the full candidate lane axis: [B, C, K, S] per-
+    chunk lane states fold to [B, K, S] — each document's restricted
+    transition map under every candidate entry of its boundary key."""
+    if exact is None:
+        exact = np.zeros(lvecs.shape[1], bool)
+    return _merge_fold(lvecs[:, 0], lvecs[:, 1:], lookahead[:, 1:],
+                       exact[1:], cand_index, sinks, pad_cls=pad_cls,
+                       exact_lane0=False)
+
+
+def spec_match_merge_ref(table: torch.Tensor, chunks: torch.Tensor,
+                         init_states: torch.Tensor, lookahead: torch.Tensor,
+                         cand_index: torch.Tensor, sinks: torch.Tensor, *,
+                         pad_cls: int) -> torch.Tensor:
+    """Batched chunk scan + Eq. 8 merge over packed patterns.
+
+    table [Q, n_cls_pad] (identity pad column last); chunks [B, C, L];
+    init_states [B, C, K * S] (chunk 0's lanes hold the exact entry
+    states); lookahead [B, C]; cand_index [n_keys + 1, Q]; sinks [K].
+    Returns [B, K] final packed states.
+    """
+    b, c, l = chunks.shape
+    k = sinks.shape[0]
+    s = init_states.shape[-1] // k
+    lv = scan_lanes(table, chunks.reshape(b * c, l),
+                    init_states.reshape(b * c, k * s))
+    return spec_merge_ref(lv.reshape(b, c, k, s), lookahead, cand_index,
+                          sinks, pad_cls=pad_cls)
+
+
+def spec_match_merge_lanes_ref(table: torch.Tensor, chunks: torch.Tensor,
+                               init_states: torch.Tensor,
+                               lookahead: torch.Tensor,
+                               cand_index: torch.Tensor, sinks: torch.Tensor,
+                               *, pad_cls: int) -> torch.Tensor:
+    """Lane-carrying twin of ``spec_match_merge_ref``: chunk 0's lanes are
+    candidate entries of a boundary key and the fold keeps the ``[K, S]``
+    carry.  Returns [B, K * S]."""
+    b, c, l = chunks.shape
+    k = sinks.shape[0]
+    s = init_states.shape[-1] // k
+    lv = scan_lanes(table, chunks.reshape(b * c, l),
+                    init_states.reshape(b * c, k * s))
+    out = spec_merge_lanes_ref(lv.reshape(b, c, k, s), lookahead, cand_index,
+                               sinks, pad_cls=pad_cls)
+    return out.reshape(b, k * s)
+
+
+def cursor_merge_ref(cursor_lanes: np.ndarray, seg_lanes: np.ndarray,
+                     entry_cls: np.ndarray, cand_index: np.ndarray,
+                     sinks: np.ndarray, *, pad_cls: int) -> np.ndarray:
+    """Batched Eq. 8 cursor x segment composition — the numpy host reference
+    of the streaming device merge (``Matcher.advance_cursors``).
+
+    ``cursor_lanes [B, K, Sc]`` holds each stream's prefix exit states per
+    entry lane (``Sc == 1`` for collapsed exact cursors); ``seg_lanes
+    [B, K, S]`` is each stream's next segment matched independently, keyed by
+    the candidates of ``entry_cls [B]`` — the boundary key just before the
+    segment.  For every carried state ``q``: ``cand_index[entry_cls, q]``
+    selects the segment lane that assumed entry ``q``; a missing ``q`` is the
+    pattern's absorbing sink; rows whose ``entry_cls == pad_cls`` pass
+    through unchanged (zero-byte segments).
+    """
+    q = np.asarray(cursor_lanes, np.int32)
+    ec = np.asarray(entry_cls, np.int32)
+    cand_index = np.asarray(cand_index)
+    # clamp the row index so an unpadded [n_cls, Q] table also works: the
+    # pad_cls passthrough below overrides whatever the clamped gather reads
+    safe_ec = np.minimum(ec, np.int32(cand_index.shape[0] - 1))
+    lane = cand_index[safe_ec[:, None, None], q]                # [B, K, Sc]
+    hit = np.take_along_axis(np.asarray(seg_lanes, np.int32),
+                             np.maximum(lane, 0), axis=2)
+    sk = np.asarray(sinks, np.int32)[None, :, None]
+    out = np.where(lane < 0, np.where(sk >= 0, sk, q), hit)
+    out = np.where((ec == pad_cls)[:, None, None], q, out)
+    return out.astype(np.int32)

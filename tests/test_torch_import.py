@@ -1,0 +1,90 @@
+"""The PyTorch port stands alone: it imports neither jax nor the JAX package,
+and its entry points refuse to fall back to the CPU when no card exists."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def test_port_imports_with_jax_blocked():
+    code = ("import sys; sys.modules['jax'] = None\n"
+            "import repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
+            "import repro_torch.core.engine\n"
+            "assert not any(m == 'repro' or m.startswith('repro.') "
+            "for m in sys.modules), 'the JAX package was imported'\n"
+            "print('ok')\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def _imported_modules(path: pathlib.Path) -> list[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_or_reference_imports(path):
+    for name in _imported_modules(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
+
+
+def test_matcher_without_device_needs_cuda():
+    from repro_torch.core import Matcher, compile_regex
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Matcher(compile_regex("ab"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Matcher(compile_regex("ab"), device="cuda")
+
+
+def test_device_tables_without_device_needs_cuda():
+    from repro_torch.core import compile_regex, pack_dfas
+    from repro_torch.core.engine import DeviceTables
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    packed = pack_dfas([compile_regex("ab")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceTables.build(packed)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceTables(packed, device="cuda")
+    assert DeviceTables.build(packed, device="cpu").table_pad_t.device.type \
+        == "cpu"
+
+
+def test_matcher_unported_options_raise():
+    from repro_torch.core import Matcher, compile_regex
+
+    dfa = compile_regex("ab")
+    with pytest.raises(ValueError, match="cuda"):
+        Matcher(dfa, backend="pallas", device="cpu")
+    with pytest.raises(NotImplementedError, match="A14"):
+        Matcher(dfa, backend="sharded", device="cpu")
+    with pytest.raises(NotImplementedError, match="A10"):
+        Matcher(dfa, autotune=True, device="cpu")
+    m = Matcher(dfa, device="cpu")
+    with pytest.raises(NotImplementedError):
+        m.swap_patterns(dfa)
+    with pytest.raises(NotImplementedError):
+        m.advance_classes(None, None)

@@ -1,0 +1,183 @@
+"""The fused match + merge wrappers (kernels B1/B2).
+
+On CPU tensors the port's ``ops.spec_match_merge``/``spec_match_merge_lanes``
+run the kernels' plain versions; they must return the JAX Pallas kernels'
+finals or lanes, ``skipped`` block counts and ``l_blk`` exactly (the JAX side
+runs in interpret mode, as its own tests do).  The CUDA kernel itself is held
+against its plain version by the one test here that needs the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import compile_regex as t_compile_regex
+from repro_torch.core import make_search_dfa as t_make_search_dfa
+from repro_torch.core import pack_dfas as t_pack_dfas
+from repro_torch.core import random_dfa as t_random_dfa
+from repro_torch.core.engine.plan import DeviceTables
+from repro_torch.kernels import dfa_match, ops
+
+
+def _batch(packed, dev, docs, c, lc, rng, lanes):
+    """[B, C, Lc] classes, boundary keys and entry lanes of a doc batch."""
+    b = len(docs)
+    t = dev.tables
+    k, s = packed.n_patterns, t.i_max
+    chunks = np.full((b, c, lc), dev.pad_cls, np.int32)
+    for i, d in enumerate(docs):
+        cls = packed.classes_of(d)
+        chunks.reshape(b, -1)[i, :len(cls)] = cls
+    last1 = chunks[:, :-1, -1]
+    if dev.spec_r == 2:
+        key = chunks[:, :-1, -2] * dev.pad_cls + last1
+        key = np.where(last1 == dev.pad_cls, dev.pad_key, key)
+    else:
+        key = last1
+    la = np.zeros((b, c), np.int32)
+    la[:, 1:] = key
+    cand = np.concatenate([t.candidates, t.candidates[:1]])
+    init = np.zeros((b, c, k, s), np.int32)
+    if lanes:
+        init[:, 0] = t.candidates[rng.integers(0, dev.n_keys, size=b)]
+    else:
+        init[:, 0] = np.broadcast_to(packed.starts[:, None], (k, s))
+    init[:, 1:] = cand[la[:, 1:]]
+    return chunks, la, init.reshape(b, c, k * s)
+
+
+def _operands(dev, chunks, la, init, device="cpu"):
+    put = lambda x: torch.as_tensor(np.ascontiguousarray(x), dtype=torch.int32,
+                                    device=device)
+    return (put(dev.table_pad_t), put(chunks), put(init), put(la),
+            put(dev.cidx_pad_t), put(dev.sinks_t), put(dev.absorbing_t))
+
+
+def _random_case(r, seed, shape=(3, 4, 24)):
+    b, c, lc = shape
+    rng = np.random.default_rng(seed)
+    packed = t_pack_dfas([t_random_dfa(8, 4, rng=rng),
+                          t_random_dfa(5, 3, rng=rng)])
+    dev = DeviceTables.build(packed, lookahead_r=r, device="cpu")
+    docs = [rng.integers(0, 256, size=int(n), dtype=np.uint8)
+            for n in rng.integers(c * lc // 3, c * lc + 1, size=b)]
+    return packed, dev, docs, rng, shape
+
+
+def _hit_case(seed, shape=(3, 4, 40)):
+    """K = 1 search DFA on documents full of hits: lanes absorb early, so
+    small blocks are skipped."""
+    b, c, lc = shape
+    rng = np.random.default_rng(seed)
+    packed = t_pack_dfas([t_make_search_dfa(t_compile_regex(".*(ab|ba)"))])
+    dev = DeviceTables.build(packed, device="cpu")
+    docs = [b"ab" * (c * lc // 2), b"xyz" * 20 + b"ba" * 40, b"q" * (c * lc)]
+    return packed, dev, docs[:b], rng, shape
+
+
+CASES = [("random-r1", lambda: _random_case(1, 11)),
+         ("random-r2", lambda: _random_case(2, 12)),
+         ("hits", lambda: _hit_case(13))]
+
+
+@pytest.fixture(scope="module")
+def jops():
+    return pytest.importorskip("repro.kernels.ops")
+
+
+@pytest.mark.parametrize("l_blk", [8, 512])
+@pytest.mark.parametrize("lanes", [False, True], ids=["B1", "B2"])
+@pytest.mark.parametrize("case", [c[1] for c in CASES],
+                         ids=[c[0] for c in CASES])
+def test_ops_cpu_equals_pallas_interpret(jops, case, lanes, l_blk):
+    import jax.numpy as jnp
+
+    packed, dev, docs, rng, (b, c, lc) = case()
+    chunks, la, init = _batch(packed, dev, docs, c, lc, rng, lanes)
+    args_t = _operands(dev, chunks, la, init)
+    args_j = tuple(jnp.asarray(a.numpy()) for a in args_t)
+    tfn = ops.spec_match_merge_lanes if lanes else ops.spec_match_merge
+    jfn = jops.spec_match_merge_lanes if lanes else jops.spec_match_merge
+    for early_exit in (False, True):
+        got, skipped, blk = tfn(*args_t, pad_cls=dev.pad_cls,
+                                pad_key=dev.pad_key, early_exit=early_exit,
+                                l_blk=l_blk)
+        want, jskipped, jblk = jfn(*args_j, pad_cls=dev.pad_cls,
+                                   pad_key=dev.pad_key,
+                                   early_exit=early_exit, l_blk=l_blk)
+        assert got.dtype == torch.int32 and skipped.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(skipped.numpy(), np.asarray(jskipped))
+        assert blk == jblk
+        if not early_exit:
+            assert (skipped.numpy() == 0).all()
+        if not lanes:
+            oracle = np.stack([packed.run_all(d) for d in docs])
+            np.testing.assert_array_equal(got.numpy(), oracle)
+
+
+def test_hit_case_skips_blocks():
+    packed, dev, docs, rng, (b, c, lc) = _hit_case(14)
+    chunks, la, init = _batch(packed, dev, docs, c, lc, rng, False)
+    _, skipped, blk = ops.spec_match_merge(
+        *_operands(dev, chunks, la, init), pad_cls=dev.pad_cls,
+        pad_key=dev.pad_key, l_blk=8)
+    assert blk == 8
+    assert skipped[0] > 0 and skipped[2] == 0
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    packed, dev, docs, rng, (b, c, lc) = _random_case(1, 15)
+    chunks, la, init = _batch(packed, dev, docs, c, lc, rng, False)
+    before = dict(dfa_match.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        dfa_match.spec_match_merge_cuda(*_operands(dev, chunks, la, init),
+                                        pad_key=dev.pad_key, l_blk=lc)
+    assert dfa_match.launches == before
+
+
+def test_smem_plan():
+    assert dfa_match.smem_plan(194, 38, 8, 1680) == (True, True)
+    assert dfa_match.smem_plan(194, 38, 8, 1680, table_in_smem=False) == (
+        False, True)
+    assert dfa_match.smem_plan(72531, 23, 8, 10) == (False, True)
+    assert dfa_match.smem_plan(100, 10, 8, 10 ** 6) == (True, False)
+    assert dfa_match.smem_plan(194, 38, 8, 1680, carry_in_smem=False) == (
+        True, False)
+    with pytest.raises(ValueError):
+        dfa_match.smem_plan(72531, 23, 8, 10, table_in_smem=True)
+    with pytest.raises(ValueError):
+        dfa_match.smem_plan(100, 10, 8, 10 ** 6, carry_in_smem=True)
+
+
+@pytest.mark.skipif(not torch.cuda.is_available(),
+                    reason="needs a CUDA device; the kernels have no CPU mode")
+def test_kernel_equals_plain_on_card():
+    """Needs an NVIDIA card (sm_90a): the CUDA kernels against their plain
+    versions, both table and both lane-carry placements, early exit on and
+    off, r = 1 and 2."""
+    for make in (lambda: _random_case(1, 21, (5, 8, 200)),
+                 lambda: _random_case(2, 22, (5, 8, 200)),
+                 lambda: _hit_case(23, (3, 8, 160))):
+        packed, dev, docs, rng, (b, c, lc) = make()
+        for lanes in (False, True):
+            chunks, la, init = _batch(packed, dev, docs, c, lc, rng, lanes)
+            args = _operands(dev, chunks, la, init, device="cuda")
+            tfn = ops.spec_match_merge_lanes if lanes else ops.spec_match_merge
+            pfn = (dfa_match.spec_match_merge_lanes_torch if lanes
+                   else dfa_match.spec_match_merge_torch)
+            for early_exit in (False, True):
+                chunks_p, blk = ops._pad_merge_chunks(args[1], dev.pad_cls, 16)
+                want, wskip = pfn(args[0], chunks_p, *args[2:],
+                                  pad_key=dev.pad_key, l_blk=blk,
+                                  early_exit=early_exit)
+                for smem, carry in ((True, True), (False, True),
+                                    (True, False), (False, False)):
+                    got, skip, _ = tfn(*args, pad_cls=dev.pad_cls,
+                                       pad_key=dev.pad_key,
+                                       early_exit=early_exit, l_blk=16,
+                                       table_in_smem=smem,
+                                       carry_in_smem=carry)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got.reshape(b, -1), want.reshape(b, -1))
+                    assert torch.equal(skip, wskip)
