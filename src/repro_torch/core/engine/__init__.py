@@ -5,10 +5,11 @@
                   ``LanePlan`` every lowering runs.  Pure numpy apart from
                   the device tables.
     executors.py  ``LaneExecutor`` stages (classify, entry seed, segmented
-                  early-exit scan, cursor merge) and ``LocalExecutor``: the
-                  torch-eager lowering and the fused CUDA kernel lowering.
+                  early-exit scan, cursor merge, bulk compose) and
+                  ``LocalExecutor``: the torch-eager lowering and the CUDA
+                  kernel lowering.
     facade.py     ``Matcher``: ``membership_batch``, ``advance_segments``,
-                  ``advance_cursors``.
+                  ``advance_cursors``, ``compose_lane_maps``.
 """
 
 from .executors import LaneExecutor, LocalExecutor, NO_EXIT

@@ -25,6 +25,11 @@ lane of a document was absorbing, or ``NO_EXIT``.
     kernels' plain versions.
 
 Seq plans (documents shorter than ``4 * C``) are torch-eager in both.
+
+``compose_lane_maps`` (the out-of-order gap-close fold) runs the log-depth
+torch scan ``core.lvector.merge_scan_lanes_torch`` in the eager lowering and
+the compose kernels (``kernels.ops.spec_compose_lanes``, mode
+``compose_mode``) in the kernel lowering.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 
 from ...kernels import ops as kops
 from ...kernels import ref as kref
+from ..lvector import merge_scan_lanes_torch
 from .plan import ENTRY_LANES, ENTRY_STARTS, ENTRY_STATES, DeviceTables, LanePlan
 
 __all__ = ["LaneExecutor", "LocalExecutor", "NO_EXIT"]
@@ -179,15 +185,40 @@ class LaneExecutor:
         """Eq. 8 composition of cursor lanes with a segment's lane map —
         bit-identical to ``kernels.ref.cursor_merge_ref``."""
         t = self.t
-        ec = entry_cls.long()
-        lane = t.cidx_pad_t[ec[:, None, None], cursor_lanes.long()]
-        hit = torch.gather(seg_lanes.to(torch.int32), 2,
-                           lane.clamp(min=0).long())
-        sk = t.sinks_t[None, :, None]
-        out = torch.where(lane < 0, torch.where(sk >= 0, sk, cursor_lanes),
-                          hit)
-        out = torch.where((ec == t.pad_key)[:, None, None], cursor_lanes, out)
-        return out.to(torch.int32)
+        return kref.compose_lanes_torch(cursor_lanes, seg_lanes, entry_cls,
+                                        t.cidx_pad_t, t.sinks_t,
+                                        pad_key=t.pad_key)
+
+    # -- stage: bulk compose (the out-of-order gap-close path) ---------------
+
+    def _compose(self, key: tuple, lower, lane_maps, entry_keys):
+        """Run a compose lowering on uploaded operands.  ``lower()`` returns
+        ``(kind, fn)`` and runs once per key."""
+        fn = self._lowered.get(key)
+        if fn is None:
+            self.lowering_kinds[key], fn = lower()
+            self._lowered[key] = fn
+            self.traces += 1
+        return fn(self._put(lane_maps), self._put(entry_keys))
+
+    def compose_lane_maps(self, lane_maps, entry_keys) -> torch.Tensor:
+        """Fold runs of candidate-keyed lane maps in one log-depth scan.
+
+        ``lane_maps [B, N, K, S]`` + ``entry_keys [B, N]`` (host arrays) ->
+        ``[B, K, S]`` compositions on the device (the last scan prefix) via
+        ``lvector.merge_scan_lanes_torch``.  Keys equal to ``pad_key`` are
+        right identities, so ragged runs arrive padded to a shared N; the
+        lowering is cached per ``("compose_scan", N)``.
+        """
+        t = self.t
+
+        def lower():
+            return "compose-scan", lambda lanes, keys: merge_scan_lanes_torch(
+                lanes, keys, t.cidx_pad_t, t.sinks_t, pad_key=t.pad_key,
+                axis=1)[:, -1]
+
+        return self._compose(("compose_scan", int(lane_maps.shape[1])),
+                             lower, lane_maps, entry_keys)
 
     # -- seq body ------------------------------------------------------------
 
@@ -276,10 +307,15 @@ class LocalExecutor(LaneExecutor):
     """
 
     def __init__(self, tables: DeviceTables, *, num_chunks: int,
-                 use_kernel: bool = False, early_exit_segments: int = 4):
+                 use_kernel: bool = False, early_exit_segments: int = 4,
+                 compose_mode: str = "carry"):
         super().__init__(tables, num_chunks=num_chunks,
                          early_exit_segments=early_exit_segments)
         self.use_kernel = bool(use_kernel)
+        # which compose kernel the gap-close fold rides: "carry" (B3, the
+        # sequential fold) or "tree" (B4, the pairwise reduce); read when an
+        # N is first lowered
+        self.compose_mode = compose_mode
         # device tensors of per-doc skipped blocks, summed lazily
         self._skipped_log: list = []
         self._skipped_total = 0
@@ -290,6 +326,26 @@ class LocalExecutor(LaneExecutor):
         while self._skipped_log:
             self._skipped_total += int(self._skipped_log.pop().sum())
         return self._skipped_total
+
+    def compose_lane_maps(self, lane_maps, entry_keys) -> torch.Tensor:
+        """The gap-close fold on the compose kernels when this executor runs
+        the kernel lowering (``kernels.ops.spec_compose_lanes`` in
+        ``compose_mode``, read at the first lowering of each
+        ``("compose_kernel", N)``; kind ``"compose-kernel-{mode}"``); the
+        eager scan otherwise.  Same contract as the base lowering."""
+        if not self.use_kernel:
+            return super().compose_lane_maps(lane_maps, entry_keys)
+        t = self.t
+
+        def lower():
+            mode = self.compose_mode
+            return (f"compose-kernel-{mode}",
+                    lambda lanes, keys: kops.spec_compose_lanes(
+                        lanes, keys, t.cidx_pad_t, t.sinks_t,
+                        pad_key=t.pad_key, mode=mode))
+
+        return self._compose(("compose_kernel", int(lane_maps.shape[1])),
+                             lower, lane_maps, entry_keys)
 
     def _lower(self, plan: LanePlan):
         if plan.kind == "seq":

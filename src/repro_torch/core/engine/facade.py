@@ -134,6 +134,7 @@ class Matcher:
             early_exit_segments=early_exit_segments)
         self.n_devices = 1
         self.num_chunks = self.planner.num_chunks
+        self.compose_calls = 0  # compose_lane_maps dispatches
 
     @staticmethod
     def _pack_source(source) -> PackedDFA:
@@ -155,9 +156,59 @@ class Matcher:
         raise NotImplementedError("swap_patterns is not ported yet "
                                   "(ROADMAP A6 tail)")
 
-    def compose_lane_maps(self, lane_maps, entry_keys):
-        raise NotImplementedError("compose_lane_maps is not ported yet "
-                                  "(ROADMAP A6 tail, kernels B3/B4)")
+    def compose_lane_maps(self, lane_maps: np.ndarray,
+                          entry_keys: np.ndarray) -> np.ndarray:
+        """Fold B runs of candidate-keyed lane maps in ONE device dispatch.
+
+        ``lane_maps [B, N, K, S]`` holds, per row, a run of transition maps
+        (leftmost first — e.g. a stream's cursor broadcast to lane width
+        followed by buffered segment maps); ``entry_keys [B, N]`` the
+        boundary key selecting each map's Eq. 11 candidate entry row.
+        Returns the ``[B, K, S]`` composition of every row — the
+        out-of-order gap-close bulk path: one device call per batch of
+        contiguous runs, not one compose per segment.  ``backend="cuda"``
+        runs the compose kernel (``executor.compose_mode``: ``"carry"`` or
+        ``"tree"``), ``"local"`` the log-depth torch scan;
+        ``kernels.ref.spec_compose_lanes_ref`` is the sequential oracle.
+
+        Keys equal to ``DeviceTables.pad_key`` compose as the identity, so
+        ragged runs are padded on the right; element 0's key is never read.
+        N is padded to a power of two here to bound the lowerings (cached
+        per padded N).  ``compose_calls`` counts dispatches.
+
+        All lowerings are bit-identical on real candidate lanes — the only
+        lanes a consumer can address through ``cand_index``.  Pad lanes
+        (filler states repeated to reach width S) hold evaluation-order-
+        dependent passthrough values; see ``kernels.ops.spec_compose_lanes``.
+        """
+        k = self.packed.n_patterns
+        s = self.tables.i_max
+        lanes = np.ascontiguousarray(np.asarray(lane_maps, np.int32))
+        if lanes.ndim != 4 or lanes.shape[2:] != (k, s):
+            raise ValueError(f"lane_maps must be [B, N, {k}, {s}], "
+                             f"got {lanes.shape}")
+        b, n = lanes.shape[:2]
+        keys = np.asarray(entry_keys, np.int32)
+        if keys.shape != (b, n):
+            raise ValueError(f"entry_keys must be [{b}, {n}], "
+                             f"got {keys.shape}")
+        pad_key = self.dev.pad_key
+        if n and ((keys[:, 1:] < 0) | (keys[:, 1:] > pad_key)).any():
+            raise ValueError("entry_keys[:, 1:] must be boundary keys in "
+                             "[0, n_keys] (pad_key = identity)")
+        if b == 0 or n == 0:
+            return np.zeros((b, k, s), np.int32)
+        if n == 1:
+            return lanes[:, 0].copy()
+        np2 = next_pow2(n)
+        if np2 != n:
+            lanes = np.concatenate(
+                [lanes, np.zeros((b, np2 - n, k, s), np.int32)], axis=1)
+            keys = np.concatenate(
+                [keys, np.full((b, np2 - n), pad_key, np.int32)], axis=1)
+        out = self.executor.compose_lane_maps(lanes, keys).cpu().numpy()
+        self.compose_calls += 1
+        return out
 
     def advance_classes(self, states, classes):
         raise NotImplementedError("advance_classes is not ported yet "
@@ -357,8 +408,9 @@ class Matcher:
     # -- introspection -------------------------------------------------------
 
     def perf_report(self) -> dict:
-        """The lowering chosen per plan, the in-kernel early-exit skip count,
-        the resolved boundary-key depth and lane width (``None`` until the
+        """The lowering chosen per plan (compose lowerings included), the
+        in-kernel early-exit skip count, the compose dispatch count, the
+        resolved boundary-key depth and lane width (``None`` until the
         lookahead analysis has run).  Keys of features not ported yet keep
         ``None`` or 0."""
         rep: dict = {
@@ -372,8 +424,13 @@ class Matcher:
             "table_epoch": self.planner.table_epoch,
             "prefilter_skipped_blocks": None,
             "autotune": None,
-            "compose_lowering": None,
-            "compose_calls": 0,
+            # which lowering compose_lane_maps (the OOO gap-close bulk path)
+            # rode: "compose-kernel-{carry,tree}" on the cuda backend,
+            # "compose-scan" on local; None until the first compose dispatch
+            "compose_lowering": next(
+                (kind for kind in self.executor.lowering_kinds.values()
+                 if kind.startswith("compose")), None),
+            "compose_calls": self.compose_calls,
             "retunes": 0,
             "traffic": None,
         }

@@ -2,8 +2,8 @@
 PyTorch versions (``ref``) and the padding/dispatch wrappers (``ops``).
 Nothing is built at import: kernels compile on first launch."""
 
-from . import dfa_match, ops, ref
-from .ops import spec_match_merge, spec_match_merge_lanes
+from . import dfa_match, lvec_compose, ops, ref
+from .ops import spec_compose_lanes, spec_match_merge, spec_match_merge_lanes
 
-__all__ = ["dfa_match", "ops", "ref", "spec_match_merge",
-           "spec_match_merge_lanes"]
+__all__ = ["dfa_match", "lvec_compose", "ops", "ref", "spec_match_merge",
+           "spec_match_merge_lanes", "spec_compose_lanes"]

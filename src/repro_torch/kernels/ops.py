@@ -12,9 +12,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import dfa_match
+from . import dfa_match, lvec_compose
 
-__all__ = ["spec_match_merge", "spec_match_merge_lanes"]
+__all__ = ["spec_match_merge", "spec_match_merge_lanes",
+           "spec_compose_lanes"]
 
 
 def _pad_to_block(n: int, target: int) -> tuple[int, int]:
@@ -38,14 +39,17 @@ def _pad_merge_chunks(chunks: torch.Tensor, pad_cls: int,
     return chunks.contiguous(), l_blk
 
 
-def _dispatch(cuda_fn, torch_fn, chunks, args, kw):
-    if chunks.device.type == "cuda":
+def _dispatch(cuda_fn, torch_fn, x, args, kw,
+              cuda_only=("table_in_smem", "carry_in_smem")):
+    """CUDA tensors launch ``cuda_fn``; CPU tensors run the plain
+    ``torch_fn`` without the CUDA-only placement keywords."""
+    if x.device.type == "cuda":
         return cuda_fn(*args, **kw)
-    if chunks.device.type == "cpu":
-        kw.pop("table_in_smem")
-        kw.pop("carry_in_smem")
+    if x.device.type == "cpu":
+        for name in cuda_only:
+            kw.pop(name)
         return torch_fn(*args, **kw)
-    raise ValueError(f"no kernel for device {chunks.device}")
+    raise ValueError(f"no kernel for device {x.device}")
 
 
 def spec_match_merge(table, chunks, init_states, lookahead, cand_index, sinks,
@@ -95,3 +99,43 @@ def spec_match_merge_lanes(table, chunks, init_states, lookahead, cand_index,
              table_in_smem=table_in_smem, carry_in_smem=carry_in_smem))
     k = sinks.shape[0]
     return out.reshape(out.shape[0], k, -1), skipped, l_blk
+
+
+def spec_compose_lanes(lane_maps, entry_keys, cand_index, sinks, *,
+                       pad_key: int, mode: str = "carry", n_blk: int = 8):
+    """Fold [B, N, K, S] keyed lane-map runs in one kernel launch.
+
+    The out-of-order gap-close compose (``Matcher.compose_lane_maps``): per
+    row, element 0's lanes seed the result and elements 1..N-1 fold in keyed
+    by ``entry_keys`` (``pad_key`` elements are identities, so ragged runs
+    arrive right-padded).  ``mode="carry"`` is the sequential fold (kernel
+    B3; N padded to an ``n_blk`` multiple, the Pallas block contract);
+    ``mode="tree"`` the pairwise reduce (kernel B4; N padded to a power of
+    two).  Padding is zero maps with ``pad_key`` keys.  Returns [B, K, S]
+    with the semantics of ``ref.spec_compose_lanes_ref``.
+
+    Real candidate lanes (the only lanes ``cand_index`` selects for a
+    consumer) agree across every order.  Pad lanes — filler states a key's
+    candidate row repeats to reach width S — carry order-dependent
+    passthrough values: the carry fold equals the oracle on every lane, the
+    tree may differ from it on pad lanes only.
+    """
+    n = lane_maps.shape[1]
+    assert n >= 1, "empty runs are the caller's fast path"
+    if mode == "tree":
+        n_pad = 1 << (n - 1).bit_length()
+        cuda_fn = lvec_compose.spec_compose_lanes_tree_cuda
+        torch_fn = lvec_compose.spec_compose_lanes_tree_torch
+    elif mode == "carry":
+        _, n_pad = _pad_to_block(n, n_blk)
+        cuda_fn = lvec_compose.spec_compose_lanes_cuda
+        torch_fn = lvec_compose.spec_compose_lanes_torch
+    else:
+        raise ValueError(f"unknown compose mode {mode!r}")
+    if n_pad != n:  # pad_key tail elements compose as identities
+        lane_maps = F.pad(lane_maps, (0, 0, 0, 0, 0, n_pad - n))
+        entry_keys = F.pad(entry_keys, (0, n_pad - n), value=pad_key)
+    return _dispatch(cuda_fn, torch_fn, lane_maps,
+                     (lane_maps.contiguous(), entry_keys.contiguous(),
+                      cand_index, sinks),
+                     dict(pad_key=pad_key), cuda_only=())

@@ -13,7 +13,9 @@ import torch
 
 __all__ = ["classify_pad_ref", "spec_match_merge_ref",
            "spec_match_merge_lanes_ref", "spec_merge_ref",
-           "spec_merge_lanes_ref", "cursor_merge_ref", "scan_lanes"]
+           "spec_merge_lanes_ref", "cursor_merge_ref", "scan_lanes",
+           "compose_lanes_torch", "spec_merge_lanes_scan_ref",
+           "spec_compose_lanes_ref"]
 
 
 def classify_pad_ref(byte_to_class: torch.Tensor, bytes_buf: torch.Tensor,
@@ -44,6 +46,28 @@ def scan_lanes(table: torch.Tensor, chunks: torch.Tensor,
     return st.to(torch.int32)
 
 
+def compose_lanes_torch(a: torch.Tensor, b: torch.Tensor,
+                        b_keys: torch.Tensor, cand_index: torch.Tensor,
+                        sinks: torch.Tensor, *, pad_key: int) -> torch.Tensor:
+    """The keyed Eq. 8 combine of two lane maps: ``a`` then ``b``.
+
+    ``a [..., K, Sa]`` carries states; ``b [..., K, S]`` is a map keyed by
+    ``b_keys [...]`` (its lane j of pattern k assumed entry
+    ``candidates[key, k, j]``).  Every carried state ``q`` reads
+    ``b[..., k, cand_index[key, q]]``, gathered within pattern k's own S
+    lanes; a miss is the pattern's sink, or ``q`` itself when the pattern
+    has none; a ``pad_key`` key makes ``b`` the identity.  Returns
+    ``[..., K, Sa]`` int32.
+    """
+    a = a.to(torch.int32)
+    bk = b_keys.long()[..., None, None]
+    lane = cand_index[bk, a.long()]
+    hit = torch.gather(b.to(torch.int32), -1, lane.clamp(min=0).long())
+    sk = sinks.to(torch.int32)[:, None]
+    out = torch.where(lane < 0, torch.where(sk >= 0, sk, a), hit)
+    return torch.where(bk == pad_key, a, out).to(torch.int32)
+
+
 def _merge_fold(start: torch.Tensor, lvecs: torch.Tensor,
                 lookahead: torch.Tensor, exact: torch.Tensor,
                 cand_index: torch.Tensor, sinks: torch.Tensor, *,
@@ -60,15 +84,10 @@ def _merge_fold(start: torch.Tensor, lvecs: torch.Tensor,
     0, a candidate-keyed carry composes lane-for-lane.
     """
     st = start.to(torch.int32)
-    cidx = cand_index.long()
-    sk = sinks.to(torch.int32)[None, :, None]
     for i in range(lvecs.shape[1]):
         lv_i = lvecs[:, i].to(torch.int32)                      # [B, K, S]
-        la_i = lookahead[:, i].long()                           # [B]
-        lane = cidx[la_i[:, None, None], st.long()]             # [B, K, Sc]
-        hit = torch.gather(lv_i, 2, lane.clamp(min=0))
-        nxt = torch.where(lane < 0, torch.where(sk >= 0, sk, st), hit)
-        nxt = torch.where((la_i == pad_cls)[:, None, None], st, nxt)
+        nxt = compose_lanes_torch(st, lv_i, lookahead[:, i], cand_index,
+                                  sinks, pad_key=pad_cls)       # [B, K, Sc]
         if bool(exact[i]):
             nxt = lv_i[:, :, :1].expand_as(st) if exact_lane0 else lv_i
         st = nxt.to(torch.int32)
@@ -171,3 +190,41 @@ def cursor_merge_ref(cursor_lanes: np.ndarray, seg_lanes: np.ndarray,
     out = np.where(lane < 0, np.where(sk >= 0, sk, q), hit)
     out = np.where((ec == pad_cls)[:, None, None], q, out)
     return out.astype(np.int32)
+
+
+def spec_merge_lanes_scan_ref(lane_maps: np.ndarray, entry_keys: np.ndarray,
+                              cand_index: np.ndarray, sinks: np.ndarray,
+                              *, pad_cls: int) -> np.ndarray:
+    """Sequential-fold oracle of the associative lane-map scan.
+
+    ``lane_maps [B, N, K, S]`` holds, per batch row, a run of candidate-keyed
+    segment transition maps (leftmost first); ``entry_keys [B, N]`` the
+    boundary key selecting each map's Eq. 11 candidate entry row.  Returns
+    all prefixes ``out[:, i] = m_0 ; ... ; m_i`` by repeated
+    :func:`cursor_merge_ref` — the semantics ``core.lvector
+    .merge_scan_lanes_torch`` must reproduce in log depth (keys equal to
+    ``pad_cls`` compose as the identity; element 0's key is never read).
+    """
+    lanes = np.asarray(lane_maps, np.int32)
+    keys = np.asarray(entry_keys, np.int32)
+    out = np.empty_like(lanes)
+    if lanes.shape[1] == 0:
+        return out
+    out[:, 0] = lanes[:, 0]
+    for i in range(1, lanes.shape[1]):
+        out[:, i] = cursor_merge_ref(out[:, i - 1], lanes[:, i], keys[:, i],
+                                     cand_index, sinks, pad_cls=pad_cls)
+    return out
+
+
+def spec_compose_lanes_ref(lane_maps: np.ndarray, entry_keys: np.ndarray,
+                           cand_index: np.ndarray, sinks: np.ndarray,
+                           *, pad_cls: int) -> np.ndarray:
+    """Final composition of each keyed lane-map run: the gap-close fold.
+
+    The oracle of the compose kernels (``lvec_compose``, B3 and B4) and of
+    ``Matcher.compose_lane_maps`` — the last prefix of
+    :func:`spec_merge_lanes_scan_ref`.  Returns [B, K, S].
+    """
+    return spec_merge_lanes_scan_ref(lane_maps, entry_keys, cand_index,
+                                     sinks, pad_cls=pad_cls)[:, -1]

@@ -18,7 +18,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 def test_port_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None\n"
             "import repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
-            "import repro_torch.core.engine\n"
+            "import repro_torch.core.engine, repro_torch.core.lvector\n"
+            "import repro_torch.streaming, repro_torch.streaming.ooo\n"
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'the JAX package was imported'\n"
             "print('ok')\n")
@@ -56,6 +57,20 @@ def test_matcher_without_device_needs_cuda():
         Matcher(compile_regex("ab"))
     with pytest.raises(RuntimeError, match="CUDA"):
         Matcher(compile_regex("ab"), device="cuda")
+
+
+def test_ooo_stream_matcher_without_device_needs_cuda():
+    from repro_torch.core import compile_regex
+    from repro_torch.streaming import OooStreamMatcher
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OooStreamMatcher([compile_regex("ab")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OooStreamMatcher([compile_regex("ab")], device="cuda")
+    ooo = OooStreamMatcher([compile_regex("ab")], device="cpu")
+    assert ooo.matcher.device.type == "cpu" and ooo.matcher.num_chunks == 1
 
 
 def test_device_tables_without_device_needs_cuda():

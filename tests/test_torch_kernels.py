@@ -1,4 +1,5 @@
-"""The fused match + merge wrappers (kernels B1/B2).
+"""The fused match + merge wrappers (kernels B1/B2) and the card checks of
+the compose kernels (B3/B4).
 
 On CPU tensors the port's ``ops.spec_match_merge``/``spec_match_merge_lanes``
 run the kernels' plain versions; they must return the JAX Pallas kernels'
@@ -16,7 +17,7 @@ from repro_torch.core import make_search_dfa as t_make_search_dfa
 from repro_torch.core import pack_dfas as t_pack_dfas
 from repro_torch.core import random_dfa as t_random_dfa
 from repro_torch.core.engine.plan import DeviceTables
-from repro_torch.kernels import dfa_match, ops
+from repro_torch.kernels import dfa_match, lvec_compose, ops
 
 
 def _batch(packed, dev, docs, c, lc, rng, lanes):
@@ -181,3 +182,66 @@ def test_kernel_equals_plain_on_card():
                     torch.cuda.synchronize()
                     assert torch.equal(got.reshape(b, -1), want.reshape(b, -1))
                     assert torch.equal(skip, wskip)
+
+
+def _compose_runs(seed, r, lens, seg_len=16):
+    """Real lane-map runs of a K=3 matcher under ``lookahead_r=r``: row i
+    chains ``lens[i]`` segment maps at their true boundary keys, shorter
+    rows pad with zero maps under ``pad_key``."""
+    rng = np.random.default_rng(seed)
+    m = t_matcher([".*(ab|ba){2}", ".*[0-9]{3}", ".*x+y"], r)
+    dev = m.dev
+    b, n = len(lens), max(lens)
+    cands = dev.tables.candidates.astype(np.int32)
+    maps = np.zeros((b, n, m.packed.n_patterns, dev.i_max), np.int32)
+    keys = np.full((b, n), dev.pad_key, np.int32)
+    segs, where = [], []
+    for i in range(b):
+        data = rng.choice(np.frombuffer(b"abxy0189", np.uint8),
+                          size=2 + lens[i] * seg_len)
+        key = dev.advance_key(-1, data[:2])
+        for j in range(lens[i]):
+            seg = data[2 + j * seg_len:2 + (j + 1) * seg_len]
+            keys[i, j] = key
+            segs.append(seg)
+            where.append((i, j))
+            key = dev.advance_key(key, seg)
+    flat = np.array([keys[i, j] for i, j in where], np.int32)
+    res = m.advance_cursors(segs, np.ascontiguousarray(cands[flat]), flat)
+    rows, cols = np.array(where).T
+    maps[rows, cols] = res.lane_states
+    return dev, maps, keys
+
+
+def t_matcher(patterns, r):
+    from repro_torch.core import Matcher
+    return Matcher([t_make_search_dfa(t_compile_regex(p)) for p in patterns],
+                   lookahead_r=r, num_chunks=2, batch_tile=8, device="cpu")
+
+
+def test_compose_kernels_equal_plain_on_card():
+    """Needs an NVIDIA card (sm_90a): B3 and B4 against their plain versions
+    on every lane, the tree staged in shared memory and in its global
+    scratch copy, r = 1 and 2, ragged runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the compose kernels have no CPU "
+                    "mode")
+    for r in (1, 2):
+        for lens in ([8, 3, 5, 1, 8], [64, 20, 33], [1, 1]):
+            dev, maps, keys = _compose_runs(30 + r, r, lens)
+            args = (torch.from_numpy(maps).cuda(),
+                    torch.from_numpy(keys).cuda(), dev.cidx_pad_t.cuda(),
+                    dev.sinks_t.cuda())
+            want = lvec_compose.spec_compose_lanes_torch(
+                *args, pad_key=dev.pad_key)
+            got = lvec_compose.spec_compose_lanes_cuda(
+                *args, pad_key=dev.pad_key)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (r, lens)
+            want = lvec_compose.spec_compose_lanes_tree_torch(
+                *args, pad_key=dev.pad_key)
+            for in_smem in (True, False):
+                got = lvec_compose.spec_compose_lanes_tree_cuda(
+                    *args, pad_key=dev.pad_key, in_smem=in_smem)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (r, lens, in_smem)
