@@ -29,6 +29,25 @@ Phases (any mismatch raises, so the exit code is non-zero):
      decision against whole-document ``membership_batch``, zero host merges,
      throughput and the device idle share; the default ``num_chunks=1``
      matcher timed beside ``num_chunks=8`` on 64 streams of 16 KiB;
+ 10. hold kernel B5 (``token_mask``) against its plain version bit for bit:
+     B=8, V=32,000 bf16 with the phase-12 grammar's mask table, and B=128,
+     V=128,256 (the llama3 vocabulary) in bf16 and f32; time it beside the
+     plain version and the two-call ``torch.where`` gather-and-select;
+ 11. hold kernel B9 (``flash_attn``) against its plain version within
+     atol = rtol = 3e-2, max |err| <= 1e-2 and RMS error <= 1e-3 of the
+     plain output's RMS, at the tinyllama prefill shape (128 query heads over
+     16 kv heads, T = S = 2,048, D = 64, causal), at D = 128 and with a
+     window of 512; time it beside the plain version and
+     ``scaled_dot_product_attention``;
+ 12. the serving path at full tinyllama-1.1b width, random weights from a
+     seeded generator on the card: ``api.prefill`` at B=4, T=2,048 (B9 once
+     per layer) against the same call on the blockwise attention path;
+     ``ServingEngine.generate`` for 8 grammar-constrained prompts of 512
+     bytes, 32 new tokens, greedy, no EOS (every row runs all 32 decode
+     steps, B5 once per step): every row a
+     live prefix of the grammar, the tokens equal to a run without the
+     kernel and to a run from a chunked ``DecodeStream`` prefill, wall time,
+     tokens/s and the device idle share; then ``launch.serve`` once;
   then print the kernels line and the result line.
 
 Only ``repro_torch``, torch and numpy are imported.  Without a CUDA device,
@@ -66,6 +85,15 @@ SEG8 = 256                           # bytes per phase-8 segment
 STREAMS9, DOC9, SEGS9 = 1024, 64 * 1024, 16   # phase 9 streams
 FRACS9 = (0.0, 0.25, 1.0)            # phase 9 shuffle fractions
 SMALL9 = (64, 16 * 1024)             # phase 9 num_chunks=1 timing: streams, bytes
+BF16_FLOPS_PER_S = 989.4e12          # H100 SXM dense bf16 tensor cores
+MASK10 = ((8, 32_000, "bfloat16"), (128, 128_256, "bfloat16"),
+          (128, 128_256, "float32"))  # phase 10 B5 shapes (B, V, dtype)
+ATTN11 = ((128, 16, 2048, 64, 0), (64, 64, 2048, 128, 0),
+          (128, 16, 2048, 64, 512))   # phase 11 B9: BH, BH_kv, T=S, D, window
+ARCH12 = "tinyllama-1.1b"
+PREFILL12 = (4, 2048)                # phase 12 api.prefill batch, prompt
+SERVE12 = (8, 512, 32, 64)           # prompts, bytes, new tokens, chunk bytes
+GRAMMAR12 = r"([0-9]{1,6}[.,] )*[0-9]{0,6}"
 
 # one planted occurrence of every PCRE-14 pattern (re.search-verified)
 EXAMPLES = {
@@ -229,9 +257,353 @@ def run_streams(ooo, docs, plans, seg_len):
     return [s.close() for s in streams]
 
 
+def kernel_device_ms(fn, name, iters):
+    """Mean device time of one launch of the kernels whose name contains
+    ``name``, over ``iters`` calls of ``fn`` under torch.profiler (None if
+    the profiler recorded none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for ev in prof.key_averages():
+        if name in ev.key and ev.device_type == torch.autograd.DeviceType.CUDA:
+            us += getattr(ev, "self_device_time_total",
+                          getattr(ev, "self_cuda_time_total", 0))
+            n += ev.count
+    return us / n / 1e3 if n and us > 0 else None
+
+
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+def grammar_prompts(rng, b, t):
+    """[b, t] byte prompts made of ``GRAMMAR12``'s groups, cut at t: every
+    row is a live prefix of the grammar."""
+    rows = []
+    for _ in range(b):
+        s = b""
+        while len(s) < t:
+            digits = rng.choice(np.frombuffer(b"0123456789", np.uint8),
+                                size=int(rng.integers(1, 7)))
+            sep = rng.choice(np.frombuffer(b".,", np.uint8), size=1)
+            s += digits.tobytes() + sep.tobytes() + b" "
+        rows.append(np.frombuffer(s[:t], np.uint8).astype(np.int32))
+    return np.stack(rows)
+
+
+def live_prefix(dfa, prompt, row, eos):
+    """Whether prompt + the row's tokens up to EOS keep the DFA out of its
+    sink, with byte tokens only before EOS."""
+    gen = row[:np.argmax(row == eos)] if (row == eos).any() else row
+    if not (gen < 256).all():
+        return False
+    state = dfa.start
+    for c in dfa.classes_of(np.concatenate([prompt, gen]).astype(np.uint8)):
+        state = int(dfa.table[state, int(c)])
+    return state != dfa.sink
+
+
+def numel(tree):
+    """Elements of a nested dict of tensors."""
+    if isinstance(tree, dict):
+        return sum(numel(v) for v in tree.values())
+    return tree.numel()
+
+
+def decode_steps(out, eos):
+    """Decode steps ``generate`` ran for its output: it stops after the step
+    at which every row has emitted EOS."""
+    done = np.cumsum(out == eos, axis=1) > 0
+    full = np.flatnonzero(done.all(axis=0))
+    return int(full[0]) + 1 if full.size else out.shape[1]
+
+
+def phase10_token_mask(gc, rng, kernels):
+    """B5 against its plain version, bit for bit, and its times."""
+    import torch
+    from repro_torch.kernels import token_mask
+
+    for b, v, dtype in MASK10:
+        dt = getattr(torch, dtype)
+        if v == gc.allowed.shape[1]:
+            allowed = gc.allowed
+        else:  # the grammar's mask rows over a larger vocabulary
+            allowed = torch.nn.functional.pad(
+                gc.allowed, (0, v - gc.allowed.shape[1]))
+            allowed[:, gc.allowed.shape[1]:] = torch.from_numpy(
+                rng.integers(0, 2, size=(allowed.shape[0],
+                                         v - gc.allowed.shape[1]),
+                             dtype=np.uint8)).to(DEVICE)
+        states = torch.from_numpy(rng.integers(
+            0, allowed.shape[0], size=b).astype(np.int32)).to(DEVICE)
+        logits = torch.randn(b, v, device=DEVICE).to(dt)
+        args = (states, allowed, logits)
+        want = token_mask.token_mask_torch(*args)
+        got = token_mask.token_mask_cuda(*args)
+        torch.cuda.synchronize()
+        bits = torch.int32 if dt == torch.float32 else torch.int16
+        check(torch.equal(got.view(bits), want.view(bits)),
+              f"token_mask B={b} V={v} {dtype}: kernel differs from its "
+              "plain version")
+        neg = torch.tensor(-1e30, dtype=dt, device=DEVICE)
+        library = lambda: torch.where(allowed[states.long()] > 0, logits, neg)
+        for _ in range(3):
+            token_mask.token_mask_cuda(*args)
+        ms = cuda_ms(lambda: token_mask.token_mask_cuda(*args), 50)
+        dev_ms = kernel_device_ms(lambda: token_mask.token_mask_cuda(*args),
+                                  "token_mask", 20)
+        plain_ms = cuda_ms(lambda: token_mask.token_mask_torch(*args), 20)
+        lib_ms = cuda_ms(library, 20)
+        # each input read once (the mask rows of the distinct states, the
+        # logits, the states), the output written once
+        rows = int(torch.unique(states).numel())
+        n_bytes = (rows * v + 2 * logits.numel() * logits.element_size()
+                   + 4 * b)
+        bound = n_bytes / HBM_BYTES_PER_S * 1e3
+        print(f"[10] token_mask B={b} V={v} {dtype} Q={allowed.shape[0]} "
+              f"({rows} distinct states): "
+              f"kernel {ms:.5f} ms per call (device time "
+              f"{'n/a' if dev_ms is None else f'{dev_ms:.5f} ms'})  "
+              f"plain {plain_ms:.5f} ms  library "
+              f"{lib_ms:.5f} ms  bound {bound:.5f} ms (bytes, "
+              f"{n_bytes} B)  equal bit for bit")
+        if (b, v, dtype) == MASK10[0]:
+            kernels["token_mask"] = dict(
+                name="token_mask", route="cuda",
+                source="src/repro_torch/kernels/csrc/token_mask.cu",
+                replaces="src/repro/kernels/token_mask.py:28",
+                launches=None, max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by="bytes", library_ms=lib_ms)
+
+
+def attn_bound(bh, bh_kv, t, s, d, window):
+    """(ms, "bytes"/"operations") bound of one causal attention call: the
+    unmasked (q, k) pairs at 4*D flops each over the bf16 tensor-core rate,
+    against Q, K, V and O moved once."""
+    q = np.arange(t)
+    live = np.minimum(q + 1, window) if window > 0 else q + 1
+    flops = 4.0 * bh * float(live.sum()) * d
+    n_bytes = 2 * d * (2 * bh * t + 2 * bh_kv * s)
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), flops
+
+
+def phase11_flash_attn(kernels):
+    """B9 against its plain version within 3e-2, and its times."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attn
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    worst = 0.0
+    for bh, bh_kv, t, d, window in ATTN11:
+        group = bh // bh_kv
+        q = torch.randn(bh, t, d, device=DEVICE, generator=gen).bfloat16()
+        k = torch.randn(bh_kv, t, d, device=DEVICE, generator=gen).bfloat16()
+        v = torch.randn(bh_kv, t, d, device=DEVICE, generator=gen).bfloat16()
+        kw = dict(causal=True, window=window, group=group)
+        want = flash_attn.flash_attn_torch(q, k, v, **kw).float()
+        got = flash_attn.flash_attn_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs()
+        # at T = 2,048 a typical output is ~0.04, so 3e-2 alone would pass a
+        # dropped kv tile: the error is also held to 1e-2 and its RMS to
+        # 1e-3 of the plain output's RMS (on an H100: 0.0039 and under 1e-4)
+        rms = float(want.pow(2).mean().sqrt())
+        rel_rms = float(err.pow(2).mean().sqrt()) / rms
+        check(bool((err <= 3e-2 + 3e-2 * want.abs()).all())
+              and float(err.max()) <= 1e-2 and rel_rms <= 1e-3,
+              f"flash_attn BH={bh} T={t} D={d} window={window}: kernel "
+              f"differs from its plain version (max |err| "
+              f"{float(err.max())}, RMS err / RMS out {rel_rms})")
+        worst = max(worst, float(err.max()))
+        for _ in range(2):
+            flash_attn.flash_attn_cuda(q, k, v, **kw)
+        ms = cuda_ms(lambda: flash_attn.flash_attn_cuda(q, k, v, **kw), 10)
+        plain_ms = cuda_ms(lambda: flash_attn.flash_attn_torch(q, k, v, **kw),
+                           1)
+        lib_ms = None
+        if window == 0:
+            b = bh // 32 if bh % 32 == 0 else 1
+            q4 = q.view(b, bh // b, t, d)
+            k4, v4 = k.view(b, bh_kv // b, t, d), v.view(b, bh_kv // b, t, d)
+            sdpa = lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True, enable_gqa=group > 1)
+            sdpa()
+            lib_ms = cuda_ms(sdpa, 10)
+        bound, by, flops = attn_bound(bh, bh_kv, t, t, d, window)
+        print(f"[11] flash_attn BH={bh} (kv {bh_kv}) T=S={t} D={d} causal "
+              f"window={window}: max |err| {float(err.max()):.6f}, RMS out "
+              f"{rms:.6f}, RMS err / RMS out {rel_rms:.6f}  kernel "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)  plain "
+              f"{plain_ms:.3f} ms  library "
+              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound "
+              f"{bound:.5f} ms ({by})")
+        if (bh, bh_kv, t, d, window) == ATTN11[0]:
+            kernels["flash_attn"] = dict(
+                name="flash_attn", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attn.cu",
+                replaces="src/repro/kernels/flash_attn.py:39",
+                launches=None, max_abs_err=None, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=lib_ms)
+    kernels["flash_attn"]["max_abs_err"] = worst
+    print(f"[11] flash_attn within 3e-2 and 1e-2 of its plain version (max "
+          f"|err| {worst:.6f})")
+
+
+def phase12_serving(rng, counts):
+    """The serving path at full width: api.prefill on B9, generate on B5."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import compile_regex
+    from repro_torch.kernels import flash_attn, token_mask
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.serving import (GrammarConstraint, ServeConfig,
+                                     ServingEngine)
+
+    cfg = get_config(ARCH12)
+    t0 = time.perf_counter()
+    params = api.init(cfg, SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = numel(params)
+    print(f"[12] {ARCH12}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads, head_dim "
+          f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+          f"{n_params} random f32 parameters in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # -- api.prefill: B9 on the card vs the blockwise attention path
+    b, t = PREFILL12
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b, t))
+                              .astype(np.int32)).to(DEVICE)
+    batch = {"tokens": tokens}
+    runs = {}
+    for route in ("auto", "0"):
+        os.environ["REPRO_PALLAS_ATTN"] = route
+        api.prefill(params, cfg, batch)          # warm
+        torch.cuda.synchronize()
+        flash_attn.reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = api.prefill(params, cfg, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[route] = (logits[:, -1].float(), wall,
+                       flash_attn.launches["flash_attn"])
+        del cache
+    os.environ.pop("REPRO_PALLAS_ATTN")
+    (lk, wk, nk), (lx, wx, nx) = runs["auto"], runs["0"]
+    counts["flash_attn"] = nk
+    check(nk == cfg.n_layers and nx == 0,
+          f"api.prefill launched B9 {nk} times (blockwise route {nx}); "
+          f"expected once per layer ({cfg.n_layers})")
+    check(bool(torch.isfinite(lk).all()) and lk.shape == (b, cfg.padded_vocab),
+          "prefill logits not finite or of the wrong shape")
+    err = float((lk - lx).abs().max())
+    scale = float(lx.abs().max())
+    print(f"[12] api.prefill B={b} T={t}: B9 route {wk:.4f} s "
+          f"({b * t / wk:.0f} tokens/s, B9 launches {nk}); blockwise route "
+          f"{wx:.4f} s ({b * t / wx:.0f} tokens/s); last-position logits "
+          f"max |err| {err:.5f} of max |logit| {scale:.4f} "
+          f"({err / scale:.5f})")
+    check(err <= 5e-2 * scale, "prefill logits on B9 and on the blockwise "
+          "path differ by more than 5e-2 of the largest logit")
+    ak, ax = lk.argmax(-1), lx.argmax(-1)
+    if torch.equal(ak, ax):
+        print(f"[12] greedy argmax of every row agrees: {ak.tolist()}")
+    for r in torch.nonzero(ak != ax).flatten().tolist():
+        top2 = lx[r].topk(2).values
+        print(f"[12] row {r}: argmax {int(ak[r])} vs {int(ax[r])}; "
+              f"blockwise top-2 margin {float(top2[0] - top2[1]):.5f}")
+    device_busy(lambda: api.prefill(params, cfg, batch), "[12] prefill")
+
+    # -- ServingEngine.generate, grammar-constrained, greedy
+    n, width, max_new, chunk = SERVE12
+    dfa = compile_regex(GRAMMAR12)
+    prompts = grammar_prompts(rng, n, width)
+    # no EOS: every state of GRAMMAR12 has a byte continuation, so each row
+    # runs all max_new decode steps
+    gc = GrammarConstraint(dfa, cfg.padded_vocab, eos_id=None, device=DEVICE)
+    eng = ServingEngine(cfg, params, ServeConfig(max_new_tokens=max_new),
+                        constraint=gc)
+    eng.generate(prompts[:, :64])                # warm
+    torch.cuda.synchronize()
+    token_mask.reset_launches()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts)
+    wall = time.perf_counter() - t0
+    launched = token_mask.launches["token_mask"]
+    counts["token_mask"] = launched
+    steps = decode_steps(out, eng.serve.eos_id)
+    check(steps == max_new and launched == steps, f"generate launched B5 "
+          f"{launched} times over {steps} decode steps (of {max_new})")
+    check(out.shape == (n, max_new) and all(
+        live_prefix(dfa, p, row, eng.serve.eos_id)
+        for p, row in zip(prompts, out)),
+        "a generated row leaves the grammar")
+    n_tok = int(sum(np.argmax(r == eng.serve.eos_id) + 1
+                    if (r == eng.serve.eos_id).any() else len(r)
+                    for r in out))
+    print(f"[12] generate: {n} prompts x {width} bytes, {steps} decode "
+          f"steps, {n_tok} tokens (EOS included) in {wall:.4f} s: "
+          f"{n_tok / wall:.1f} tokens/s, {n * steps / wall:.1f} row-steps/s;"
+          f" B5 launches {launched}; every row a live prefix of the grammar")
+    for p, row in list(zip(prompts, out))[:2]:
+        text = bytes(int(x) for x in row if x < 256).decode(errors="replace")
+        print(f"[12]   ...{bytes(p[-24:].astype(np.uint8)).decode()!r} -> "
+              f"{text!r}")
+    plain = GrammarConstraint(dfa, cfg.padded_vocab, use_kernel=False,
+                              eos_id=None, device=DEVICE)
+    out_plain = ServingEngine(cfg, params, ServeConfig(max_new_tokens=max_new),
+                              constraint=plain).generate(prompts)
+    check(np.array_equal(out, out_plain),
+          "generate with B5 differs from generate with use_kernel=False")
+    t0 = time.perf_counter()
+    ds = gc.open_decode(n)
+    for lo in range(0, width, chunk):
+        ds.feed_tokens(prompts[:, lo:lo + chunk])
+    stream_wall = time.perf_counter() - t0
+    one_shot = gc.advance_tokens(gc.init_states(n), prompts)
+    check(torch.equal(ds.states, one_shot),
+          "chunked DecodeStream states differ from the one-shot prefill")
+    out_stream = eng.generate(prompts, decode_stream=ds)
+    check(np.array_equal(out, out_stream),
+          "generate from a chunked DecodeStream differs")
+    print(f"[12] --stream prefill: {width // chunk} chunk rounds of {chunk} "
+          f"bytes x {n} rows in {stream_wall:.4f} s ({ds.stream.stats.ticks}"
+          f" ticks, the seq lowering); states equal the one-shot prefill; "
+          f"tokens equal with use_kernel=False and from the stream")
+    device_busy(lambda: eng.generate(prompts), "[12] generate")
+    # one eager decode step at the generate batch, on the host clock
+    from repro_torch.models import transformer as TF
+    cache = TF.init_cache(cfg, n, width + max_new, device=DEVICE)
+    tok = torch.full((n, 1), ord("1"), dtype=torch.int32, device=DEVICE)
+    TF.decode_step(params, cfg, cache, tok, width)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, 9):
+        TF.decode_step(params, cfg, cache, tok, width + i)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 8 * 1e3
+    print(f"[12] decode_step (eager, B={n}, cache {width + max_new}): "
+          f"{step_ms:.2f} ms per step on the host clock")
+    device_busy(lambda: TF.decode_step(params, cfg, cache, tok, width + 9),
+                "[12] decode_step")
+    del cache
+    del params, eng
+    torch.cuda.empty_cache()
+    serve.main(["--arch", ARCH12, "--max-new", "8", "--prompts", "12. 34",
+                "7, 891", "--grammar", GRAMMAR12])
 
 
 def main() -> int:
@@ -249,6 +621,9 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     dev_name = torch.cuda.get_device_name(0)
+    # float32 products in full float32 (no TF32), as the references assume
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # -- phase 1: the card and the build ------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -614,6 +989,18 @@ def main() -> int:
               f"bytes, shuffle 1: {wall:.3f} s, "
               f"{len(small) * SMALL9[1] / wall / 1e6:.2f} MB/s; lowerings "
               f"{sorted(set(mc.perf_report()['lowerings'].values()))}")
+
+    # -- phases 10-12: the serving kernels and the serving path ---------------
+    from repro_torch.configs import get_config
+    from repro_torch.core import compile_regex
+    from repro_torch.serving import GrammarConstraint
+
+    gc10 = GrammarConstraint(compile_regex(GRAMMAR12),
+                             get_config(ARCH12).padded_vocab, eos_id=None,
+                             device=DEVICE)
+    phase10_token_mask(gc10, rng, kernels)
+    phase11_flash_attn(kernels)
+    phase12_serving(rng, counts)
     for name in kernels:
         kernels[name]["launches"] = counts[name]
 

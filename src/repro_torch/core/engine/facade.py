@@ -210,9 +210,26 @@ class Matcher:
         self.compose_calls += 1
         return out
 
-    def advance_classes(self, states, classes):
-        raise NotImplementedError("advance_classes is not ported yet "
-                                  "(ROADMAP A13)")
+    # -- serving hook -------------------------------------------------------
+
+    def advance_classes(self, states, classes) -> torch.Tensor:
+        """Advance [B] packed states through [B, T] class columns.
+
+        One ``table_pad[st, col]`` gather per column on ``self.device``
+        (the JAX package's ``lax.scan``).  ``pad_cls`` columns are identity
+        moves (the padded table's extra column), which is how callers encode
+        "this position advances no DFA" — e.g. special tokens in
+        grammar-constrained serving.  Returns [B] int32 on ``self.device``.
+        """
+        st = torch.as_tensor(states, dtype=torch.int32).to(self.device)
+        cls = torch.as_tensor(classes, dtype=torch.int32).to(self.device)
+        if cls.dim() != 2:
+            raise ValueError("advance_classes expects [B, T] classes")
+        table = self.dev.table_pad_t
+        cls = cls.long()
+        for j in range(cls.shape[1]):
+            st = table[st.long(), cls[:, j]]
+        return st
 
     # -- properties ---------------------------------------------------------
 

@@ -12,10 +12,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import dfa_match, lvec_compose
+from . import dfa_match, flash_attn as _flash_attn, lvec_compose
+from . import token_mask as _token_mask
 
 __all__ = ["spec_match_merge", "spec_match_merge_lanes",
-           "spec_compose_lanes"]
+           "spec_compose_lanes", "token_mask", "flash_attn"]
 
 
 def _pad_to_block(n: int, target: int) -> tuple[int, int]:
@@ -139,3 +140,29 @@ def spec_compose_lanes(lane_maps, entry_keys, cand_index, sinks, *,
                      (lane_maps.contiguous(), entry_keys.contiguous(),
                       cand_index, sinks),
                      dict(pad_key=pad_key), cuda_only=())
+
+
+def token_mask(states, allowed, logits, *, neg: float = -1e30):
+    """Fused grammar mask (kernel B5); see ``ref.token_mask_ref``.
+
+    states [B] int32, allowed [Q, V] uint8/bool, logits [B, V] float32 or
+    bfloat16 -> masked logits of the logits' dtype.  Any V: the kernel masks
+    the vocab tail itself, so nothing is padded.
+    """
+    return _dispatch(_token_mask.token_mask_cuda, _token_mask.token_mask_torch,
+                     logits, (states, allowed, logits), dict(neg=neg),
+                     cuda_only=())
+
+
+def flash_attn(q, k, v, *, causal: bool = True, window: int = 0,
+               group: int = 1):
+    """Fused flash-attention forward (kernel B9); see ``ref.flash_attn_ref``.
+
+    q [BH, T, D]; k, v [BH / group, S, D] (``group = 1``: the [BH, S, D]
+    contract of the JAX op; a GQA caller may pass its kv heads unrepeated
+    with ``group`` query heads each) -> [BH, T, D].  Any T and S: the kernel
+    masks both tails, so no block size has to divide them.
+    """
+    return _dispatch(_flash_attn.flash_attn_cuda, _flash_attn.flash_attn_torch,
+                     q, (q, k, v), dict(causal=causal, window=window,
+                                        group=group), cuda_only=())

@@ -1,9 +1,11 @@
-"""Plain PyTorch oracles of the main-path matching kernels.
+"""Plain PyTorch oracles of the kernels.
 
-Each ``*_ref`` function defines the exact semantics its kernel must
-reproduce, on int32 tensors of any device.  All outputs are integer state ids,
-so every comparison against them is exact.  Documents are batched on the
-leading axis: the folds loop over chunks and symbols, never over documents.
+Each ``*_ref`` function defines the semantics its kernel must reproduce, on
+tensors of any device.  The matching oracles return integer state ids, so
+every comparison against them is exact; documents are batched on the
+leading axis and the folds loop over chunks and symbols, never over
+documents.  ``token_mask_ref`` selects bits and is exact too;
+``flash_attn_ref`` is the one float oracle (bf16 products, f32 softmax).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ __all__ = ["classify_pad_ref", "spec_match_merge_ref",
            "spec_match_merge_lanes_ref", "spec_merge_ref",
            "spec_merge_lanes_ref", "cursor_merge_ref", "scan_lanes",
            "compose_lanes_torch", "spec_merge_lanes_scan_ref",
-           "spec_compose_lanes_ref"]
+           "spec_compose_lanes_ref", "token_mask_ref", "flash_attn_ref"]
 
 
 def classify_pad_ref(byte_to_class: torch.Tensor, bytes_buf: torch.Tensor,
@@ -228,3 +230,36 @@ def spec_compose_lanes_ref(lane_maps: np.ndarray, entry_keys: np.ndarray,
     """
     return spec_merge_lanes_scan_ref(lane_maps, entry_keys, cand_index,
                                      sinks, pad_cls=pad_cls)[:, -1]
+
+
+def token_mask_ref(states: torch.Tensor, allowed: torch.Tensor,
+                   logits: torch.Tensor, neg: float = -1e30) -> torch.Tensor:
+    """Constrained-decoding logit masking.
+
+    states [B] int32 DFA states; allowed [Q, V] bool (or 0/1); logits [B, V]
+    float.  Returns logits with disallowed tokens set to ``neg`` rounded to
+    the logits' dtype.
+    """
+    mask = allowed[states.long()].bool()  # [B, V]
+    return torch.where(mask, logits,
+                       torch.tensor(neg, dtype=logits.dtype,
+                                    device=logits.device))
+
+
+def flash_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Oracle of the fused flash-attention kernel: q/k/v [BH, T|S, D]."""
+    d = q.shape[-1]
+    logits = torch.einsum("htd,hsd->hts", q, k).float() * d ** -0.5
+    t, s = q.shape[1], k.shape[1]
+    q_pos = torch.arange(t, device=q.device)[:, None]
+    k_pos = torch.arange(s, device=q.device)[None, :]
+    ok = torch.ones((t, s), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= k_pos <= q_pos
+    if window > 0:
+        ok &= k_pos > q_pos - window
+    logits = torch.where(ok[None], logits, torch.tensor(-1e30,
+                                                        device=q.device))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("hts,hsd->htd", probs, v)

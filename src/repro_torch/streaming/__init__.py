@@ -1,5 +1,5 @@
-"""Streaming match runtime of the port: resumable cursors and the
-out-of-order ingestion tier.
+"""Streaming match runtime of the port: resumable cursors, micro-batched
+scheduling and the out-of-order ingestion tier.
 
     cursor.py     ``MatchCursor`` / ``segment_result`` / ``merge`` — the pure
                   Eq. 8 composition that makes matching resumable, bit-
@@ -7,29 +7,224 @@ out-of-order ingestion tier.
                   ``merge`` is the host reference of the device merge
                   (``Matcher.advance_cursors``); ``merge_calls`` counts host
                   merges, and the streaming data paths leave it flat.
+    scheduler.py  ``MicroBatchScheduler`` + ``TickPolicy`` — an admission
+                  queue that coalesces pending segments from many streams
+                  and dispatches one round per tick through
+                  ``Matcher.advance_segments`` / ``advance_cursors``, under
+                  retry-with-restore (``RetryPolicy``).
     session.py    ``StreamResult`` (a closed stream's decision) and
                   ``StreamSession``.
+    faults.py     ``FaultPlan`` — deterministic fault injection for the
+                  scheduler's recovery paths.
     ooo/          ``OooStreamMatcher``: segments arrive in any order, are
                   matched first as candidate-keyed maps and folded into the
                   exact cursor when gaps close (``Matcher.compose_lane_maps``).
 
-Not ported yet (ROADMAP A8): the in-order ``StreamMatcher`` facade, the
-micro-batch scheduler, fault injection, session checkpoints (and with them
-``OooStreamMatcher.snapshot``/``restore``) and ``BlockedStreamMatcher``.
+``StreamMatcher`` below is the in-order facade:
+
+    sm = StreamMatcher([compile_regex(r".*SECRET-[0-9]+")], device="cpu")
+    s = sm.open()
+    s.feed(chunk)            # admits; the scheduler decides when to dispatch
+    res = s.close()          # flushes; [K] accept flags + final states
+
+Not ported yet: session checkpoints (``StreamMatcher.snapshot``/``restore``
+and ``OooStreamMatcher``'s, ROADMAP A8), hot pattern swap (the A6 tail) and
+``BlockedStreamMatcher`` (A7).
 """
 
+from __future__ import annotations
+
+import numpy as np
+
+from ..core.engine.facade import Matcher
 from .cursor import (ENTRY_EXACT, MatchCursor, SegmentResult, counting_merges,
                      merge, merge_calls, open_cursor, open_lane_cursor,
                      reset_merge_calls, segment_result)
+from .faults import FaultPlan, InjectedFault
 from .ooo import (OooIntegrityError, OooPolicy, OooStats, OooStream,
                   OooStreamMatcher, ReorderBufferFull, SequenceGapError,
                   segment_fingerprint)
+from .scheduler import (MicroBatchScheduler, RetryPolicy, SchedulerStats,
+                        TickPolicy)
 from .session import StreamResult, StreamSession
 
-__all__ = ["StreamSession", "StreamResult",
+__all__ = ["StreamMatcher", "StreamSession", "StreamResult", "TickPolicy",
+           "RetryPolicy", "SchedulerStats", "MicroBatchScheduler",
            "MatchCursor", "SegmentResult", "ENTRY_EXACT", "open_cursor",
            "open_lane_cursor", "segment_result", "merge", "merge_calls",
-           "reset_merge_calls", "counting_merges",
+           "reset_merge_calls", "counting_merges", "FaultPlan",
+           "InjectedFault",
            "OooStreamMatcher", "OooStream", "OooStats", "OooPolicy",
            "ReorderBufferFull", "SequenceGapError", "OooIntegrityError",
            "segment_fingerprint"]
+
+
+class StreamMatcher:
+    """Resumable, continuously micro-batched matching over byte streams.
+
+    ``source`` is anything ``core.engine.Matcher`` accepts (a DFA, a
+    ``PackedDFA``, a sequence of DFAs) — or an existing ``Matcher``, whose
+    buckets, backend and device are then shared with whole-document
+    matching.
+
+    **Bit-identity guarantee**: a closed stream's [K] ``accepted`` /
+    ``final_states`` equal ``Matcher.membership_batch`` on the stream's
+    concatenated bytes, regardless of how the bytes were split across
+    ``feed`` calls — on either backend ("cuda" / "local").
+
+    ``policy`` sets the tick policy (default: eager flush; see
+    ``TickPolicy`` — ``max_batch`` pending streams, ``max_delay`` feed
+    events, or a ``max_delay_s`` wall-clock deadline).  Remaining keyword
+    arguments (``backend=``, ``num_chunks=``, ``batch_tile=``, ``device=``,
+    ...) construct the underlying ``Matcher`` (on the card unless
+    ``device`` says otherwise).  When the matcher is built here,
+    ``num_chunks`` defaults to 1 (batched sequential scan, the seq
+    lowering): with many concurrent streams the *row* axis already
+    saturates the device, and per-segment chunk speculation would add
+    C x S redundant lanes per stream.  Pass ``num_chunks>1`` (or a
+    pre-built ``Matcher``) for few heavy streams, where in-segment
+    speculation is the only parallelism.
+    """
+
+    def __init__(self, source, *, policy: TickPolicy | None = None,
+                 clock=None, retry: RetryPolicy | None = None,
+                 straggler=None, fault_plan: FaultPlan | None = None,
+                 lane_ticks: bool = False, **matcher_kwargs):
+        if isinstance(source, Matcher):
+            if matcher_kwargs:
+                raise ValueError("matcher kwargs conflict with a pre-built "
+                                 f"Matcher: {sorted(matcher_kwargs)}")
+            self.matcher = source
+        else:
+            matcher_kwargs.setdefault("num_chunks", 1)
+            self.matcher = Matcher(source, **matcher_kwargs)
+        # clock (default time.monotonic) feeds the max_delay_s deadline;
+        # simulated event loops and tests inject their own.  retry /
+        # straggler / fault_plan configure the scheduler's fault-tolerance
+        # layer (see scheduler.py docstring).
+        sched_kwargs = dict(retry=retry, straggler=straggler,
+                            fault_plan=fault_plan, lane_ticks=lane_ticks)
+        if clock is not None:
+            sched_kwargs["clock"] = clock
+        self.scheduler = MicroBatchScheduler(self.matcher, policy,
+                                             **sched_kwargs)
+        self._next_sid = 0
+        self._sessions: dict[int, StreamSession] = {}
+
+    # -- session lifecycle ---------------------------------------------------
+
+    def open(self) -> StreamSession:
+        """Open a stream at byte position 0 (exact cursor at the starts)."""
+        sid = self._next_sid
+        self._next_sid += 1
+        session = StreamSession(sid, self, open_cursor(self.matcher.dev))
+        self._sessions[sid] = session
+        return session
+
+    def open_at(self, entry_class: int) -> StreamSession:
+        """Open a candidate-keyed stream *mid-flight*: its bytes start at an
+        unknown position whose preceding boundary key is ``entry_class``.
+
+        Requires ``lane_ticks=True``.  The session's cursor stays a [K, S]
+        restricted transition map across ticks (``Matcher.advance_cursors``
+        advances it without collapsing), so ``close_map`` can hand back a
+        ``SegmentResult`` composable onto whatever prefix eventually lands —
+        the scheduler half of the out-of-order tier (``streaming.ooo`` owns
+        sequencing).
+        """
+        if not self.scheduler.lane_ticks:
+            raise ValueError("open_at requires StreamMatcher(..., "
+                             "lane_ticks=True)")
+        sid = self._next_sid
+        self._next_sid += 1
+        session = StreamSession(sid, self,
+                                open_lane_cursor(self.matcher.dev,
+                                                 entry_class))
+        self._sessions[sid] = session
+        return session
+
+    def close_map(self, session: StreamSession) -> SegmentResult:
+        """Close a candidate-keyed session; returns its accumulated
+        restricted transition map (everything fed, as one composable
+        ``SegmentResult`` keyed on the session's ``entry_class``)."""
+        if session.closed:
+            raise ValueError("stream session is already closed")
+        if session.owner is not self:
+            raise ValueError("session belongs to a different StreamMatcher")
+        if session.cursor.exact:
+            raise ValueError("session is exact (opened at byte 0); use "
+                             "close() for its final decision")
+        if session.pending_bytes:
+            self.scheduler.tick()
+        session.closed = True
+        self._sessions.pop(session.sid, None)
+        cur = session.cursor
+        return SegmentResult(lane_states=cur.lane_states.copy(),
+                             entry_class=cur.entry_class,
+                             n_bytes=cur.byte_count,
+                             last_class=cur.last_class)
+
+    def feed(self, session: StreamSession, data: bytes | np.ndarray, *,
+             flush: bool = False) -> None:
+        """Admit the stream's next segment; dispatch is up to the policy
+        (``flush=True`` forces a tick after admission)."""
+        if session.closed:
+            raise ValueError("stream session is closed")
+        if session.owner is not self:
+            raise ValueError("session belongs to a different StreamMatcher")
+        buf = (bytes(data) if isinstance(data, (bytes, bytearray))
+               else np.asarray(data, np.uint8).tobytes())
+        session.segments_fed += 1
+        # empty segments route through too: they are a no-op for this stream
+        # but still a feed event, so queued streams' max_delay / max_delay_s
+        # deadlines advance (the scheduler never parks a zero-byte segment)
+        self.scheduler.enqueue(session, buf)
+        if flush:
+            self.scheduler.tick()
+
+    def flush(self) -> int:
+        """Force one tick over everything pending; returns streams advanced."""
+        return self.scheduler.tick()
+
+    def close(self, session: StreamSession) -> StreamResult:
+        """Flush the stream's pending bytes and return its final decision."""
+        if session.closed:
+            raise ValueError("stream session is already closed")
+        if session.owner is not self:
+            raise ValueError("session belongs to a different StreamMatcher")
+        if session.pending_bytes:
+            # one tick drains the whole queue, so closing one stream still
+            # coalesces every other pending stream into the same device round
+            self.scheduler.tick()
+        session.closed = True
+        self._sessions.pop(session.sid, None)
+        states = session.cursor.states
+        return StreamResult(
+            accepted=self.matcher.packed.accepting[states].copy(),
+            final_states=states.copy(),
+            byte_count=session.cursor.byte_count,
+            segments_fed=session.segments_fed)
+
+    # -- not ported yet ------------------------------------------------------
+
+    def swap_patterns(self, source) -> bool:
+        raise NotImplementedError("StreamMatcher.swap_patterns is not ported "
+                                  "yet (ROADMAP A6 tail)")
+
+    def snapshot(self, directory: str, *, step: int | None = None) -> str:
+        raise NotImplementedError("StreamMatcher.snapshot is not ported yet "
+                                  "(ROADMAP A8)")
+
+    def restore(self, directory: str, *, step: int | None = None):
+        raise NotImplementedError("StreamMatcher.restore is not ported yet "
+                                  "(ROADMAP A8)")
+
+    # -- introspection -------------------------------------------------------
+
+    @property
+    def stats(self) -> SchedulerStats:
+        return self.scheduler.stats
+
+    @property
+    def n_patterns(self) -> int:
+        return self.matcher.n_patterns

@@ -20,6 +20,9 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
             "import repro_torch.core.engine, repro_torch.core.lvector\n"
             "import repro_torch.streaming, repro_torch.streaming.ooo\n"
+            "import repro_torch.models, repro_torch.serving\n"
+            "import repro_torch.configs, repro_torch.launch.serve\n"
+            "import repro_torch.distributed\n"
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'the JAX package was imported'\n"
             "print('ok')\n")
@@ -101,5 +104,24 @@ def test_matcher_unported_options_raise():
     m = Matcher(dfa, device="cpu")
     with pytest.raises(NotImplementedError):
         m.swap_patterns(dfa)
-    with pytest.raises(NotImplementedError):
-        m.advance_classes(None, None)
+
+
+def test_serving_entry_points_without_device_need_cuda():
+    from repro_torch import configs
+    from repro_torch.core import compile_regex
+    from repro_torch.models import api
+    from repro_torch.serving import GrammarConstraint
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    cfg = configs.reduce_for_smoke(configs.get_config("tinyllama-1.1b"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GrammarConstraint(compile_regex("ab"), 512)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.init(cfg, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.make_inputs(cfg, configs.SHAPES["train_4k"])
+    gc = GrammarConstraint(compile_regex("ab"), 512, device="cpu")
+    assert gc.allowed.device.type == gc.tok_cls.device.type == "cpu"
+    assert api.init(cfg, 0, device="cpu")["embed"]["table"].device.type \
+        == "cpu"

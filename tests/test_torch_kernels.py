@@ -1,11 +1,15 @@
-"""The fused match + merge wrappers (kernels B1/B2) and the card checks of
-the compose kernels (B3/B4).
+"""The fused match + merge wrappers (kernels B1/B2), the serving kernels'
+wrappers (B5 ``token_mask``, B9 ``flash_attn``) and the card checks of every
+kernel.
 
-On CPU tensors the port's ``ops.spec_match_merge``/``spec_match_merge_lanes``
-run the kernels' plain versions; they must return the JAX Pallas kernels'
-finals or lanes, ``skipped`` block counts and ``l_blk`` exactly (the JAX side
-runs in interpret mode, as its own tests do).  The CUDA kernel itself is held
-against its plain version by the one test here that needs the card.
+On CPU tensors the port's ops run the kernels' plain versions.
+``ops.spec_match_merge``/``spec_match_merge_lanes`` must return the JAX
+Pallas kernels' finals or lanes, ``skipped`` block counts and ``l_blk``
+exactly, ``ops.token_mask`` the JAX op's bits; ``ops.flash_attn`` agrees with
+the JAX op within atol = rtol = 3e-2, the JAX package's own tolerance for
+the kernel (the JAX side runs in interpret mode, as its own tests do).  The
+CUDA kernels are held against their plain versions by the tests that need
+the card; they skip here.
 """
 
 import numpy as np
@@ -17,7 +21,9 @@ from repro_torch.core import make_search_dfa as t_make_search_dfa
 from repro_torch.core import pack_dfas as t_pack_dfas
 from repro_torch.core import random_dfa as t_random_dfa
 from repro_torch.core.engine.plan import DeviceTables
-from repro_torch.kernels import dfa_match, lvec_compose, ops
+from repro_torch.kernels import dfa_match, flash_attn, lvec_compose, ops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import token_mask
 
 
 def _batch(packed, dev, docs, c, lc, rng, lanes):
@@ -151,12 +157,12 @@ def test_smem_plan():
         dfa_match.smem_plan(100, 10, 8, 10 ** 6, carry_in_smem=True)
 
 
-@pytest.mark.skipif(not torch.cuda.is_available(),
-                    reason="needs a CUDA device; the kernels have no CPU mode")
 def test_kernel_equals_plain_on_card():
     """Needs an NVIDIA card (sm_90a): the CUDA kernels against their plain
     versions, both table and both lane-carry placements, early exit on and
     off, r = 1 and 2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
     for make in (lambda: _random_case(1, 21, (5, 8, 200)),
                  lambda: _random_case(2, 22, (5, 8, 200)),
                  lambda: _hit_case(23, (3, 8, 160))):
@@ -245,3 +251,155 @@ def test_compose_kernels_equal_plain_on_card():
                     *args, pad_key=dev.pad_key, in_smem=in_smem)
                 torch.cuda.synchronize()
                 assert torch.equal(got, want), (r, lens, in_smem)
+
+
+# --------------------------------------------------------------------------
+# B5 token_mask and B9 flash_attn
+# --------------------------------------------------------------------------
+
+def _bits(x) -> np.ndarray:
+    """The raw bits of a float32/bfloat16 array or tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.int32 if x.dtype == torch.float32
+                      else torch.int16).cpu().numpy()
+    x = np.asarray(x)
+    return x.view(np.int32 if x.dtype == np.float32 else np.int16)
+
+
+def _mask_case(b, q, v, dtype, seed):
+    rng = np.random.default_rng(seed)
+    states = rng.integers(0, q, size=(b,), dtype=np.int32)
+    allowed = rng.integers(0, 2, size=(q, v), dtype=np.uint8)
+    logits = rng.normal(size=(b, v)).astype(np.float32)
+    return states, allowed, logits
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,q,v", [(1, 3, 2048), (5, 17, 4096), (8, 64, 2048),
+                                   (3, 5, 3000)])
+def test_token_mask_cpu_equals_pallas_interpret(jops, b, q, v, dtype):
+    """Bit for bit, including the ragged vocab (V = 3000) and the masked
+    value's rounding to the logits' dtype."""
+    import jax.numpy as jnp
+
+    states, allowed, logits = _mask_case(b, q, v, dtype, b * v)
+    jl = jnp.asarray(logits).astype(jnp.dtype(dtype))
+    want = jops.token_mask(jnp.asarray(states), jnp.asarray(allowed), jl)
+    tl = torch.from_numpy(logits).to(getattr(torch, dtype))
+    got = ops.token_mask(torch.from_numpy(states), torch.from_numpy(allowed),
+                         tl)
+    assert got.dtype == tl.dtype and got.shape == (b, v)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    ref_out = tref.token_mask_ref(torch.from_numpy(states),
+                                  torch.from_numpy(allowed).bool(), tl)
+    np.testing.assert_array_equal(_bits(got), _bits(ref_out))
+    neg = _bits(jnp.asarray(-1e30, jnp.dtype(dtype)))
+    assert (_bits(got)[allowed[states] == 0] == neg).all()
+
+
+FLASH_CASES = [(2, 128, 128, 32, True, 0), (4, 256, 256, 64, True, 0),
+               (2, 128, 128, 32, True, 48), (3, 64, 192, 16, False, 0),
+               (1, 384, 384, 128, True, 128)]
+
+
+def _qkv(bh, t, s, d, seed, bkv=None):
+    rng = np.random.default_rng(seed)
+    bkv = bh if bkv is None else bkv
+    return (rng.normal(size=(bh, t, d)).astype(np.float32),
+            rng.normal(size=(bkv, s, d)).astype(np.float32),
+            rng.normal(size=(bkv, s, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("bh,t,s,d,causal,window", FLASH_CASES)
+def test_flash_attn_cpu_equals_pallas_interpret(jops, bh, t, s, d, causal,
+                                                window):
+    """The plain version of B9 against the JAX op (interpret mode) and the
+    port's oracle, atol = rtol = 3e-2 (bf16 tiles, sums in another order)."""
+    import jax.numpy as jnp
+
+    q, k, v = _qkv(bh, t, s, d, t + s + d)
+    want = np.asarray(jops.flash_attn(
+        *(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)),
+        causal=causal, window=window, q_blk=64, kv_blk=64), np.float32)
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    got = ops.flash_attn(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == (bh, t, d)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=3e-2,
+                               rtol=3e-2)
+    oracle = tref.flash_attn_ref(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(got.float().numpy(), oracle.float().numpy(),
+                               atol=3e-2, rtol=3e-2)
+
+
+def test_flash_attn_grouped_kv_equals_repeated(jops):
+    """Unrepeated kv heads with ``group`` equal the JAX op on repeated kv
+    heads (the layer's GQA call), with odd T and S tails."""
+    import jax.numpy as jnp
+
+    q, k, v = _qkv(8, 100, 100, 32, 5, bkv=2)
+    want = np.asarray(jops.flash_attn(
+        jnp.asarray(q).astype(jnp.bfloat16),
+        *(jnp.repeat(jnp.asarray(x).astype(jnp.bfloat16), 4, axis=0)
+          for x in (k, v)), causal=True), np.float32)
+    got = ops.flash_attn(*(torch.from_numpy(x).bfloat16() for x in (q, k, v)),
+                         causal=True, group=4)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=3e-2,
+                               rtol=3e-2)
+    with pytest.raises(ValueError):
+        ops.flash_attn(*(torch.from_numpy(x).bfloat16() for x in (q, k, v)),
+                       group=3)
+
+
+def test_serving_wrappers_refuse_cpu_tensors():
+    states, allowed, logits = _mask_case(2, 3, 64, "float32", 1)
+    before = (dict(token_mask.launches), dict(flash_attn.launches))
+    with pytest.raises(ValueError, match="CUDA"):
+        token_mask.token_mask_cuda(torch.from_numpy(states),
+                                   torch.from_numpy(allowed),
+                                   torch.from_numpy(logits))
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in _qkv(2, 32, 32, 16, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attn.flash_attn_cuda(q, k, v)
+    assert (token_mask.launches, flash_attn.launches) == before
+
+
+def _bits_t(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32 if x.dtype == torch.float32 else torch.int16)
+
+
+def test_token_mask_kernel_equals_plain_on_card():
+    """Needs an NVIDIA card (sm_90a): B5 bit for bit against its plain
+    version, f32 and bf16, vector-aligned and ragged vocabularies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    for b, q, v in ((1, 3, 2048), (8, 64, 32000), (3, 5, 3001), (4, 7, 13)):
+        states, allowed, logits = _mask_case(b, q, v, "float32", v)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = (torch.from_numpy(states).cuda(),
+                    torch.from_numpy(allowed).cuda(),
+                    torch.from_numpy(logits).to("cuda", dtype))
+            want = token_mask.token_mask_torch(*args)
+            got = token_mask.token_mask_cuda(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(_bits_t(got), _bits_t(want)), (b, q, v, dtype)
+
+
+def test_flash_attn_kernel_equals_plain_on_card():
+    """Needs an NVIDIA card (sm_90a): B9 against its plain version within
+    atol = rtol = 3e-2, every head dim, causal, windowed, cross-shaped and
+    grouped kv heads, ragged T and S."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    cases = FLASH_CASES + [(8, 100, 100, 64, True, 0, 4),
+                           (4, 77, 130, 32, False, 0, 2)]
+    for case in cases:
+        bh, t, s, d, causal, window = case[:6]
+        group = case[6] if len(case) > 6 else 1
+        q, k, v = (torch.from_numpy(x).to("cuda", torch.bfloat16)
+                   for x in _qkv(bh, t, s, d, t + s, bkv=bh // group))
+        kw = dict(causal=causal, window=window, group=group)
+        want = flash_attn.flash_attn_torch(q, k, v, **kw)
+        got = flash_attn.flash_attn_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
+                                   rtol=3e-2, msg=str(case))
