@@ -48,6 +48,33 @@ Phases (any mismatch raises, so the exit code is non-zero):
      live prefix of the grammar, the tokens equal to a run without the
      kernel and to a run from a chunked ``DecodeStream`` prefill, wall time,
      tokens/s and the device idle share; then ``launch.serve`` once;
+ 13. hold kernels B6 (``spec_match``), B7 (``lvec_compose``) and B8
+     (``onehot_block_maps``) against their plain versions bit for bit and
+     time them: B6 at the holub shape (Q = 256, 16 classes, C = 40,
+     S = 256, L = 26,214), at the lookahead shape of phase 14(a) (C = 4,096,
+     S = I_max, L = 16,384), with the PS00028 search table in global memory
+     and at a prime L and C through ``ops.spec_match``; B7 on 4,096 maps and
+     on [40, 103, 256]; B8 at Q = 16, 64, 128, 256 (Q = 257 refused); and
+     ``ops.spec_match`` on both routes at those Q (the crossover);
+ 14. the paper's per-document engine, ``SpecDFAEngine(dfa,
+     matcher=ops.spec_match)``, on seeded residue data with planted PROSITE
+     occurrences: (a) 64 MiB through the 17 PROSITE search DFAs with
+     I_max <= 128, lookahead, uniform, P = 4,096 (B6, or B8 then B7 where
+     ``mxu_profitable`` picks them); (b) the paper's
+     layout on the same DFAs: balanced, P = 40, Eq. 1 weights of
+     ``synthetic_capacities(40)``, 8 MiB (chunk 0 on B6 with one lane), and
+     r = 2 on the 4 smallest; (c) the three large PROSITE search DFAs,
+     lookahead, uniform, P = 40, 1 MiB (B6, table in global memory); (d)
+     basic and holub modes, P = 40, uniform and balanced, 1 MiB, on the
+     PCRE-14 and PROSITE membership DFAs and random DFAs of Q = 16, 64,
+     128, 256 (B8 then B7; B6 where Q < 9).  Every route's final state
+     equals ``membership_sequential``'s; on the first MiB (64 KiB for (c))
+     also the default torch matcher's and the host oracle ``dfa.run``'s;
+     the decision equals ``Matcher.membership_batch``'s; wall time and
+     bytes/s per route, ``profile_capacity`` on the card, the device idle
+     share of one call of (a) and of (d), a warm repeat of (c), and the
+     launches of B6, B7 and B8 inside each route's own ``membership`` call
+     (each must launch the kernels ``mxu_profitable`` routes it to);
   then print the kernels line and the result line.
 
 Only ``repro_torch``, torch and numpy are imported.  Without a CUDA device,
@@ -94,6 +121,19 @@ ARCH12 = "tinyllama-1.1b"
 PREFILL12 = (4, 2048)                # phase 12 api.prefill batch, prompt
 SERVE12 = (8, 512, 32, 64)           # prompts, bytes, new tokens, chunk bytes
 GRAMMAR12 = r"([0-9]{1,6}[.,] )*[0-9]{0,6}"
+HOLUB13 = (256, 16, 40, 26_214)      # phase 13 B6/B8: Q, classes, C, L
+LOOK13 = ("PS00010_ASX_HYDROXYL", 4096, 16_384)  # B6 at 14(a)'s shape: C, L
+BIG13 = ("PS00028_ZINC_FINGER_C2H2", 40, 4096)  # B6, global table: C, L
+PRIME13 = (17, 5, 37, 10_007, 9)     # ops.spec_match: Q, classes, C, L, S
+COMPOSE13 = ((1, 4096, 256), (40, 103, 256))   # B7: B, N, Q
+ONEHOT13 = (16, 64, 128, 256)        # B8 and the route crossover: Q
+SCAN14, BAL14, SMALL14 = 64 << 20, 8 << 20, 1 << 20   # 14(a), (b), (c)/(d)
+HEAD14C = 64 << 10                   # 14(c): bytes of the cross-checks
+P14A, P14 = 4096, 40                 # processors of 14(a) and of (b)-(d)
+RANDOM14 = (16, 64, 128, 256)        # 14(d) random DFAs: Q (16 classes)
+PROFILE14A = LOOK13[0]               # 14(a)'s profiled call (the B6 route)
+PROFILE_MARGIN_S = 2.0               # idle seconds around phase 14's profiles
+RESIDUES = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
 
 # one planted occurrence of every PCRE-14 pattern (re.search-verified)
 EXAMPLES = {
@@ -144,22 +184,29 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
-def device_busy(fn, tag):
+def device_busy(fn, tag, margin=0.0):
     """Run ``fn`` once under torch.profiler; print its wall time, the device
     busy time (device-side events only: kernels and copies — an aten op's
     own device time repeats its kernels', and the profiler's buffer
     requests are its own overhead), the device idle share of the wall time
     and the largest kernels.  Returns the idle share (None when the
-    profiler recorded no device time)."""
+    profiler recorded no device time).  The device is idle when the
+    profile opens.  ``margin`` idle seconds inside the profile before and
+    after the call, outside the timed wall: late in a long process (phase
+    14) the profiler can otherwise drop the device records of a call that
+    starts or ends close to the profile's own start or stop."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(margin)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        time.sleep(margin)
     dev = {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total",
@@ -606,6 +653,412 @@ def phase12_serving(rng, counts):
                 "7, 891", "--grammar", GRAMMAR12])
 
 
+def spec_bound(c, s, l, q, n_cls):
+    """(ms, by, lane-steps) of a B6 call: one dependent shared-memory load
+    per lane-step, against the symbols, lanes and table moved once."""
+    steps = c * s * l
+    t_ops = steps / SMEM_LOADS_PER_S * 1e3
+    t_bytes = 4 * (c * l + 2 * c * s + q * n_cls) / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops
+            else "operations", steps)
+
+
+def onehot_bound(q, n_cls, c, l, l_blk):
+    """(ms, by, flops) of a B8 call: 2 * Q_pad^3 flops per symbol at the
+    dense bf16 rate, against the symbols, table and maps moved once."""
+    qp = -(-q // 16) * 16
+    flops = 2.0 * qp ** 3 * c * l
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = 4 * (c * l + c * (l // l_blk) * q + q * n_cls) \
+        / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "bytes" if t_bytes >= t_ops
+            else "operations", flops)
+
+
+def prosite_example(dfa, rng):
+    """A shortest residue string the membership DFA accepts, a random one
+    among the shortest."""
+    cls = dfa.byte_to_class[RESIDUES]
+    nxt = dfa.table[:, cls]                          # [Q, 20]
+    dist = np.where(dfa.accepting, 0, -1)
+    for d in range(dfa.n_states):
+        reach = (dist < 0) & (dist[nxt] == d).any(axis=1)
+        if not reach.any():
+            break
+        dist[reach] = d + 1
+    s, out = dfa.start, []
+    while dist[s] > 0:
+        ok = np.flatnonzero(dist[nxt[s]] == dist[s] - 1)
+        r = int(rng.choice(ok))
+        out.append(RESIDUES[r])
+        s = int(nxt[s, r])
+    return np.array(out, np.uint8)
+
+
+def residue_data(rng, n, members):
+    """n seeded residues; every PROSITE pattern planted at a random place in
+    a random half of the data's eighths."""
+    data = rng.choice(RESIDUES, size=n)
+    eighth = n // 8
+    for dfa in members.values():
+        for part in rng.choice(8, size=4, replace=False):
+            ex = prosite_example(dfa, rng)
+            pos = part * eighth + int(rng.integers(0, eighth - len(ex)))
+            data[pos:pos + len(ex)] = ex
+    return data
+
+
+def phase13_paper_kernels(rng, kernels, search):
+    """B6, B7 and B8 against their plain versions, bit for bit, their times
+    and bounds, and the gather/product crossover of ``ops.spec_match``."""
+    import torch
+    from repro_torch.core import build_lookahead_tables, random_dfa
+    from repro_torch.kernels import dfa_match, lvec_compose, onehot_match, ops
+
+    put = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(
+        DEVICE)
+    errs = {"spec_match": 0, "lvec_compose": 0, "onehot_block_maps": 0}
+
+    def held(name, got, want, what):
+        """The kernel's max |err| against its plain version; must be 0."""
+        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+        errs[name] = max(errs[name], err)
+        check(err == 0 and got.shape == want.shape,
+              f"{what}: kernel differs from its plain version")
+
+    q, n_cls, c, l = HOLUB13
+    holub = random_dfa(q, n_cls, rng=rng, with_sink=False)
+    chunks = rng.integers(0, n_cls, size=(c, l))
+
+    def b6(tag, table, chunks_t, init, n_iter, row=False):
+        want = dfa_match.spec_match_torch(table, chunks_t, init)
+        plain_ms = cuda_ms(lambda: dfa_match.spec_match_torch(
+            table, chunks_t, init), 1)
+        got = dfa_match.spec_match_cuda(table, chunks_t, init)
+        torch.cuda.synchronize()
+        held("spec_match", got, want, f"spec_match {tag}")
+        dfa_match.spec_match_cuda(table, chunks_t, init)
+        ms = cuda_ms(lambda: dfa_match.spec_match_cuda(table, chunks_t, init),
+                     n_iter)
+        (cc, ll), ss = chunks_t.shape, init.shape[1]
+        bound, by, steps = spec_bound(cc, ss, ll, *table.shape)
+        smem = dfa_match.spec_table_in_smem(*table.shape, cc, ss)
+        print(f"[13] spec_match {tag}: C={cc} S={ss} L={ll} Q={table.shape[0]}"
+              f" table {'smem' if smem else 'global'}: kernel {ms:.4f} ms "
+              f"({steps / ms / 1e9:.3f} T lane-steps/s)  plain "
+              f"{plain_ms:.2f} ms  bound {bound:.5f} ms ({by})  equal")
+        if row:
+            kernels["spec_match"] = dict(
+                name="spec_match", route="cuda",
+                source="src/repro_torch/kernels/csrc/dfa_match.cu",
+                replaces="src/repro/kernels/dfa_match.py:39", launches=None,
+                max_abs_err=None, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None)
+
+    allq = np.broadcast_to(np.arange(q), (c, q))
+    b6("holub shape", put(holub.table), put(chunks), put(allq), 5)
+    name, cl, ll = LOOK13
+    look = search[name]
+    s_look = build_lookahead_tables(look).i_max
+    b6(f"lookahead shape ({name})", put(look.table),
+       put(rng.integers(0, look.n_classes, size=(cl, ll))),
+       put(rng.integers(0, look.n_states, size=(cl, s_look))), 5, row=True)
+    name, cg, lg = BIG13
+    big = search[name]
+    s_big = build_lookahead_tables(big).i_max
+    b6(f"global table ({name})", put(big.table),
+       put(rng.integers(0, big.n_classes, size=(cg, lg))),
+       put(rng.integers(0, big.n_states, size=(cg, s_big))), 2)
+    qp, cp_, cp, lp, sp = PRIME13
+    prime = random_dfa(qp, cp_, rng=rng)
+    args = (put(prime.table), put(rng.integers(0, cp_, size=(cp, lp))),
+            put(rng.integers(0, qp, size=(cp, sp))))
+    want = ops.spec_match(*[a.cpu() for a in args], use_mxu=False)
+    for use_mxu in (False, True):
+        got = ops.spec_match(*args, use_mxu=use_mxu)
+        check(torch.equal(got.cpu(), want), f"ops.spec_match at prime L={lp},"
+              f" C={cp} (use_mxu={use_mxu}) differs from the CPU run")
+    print(f"[13] ops.spec_match at prime L={lp}, C={cp}, S={sp}: both routes "
+          "equal the plain version run on the CPU")
+
+    # -- B7
+    for b, n, qq in COMPOSE13:
+        maps = put(rng.integers(0, qq, size=(b, n, qq)))
+        want = lvec_compose.lvec_compose_torch(maps)
+        plain_ms = cuda_ms(lambda: lvec_compose.lvec_compose_torch(maps), 1)
+        got = lvec_compose.lvec_compose_cuda(maps)
+        torch.cuda.synchronize()
+        held("lvec_compose", got, want, f"lvec_compose [{b}, {n}, {qq}]")
+        ms = cuda_ms(lambda: lvec_compose.lvec_compose_cuda(maps), 20)
+        loads = b * n * qq
+        t_ops = loads / SMEM_LOADS_PER_S * 1e3
+        t_bytes = 4 * (b * n * qq + b * qq) / HBM_BYTES_PER_S * 1e3
+        bound, by = max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                          else "operations")
+        print(f"[13] lvec_compose [{b}, {n}, {qq}]: kernel {ms:.4f} ms "
+              f"({loads / ms / 1e9:.3f} G map-steps/s)  plain {plain_ms:.3f} "
+              f"ms  bound {bound:.6f} ms ({by})  equal")
+        if (b, n, qq) == COMPOSE13[1]:
+            kernels["lvec_compose"] = dict(
+                name="lvec_compose", route="cuda",
+                source="src/repro_torch/kernels/csrc/lvec_compose.cu",
+                replaces="src/repro/kernels/lvec_compose.py:47",
+                launches=None, max_abs_err=None, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None)
+
+    # -- B8, and the two routes of ops.spec_match at S = Q
+    l_blk, l_pad = ops._pad_to_block(l, 256)
+    for qq in ONEHOT13:
+        dfa = random_dfa(qq, n_cls, rng=rng, with_sink=False)
+        table, id_cls = ops._identity_padded_table(put(dfa.table))
+        syms = torch.nn.functional.pad(put(chunks), (0, l_pad - l),
+                                       value=id_cls).contiguous()
+        want = onehot_match.onehot_block_maps_torch(table, syms, l_blk=l_blk)
+        plain_ms = cuda_ms(lambda: onehot_match.onehot_block_maps_torch(
+            table, syms, l_blk=l_blk), 1)
+        got = onehot_match.onehot_block_maps_cuda(table, syms, l_blk=l_blk)
+        torch.cuda.synchronize()
+        held("onehot_block_maps", got, want, f"onehot_block_maps Q={qq}")
+        ms = cuda_ms(lambda: onehot_match.onehot_block_maps_cuda(
+            table, syms, l_blk=l_blk), 2)
+        bound, by, flops = onehot_bound(qq, n_cls + 1, c, l_pad, l_blk)
+        print(f"[13] onehot_block_maps Q={qq} C={c} L={l_pad} l_blk={l_blk}:"
+              f" kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s)  plain "
+              f"{plain_ms:.1f} ms  bound {bound:.4f} ms ({by})  equal")
+        if qq == ONEHOT13[-1]:
+            kernels["onehot_block_maps"] = dict(
+                name="onehot_block_maps", route="cuda",
+                source="src/repro_torch/kernels/csrc/onehot_match.cu",
+                replaces="src/repro/kernels/onehot_match.py:43",
+                launches=None, max_abs_err=None, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None)
+        args = (put(dfa.table), put(chunks),
+                put(np.broadcast_to(np.arange(qq), (c, qq))))
+        routes = {}
+        for use_mxu in (False, True):
+            call = lambda: ops.spec_match(*args, use_mxu=use_mxu)
+            routes[use_mxu] = call()
+            routes[use_mxu, "ms"] = cuda_ms(call, 2)
+        check(torch.equal(routes[False], routes[True]),
+              f"ops.spec_match Q={qq}: the two routes differ")
+        print(f"[13] crossover Q=S={qq}, C={c}, L={l}: gather route (B6) "
+              f"{routes[False, 'ms']:.4f} ms, product route (B8 + B7) "
+              f"{routes[True, 'ms']:.3f} ms; mxu_profitable -> "
+              f"{'product' if ops.mxu_profitable(qq, qq) else 'gather'}")
+    try:
+        onehot_match.onehot_block_maps_cuda(
+            put(np.zeros((257, 2))), put(np.zeros((1, 16))), l_blk=16)
+    except ValueError as err:
+        print(f"[13] Q=257 refused: mxu_profitable(257, 257) = "
+              f"{ops.mxu_profitable(257, 257)}; the kernel: {err}")
+    else:
+        raise AssertionError("onehot_block_maps_cuda took Q = 257")
+    check(not ops.mxu_profitable(257, 257), "mxu_profitable took Q = 257")
+    for name, err in errs.items():
+        kernels[name]["max_abs_err"] = err
+    print(f"[13] B6, B7 and B8 equal their plain versions (max |err| {errs})")
+
+
+def phase14_paper_engine(rng, counts, search):
+    """The paper engine on the card: routes against each other, the
+    sequential matcher, the default matcher, ``dfa.run`` and ``Matcher``."""
+    import torch
+    from repro_torch.core import (Matcher, SpecDFAEngine,
+                                  build_lookahead_tables,
+                                  compile_pattern_suite, profile_capacity,
+                                  profile_workers, random_dfa,
+                                  synthetic_capacities)
+    from repro_torch.kernels import dfa_match, lvec_compose, onehot_match, ops
+
+    cap = profile_capacity(device=DEVICE)
+    print(f"[14] profile_capacity on the card: {cap:.2f} symbols/us "
+          "(sequential_state, B6 with one lane, random Q=64 DFA, 200,000 "
+          "symbols, median of 5)")
+    members = compile_pattern_suite("prosite", search=False)
+    pcre = compile_pattern_suite("pcre", search=False)
+    i_max = {k: build_lookahead_tables(d).i_max for k, d in search.items()}
+    small = sorted((k for k in search if i_max[k] <= 128),
+                   key=lambda k: search[k].n_states)
+    big = [k for k in search if i_max[k] > 128]
+    t0 = time.perf_counter()
+    data = residue_data(rng, SCAN14, members)
+    print(f"[14] {SCAN14} residues (seed {SEED}, every PROSITE pattern "
+          f"planted in 4 of 8 eighths) in {time.perf_counter() - t0:.2f} s; "
+          f"{len(small)} search DFAs with I_max <= 128, {len(big)} large")
+    weights = profile_workers(synthetic_capacities(P14))
+    names = ("spec_match", "lvec_compose", "onehot_block_maps")
+    launched = {f"[14{p}]": dict.fromkeys(names, 0) for p in "abcd"}
+
+    def path_kernels(eng):
+        """The kernels one ``eng.membership`` call must launch: B8 and B7
+        where ``ops.spec_match`` takes the product route, else B6; B6 also
+        for the balanced partition's sequential chunk 0."""
+        want = ({"onehot_block_maps", "lvec_compose"} if ops.mxu_profitable(
+            eng.dfa.n_states, eng.lanes_per_chunk) else {"spec_match"})
+        return want | ({"spec_match"} if eng.partition == "balanced"
+                       else set())
+
+    def main_path(tag, what, eng, doc):
+        """One main-path call, timed, with its own launch counts: every
+        count is 0 just before it and read just after it."""
+        for mod in (dfa_match, lvec_compose, onehot_match):
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        res = eng.membership(doc)
+        wall = time.perf_counter() - t0
+        n = {"spec_match": dfa_match.launches["spec_match"],
+             "lvec_compose": lvec_compose.launches["lvec_compose"],
+             "onehot_block_maps": onehot_match.launches["onehot_block_maps"]}
+        want = path_kernels(eng)
+        check(all(n[k] > 0 for k in want), f"{tag} {what}: the call "
+              f"launched {n}, not every kernel of {sorted(want)}")
+        for k, v in n.items():
+            counts[k] = counts.get(k, 0) + v
+            launched[tag][k] += v
+        return res, wall
+
+    def timed(fn, doc):
+        t0 = time.perf_counter()
+        res = fn(doc)
+        return res, time.perf_counter() - t0
+
+    def check_dfa(tag, name, dfa, doc, routes, head_bytes, walls):
+        """Every route against membership_sequential; the head against the
+        default matcher and dfa.run; the decision against Matcher.  Only
+        the routes' ``membership(doc)`` calls count launches."""
+        def add(route, w):
+            t, n = walls.get(route, (0.0, 0))
+            walls[route] = (t + w, n + len(doc))
+
+        seq, w = timed(routes[0][1].membership_sequential, doc)
+        add("sequential", w)
+        finals = {}
+        for route, eng in routes:
+            res, w = main_path(tag, f"{name} {route}", eng, doc)
+            add(route, w)
+            finals[route] = res.final_state
+            check(res.final_state == seq.final_state, f"{tag} {name} {route}"
+                  f": final {res.final_state} != sequential "
+                  f"{seq.final_state}")
+        head = doc[:head_bytes]
+        route0, eng0 = routes[0]
+        default = SpecDFAEngine(dfa, num_chunks=eng0.num_chunks,
+                                mode=eng0.mode, partition=eng0.partition,
+                                weights=eng0.weights,
+                                lookahead_r=eng0.lookahead_r, device=DEVICE)
+        oracle = dfa.run(head)
+        got = (eng0.membership(head).final_state,
+               default.membership(head).final_state)
+        check(got == (oracle, oracle), f"{tag} {name}: on the first "
+              f"{head_bytes} bytes {route0} / the default matcher {got} != "
+              f"dfa.run {oracle}")
+        doc_m = doc if tag != "[14c]" else head
+        acc = bool(Matcher(dfa, device=DEVICE).membership_batch(
+            [doc_m]).accepted[0, 0])
+        want = seq.accepted if tag != "[14c]" else bool(dfa.accepting[oracle])
+        check(acc == want, f"{tag} {name}: Matcher decides {acc}")
+        print(f"{tag} {name}: Q={dfa.n_states} classes={dfa.n_classes} "
+              f"I_max={eng0.i_max} final {seq.final_state} "
+              f"accepted {seq.accepted}; routes {sorted(finals)} equal "
+              f"sequential, the default matcher, dfa.run and Matcher")
+
+    def report(tag, walls):
+        for route, (w, n_bytes) in walls.items():
+            print(f"{tag} {route}: {w:.3f} s over {n_bytes} bytes, "
+                  f"{n_bytes / w / 1e6:.1f} MB/s")
+
+    # -- (a) the PROSITE scan: lookahead, uniform, P = 4,096 ------------------
+    walls = {}
+    for name in small:
+        eng = SpecDFAEngine(search[name], num_chunks=P14A, mode="lookahead",
+                            partition="uniform", matcher=ops.spec_match,
+                            device=DEVICE)
+        check_dfa("[14a]", name, search[name], data,
+                  [("lookahead/uniform", eng)], SMALL14, walls)
+    n = launched["[14a]"]
+    check(n["spec_match"] > 0, f"(a) launched no B6 kernel: {n}")
+    report("[14a]", walls)
+    print(f"[14a] launches {n}")
+    name = PROFILE14A
+    eng = SpecDFAEngine(search[name], num_chunks=P14A, mode="lookahead",
+                        partition="uniform", matcher=ops.spec_match,
+                        device=DEVICE)
+    device_busy(lambda: eng.membership(data), f"[14a] {name}",
+                PROFILE_MARGIN_S)
+
+    # -- (b) the paper's layout: balanced, P = 40, Eq. 1 weights -------------
+    walls = {}
+    doc = data[:BAL14]
+    for i, name in enumerate(small):
+        routes = [("lookahead/balanced", SpecDFAEngine(
+            search[name], num_chunks=P14, mode="lookahead",
+            partition="balanced", weights=weights, matcher=ops.spec_match,
+            device=DEVICE))]
+        if i < 4:
+            routes.append(("lookahead/balanced/r2", SpecDFAEngine(
+                search[name], num_chunks=P14, mode="lookahead",
+                partition="balanced", weights=weights, lookahead_r=2,
+                matcher=ops.spec_match, device=DEVICE)))
+        check_dfa("[14b]", name, search[name], doc, routes, SMALL14, walls)
+    n = launched["[14b]"]
+    check(n["spec_match"] > 0, f"(b) launched no B6 kernel: {n}")
+    report("[14b]", walls)
+    print(f"[14b] launches {n}; weights {weights[0]:.4f} x "
+          f"{int((weights == weights[0]).sum())}, {weights[-1]:.4f} x "
+          f"{int((weights == weights[-1]).sum())}")
+
+    # -- (c) the large search DFAs: lookahead, uniform, P = 40 ----------------
+    walls = {}
+    doc = data[:SMALL14]
+    engines = []
+    for name in big:
+        eng = SpecDFAEngine(search[name], num_chunks=P14, mode="lookahead",
+                            partition="uniform", matcher=ops.spec_match,
+                            device=DEVICE)
+        check_dfa("[14c]", name, search[name], doc,
+                  [("lookahead/uniform", eng)], HEAD14C, walls)
+        engines.append((name, eng))
+    n = launched["[14c]"]
+    check(n["spec_match"] > 0, f"(c) launched no B6 kernel: {n}")
+    report("[14c]", walls)
+    print(f"[14c] launches {n}")
+    # each DFA above ran its main path once, cold: a warm repeat beside it
+    warm = {name: timed(eng.membership, doc)[1] for name, eng in engines}
+    print(f"[14c] warm repeat: {sum(warm.values()):.4f} s over "
+          f"{len(doc) * len(warm)} bytes ("
+          + ", ".join(f"{k} {w * 1e3:.2f} ms" for k, w in warm.items()) + ")")
+
+    # -- (d) basic and holub: the Fig. 10/11 regimes -------------------------
+    walls = {}
+    pcre_doc = np.frombuffer(make_docs(rng, [SMALL14])[0], np.uint8)
+    cases = ([(k, d, pcre_doc) for k, d in pcre.items()]
+             + [(k, d, data[:SMALL14]) for k, d in members.items()]
+             + [(f"random Q={q}", random_dfa(q, 16, rng=rng, with_sink=False),
+                 rng.integers(0, 256, size=SMALL14, dtype=np.uint8))
+                for q in RANDOM14])
+    name, dfa, doc = cases[-2]
+    eng = SpecDFAEngine(dfa, num_chunks=P14, mode="holub",
+                        matcher=ops.spec_match, device=DEVICE)
+    eng.membership(doc)
+    device_busy(lambda: eng.membership(doc), f"[14d] holub {name}",
+                PROFILE_MARGIN_S)
+    for name, dfa, doc in cases:
+        routes = [(f"{mode}/{part}", SpecDFAEngine(
+            dfa, num_chunks=P14, mode=mode, partition=part,
+            weights=weights if part == "balanced" else None,
+            matcher=ops.spec_match, device=DEVICE))
+            for mode, part in (("lookahead", "uniform"), ("basic", "uniform"),
+                               ("basic", "balanced"), ("holub", "uniform"))]
+        check_dfa("[14d]", name, dfa, doc, routes, SMALL14, walls)
+    n = launched["[14d]"]
+    check(n["onehot_block_maps"] > 0 and n["lvec_compose"] > 0,
+          f"(d) launched no B8 or no B7 kernel: {n}")
+    report("[14d]", walls)
+    print(f"[14d] launches {n}")
+    print(f"[14] launches of B6/B7/B8 by the main-path calls of (a)-(d): "
+          f"{ {k: counts[k] for k in names} }")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1001,6 +1454,15 @@ def main() -> int:
     phase10_token_mask(gc10, rng, kernels)
     phase11_flash_attn(kernels)
     phase12_serving(rng, counts)
+
+    # -- phases 13-14: the paper engine's kernels and the paper engine --------
+    from repro_torch.core import compile_pattern_suite
+    t0 = time.perf_counter()
+    search = compile_pattern_suite("prosite", search=True)
+    print(f"[13] compiled the {len(search)} PROSITE search DFAs in "
+          f"{time.perf_counter() - t0:.2f} s")
+    phase13_paper_kernels(rng, kernels, search)
+    phase14_paper_engine(rng, counts, search)
     for name in kernels:
         kernels[name]["launches"] = counts[name]
 

@@ -26,7 +26,7 @@ from .plan import (ENTRY_LANES, ENTRY_STARTS, ENTRY_STATES, DeviceTables,
                    Planner, next_pow2, resolve_device)
 
 __all__ = ["BatchResult", "SegmentBatchResult", "CursorBatchResult",
-           "Matcher"]
+           "Matcher", "BatchMatcher"]
 
 BACKENDS = ("cuda", "local", "sharded")
 
@@ -455,3 +455,26 @@ class Matcher:
             rep["spec_r"] = self.dev.spec_r
             rep["lane_width"] = self.dev.i_max
         return rep
+
+
+class BatchMatcher(Matcher):
+    """Compatibility shim: the pre-refactor batched engine constructor.
+
+    ``use_kernel=True`` routes chunk matching + merge through the fused
+    CUDA kernels (the ``cuda`` backend), ``False`` through the torch-eager
+    stages (``local``); everything else is the facade.  Deprecated: new
+    code constructs ``Matcher(..., backend=...)`` directly.
+    """
+
+    def __init__(self, source, *, num_chunks: int = 8, max_buckets: int = 2,
+                 batch_tile: int = 64, use_kernel: bool = False,
+                 device=None):
+        import warnings
+        warnings.warn("BatchMatcher is a compatibility shim; use "
+                      "Matcher(..., backend='cuda'|'local') instead",
+                      DeprecationWarning, stacklevel=2)
+        super().__init__(source, num_chunks=num_chunks,
+                         max_buckets=max_buckets, batch_tile=batch_tile,
+                         backend="cuda" if use_kernel else "local",
+                         device=device)
+        self.use_kernel = bool(use_kernel)

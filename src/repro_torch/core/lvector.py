@@ -24,7 +24,8 @@ from ..kernels.ref import compose_lanes_torch
 
 __all__ = [
     "identity_lvec", "compose", "compose_torch", "merge_sequential",
-    "merge_tree", "merge_scan_lanes_torch", "merge_compressed",
+    "merge_tree", "merge_scan_torch", "merge_scan_lanes_torch",
+    "merge_compressed",
 ]
 
 
@@ -63,6 +64,23 @@ def merge_tree(lvecs: np.ndarray) -> np.ndarray:
             nxt.append(maps[-1])
         maps = nxt
     return maps[0]
+
+
+def merge_scan_torch(lvecs: torch.Tensor) -> torch.Tensor:
+    """All-prefix composition of full maps: out[i] = L_0 ; ... ; L_i.
+
+    lvecs [C, Q]; out[-1] is the whole-input map.  A log-depth
+    (Hillis-Steele) scan over the chunk axis; full-map composition is
+    associative over integers, so every combination order gives the same
+    maps.
+    """
+    out = lvecs.to(torch.int32)
+    shift = 1
+    while shift < out.shape[0]:
+        out = torch.cat([out[:shift], compose_torch(out[:-shift], out[shift:])
+                         .to(torch.int32)])
+        shift *= 2
+    return out
 
 
 def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,13 @@
-// Speculative chunk scan + in-CTA Eq. 8 fold for Hopper (sm_90a).
+// Speculative chunk scans for Hopper (sm_90a): the fused scan + in-CTA
+// Eq. 8 fold (B1, B2) and the plain chunk x lane scan (B6).
 //
 // Replaces the Pallas TPU kernels of the JAX package:
 //   B1  repro/kernels/dfa_match.py::spec_match_merge_kernel       (LANES=false)
 //   B2  repro/kernels/dfa_match.py::spec_match_merge_lanes_kernel (LANES=true)
-// both with their shared symbol-block body `_scan_block_with_exit`.
+// both with their shared symbol-block body `_scan_block_with_exit`, and
+//   B6  repro/kernels/dfa_match.py::spec_match_kernel             (spec_match)
+// The symbol scan itself (table placement, staged symbol tiles, several
+// lanes per thread) is spec_scan.cuh, shared by all three.
 //
 // What it computes, per document b (one CTA each):
 //   * every lane of the [C, K*S] carry (chunk x pattern x candidate) steps
@@ -28,36 +32,37 @@
 // ~1.4 ms per launch there (~0.33e12 lane-steps/s, ~25x its bound, on an
 // H100 80GB HBM3 at 700 W): one CTA per document fills 64 of the 132 SMs,
 // each lane is a chain of L dependent table loads, and a warp's random
-// gathers conflict in the shared-memory banks.  The design keeps the chains
-// short in latency and many:
-//   * the pre-scaled table sits in shared memory when it fits (29 KiB for
-//     PCRE-14), so every step is one shared-memory load; a larger table is
-//     read through the read-only path (TABLE_IN_SMEM=false);
-//   * symbols are staged through shared memory one tile at a time; every
-//     lane of a chunk reads the same symbol (a broadcast);
-//   * each thread advances up to LANES_PER_PASS independent lanes together,
-//     so several loads are in flight per thread;
-//   * the lane carry lives in shared memory between tiles when it fits,
-//     else in a global scratch row of the document.
+// gathers conflict in the shared-memory banks.  The scan (spec_scan.cuh)
+// keeps the chains short in latency and many: the pre-scaled table in
+// shared memory when it fits (29 KiB for PCRE-14), staged symbol tiles,
+// several lanes per thread.  The lane carry lives in shared memory between
+// tiles when it fits, else in a global scratch row of the document.
 // Left for later: classifying bytes in the kernel (uint8 input), several
 // documents per CTA, and more CTAs than one batch tile's 64 (64 CTAs leave
 // most of the 132 SMs idle).
+//
+// B6, spec_match: C chunks x S lanes through the table, no fold (paper
+// Listing 2).  The paper engine's matcher slot (lookahead mode, S = I_max
+// candidate lanes), and with C = S = 1 its sequential matcher.  The grid
+// runs over blocks of c_blk chunks x s_blk lanes (spec_plan in
+// dfa_match.py picks them so that about two CTAs per SM are in flight and
+// no CTA holds more than 4096 lanes: a PROSITE search DFA has up to 22,857
+// lanes per chunk).  A CTA keeps its lanes in shared memory between symbol
+// tiles; the table goes to shared memory when it fits and is read from
+// global memory otherwise (the large PROSITE search tables, 0.3-1 MB).
+// Bound: C*S*L lane-steps, each one dependent shared-memory load, at the
+// card's 8.4e12 loads/s; against the symbols (C*L*4 bytes) and lanes read
+// once at 3.35 TB/s.  The first kernel is latency-bound: one lane is a
+// chain of L dependent loads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "spec_scan.cuh"
+
 namespace {
 
-constexpr int SYM_TILE = 64;        // symbols staged per shared-memory tile
-constexpr int LANES_PER_PASS = 4;   // independent lanes one thread advances
-
-template <bool TABLE_IN_SMEM>
-__device__ __forceinline__ int step(const int* __restrict__ s_table,
-                                    const int* __restrict__ g_table,
-                                    int idx, int n_cls_pad) {
-    if (TABLE_IN_SMEM) return s_table[idx];
-    return __ldg(g_table + idx) * n_cls_pad;
-}
+using spec_scan::SYM_TILE;
 
 template <bool LANES, bool TABLE_IN_SMEM>
 __global__ void spec_match_merge(
@@ -100,35 +105,11 @@ __global__ void spec_match_merge(
     for (int j = 0; j < l_blocks; ++j) {
         for (int t0 = j * l_blk; t0 < (j + 1) * l_blk; t0 += SYM_TILE) {
             const int tl = min(SYM_TILE, (j + 1) * l_blk - t0);
-            for (int i = tid; i < C * tl; i += nthreads) {
-                const int c = i / tl, t = i - c * tl;
-                s_sym[c * SYM_TILE + t] = chunks_b[(size_t)c * L + t0 + t];
-            }
+            spec_scan::stage_symbols(s_sym, chunks_b, C, L, t0, tl);
             __syncthreads();
-            for (int base = tid; base < n_lanes;
-                 base += LANES_PER_PASS * nthreads) {
-                int st[LANES_PER_PASS];
-                const int* row[LANES_PER_PASS];
-#pragma unroll
-                for (int u = 0; u < LANES_PER_PASS; ++u) {
-                    const int lane = base + u * nthreads;
-                    const bool ok = lane < n_lanes;
-                    st[u] = ok ? carry[lane] : 0;
-                    row[u] = s_sym + (ok ? lane / ks : 0) * SYM_TILE;
-                }
-                for (int t = 0; t < tl; ++t) {
-#pragma unroll
-                    for (int u = 0; u < LANES_PER_PASS; ++u)
-                        st[u] = step<TABLE_IN_SMEM>(s_table, table,
-                                                    st[u] + row[u][t],
-                                                    n_cls_pad);
-                }
-#pragma unroll
-                for (int u = 0; u < LANES_PER_PASS; ++u) {
-                    const int lane = base + u * nthreads;
-                    if (lane < n_lanes) carry[lane] = st[u];
-                }
-            }
+            spec_scan::scan_tile<TABLE_IN_SMEM>(carry, n_lanes, ks, s_sym,
+                                                tl, s_table, table,
+                                                n_cls_pad);
             __syncthreads();
         }
         if (early_exit) {
@@ -183,10 +164,7 @@ int launch(const int* table, const int* chunks, const int* init,
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
     if (table_in_smem) {
         auto kern = spec_match_merge<LANES, true>;
-        if (smem > 48 * 1024)
-            cudaFuncSetAttribute(kern,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
+        spec_scan::allow_smem(kern, smem);
         kern<<<B, threads, smem, s>>>(table, chunks, init, lookahead,
                                       cand_index, sinks, absorbing, out,
                                       skipped, scratch, C, L, Q, n_cls_pad,
@@ -194,15 +172,78 @@ int launch(const int* table, const int* chunks, const int* init,
                                       carry_in_smem);
     } else {
         auto kern = spec_match_merge<LANES, false>;
-        if (smem > 48 * 1024)
-            cudaFuncSetAttribute(kern,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
+        spec_scan::allow_smem(kern, smem);
         kern<<<B, threads, smem, s>>>(table, chunks, init, lookahead,
                                       cand_index, sinks, absorbing, out,
                                       skipped, scratch, C, L, Q, n_cls_pad,
                                       K, S, pad_key, l_blk, early_exit,
                                       carry_in_smem);
+    }
+    return (int)cudaGetLastError();
+}
+
+
+// B6: chunks [c0, c0 + c_blk) x lanes [s0, s0 + s_blk) of one CTA.
+template <bool TABLE_IN_SMEM>
+__global__ void spec_match(const int* __restrict__ table,   // [Q, n_cls]
+                           const int* __restrict__ chunks,  // [C, L]
+                           const int* __restrict__ init,    // [C, S]
+                           int* __restrict__ out,           // [C, S]
+                           int C, int L, int Q, int n_cls, int S, int c_blk,
+                           int s_blk) {
+    extern __shared__ int smem[];
+    const int tid = threadIdx.x;
+    const int c0 = blockIdx.x * c_blk, s0 = blockIdx.y * s_blk;
+    const int rows = min(c_blk, C - c0), width = min(s_blk, S - s0);
+    const int n_lanes = rows * width;
+    int* s_table = smem;
+    int* s_sym = smem + (TABLE_IN_SMEM ? Q * n_cls : 0);
+    int* carry = s_sym + c_blk * SYM_TILE;
+
+    if (TABLE_IN_SMEM) {
+        for (int i = tid; i < Q * n_cls; i += blockDim.x)
+            s_table[i] = table[i] * n_cls;
+    }
+    for (int i = tid; i < n_lanes; i += blockDim.x) {
+        const int c = i / width;
+        carry[i] = init[(size_t)(c0 + c) * S + s0 + i - c * width] * n_cls;
+    }
+    __syncthreads();
+    const int* chunks_b = chunks + (size_t)c0 * L;
+    for (int t0 = 0; t0 < L; t0 += SYM_TILE) {
+        const int tl = min(SYM_TILE, L - t0);
+        spec_scan::stage_symbols(s_sym, chunks_b, rows, L, t0, tl);
+        __syncthreads();
+        spec_scan::scan_tile<TABLE_IN_SMEM>(carry, n_lanes, width, s_sym, tl,
+                                            s_table, table, n_cls);
+        __syncthreads();
+    }
+    for (int i = tid; i < n_lanes; i += blockDim.x) {
+        const int c = i / width;
+        out[(size_t)(c0 + c) * S + s0 + i - c * width] = carry[i] / n_cls;
+    }
+}
+
+int spec_match_impl(const int* table, const int* chunks, const int* init,
+                    int* out, int C, int L, int Q, int n_cls, int S,
+                    int c_blk, int s_blk, int table_in_smem, void* stream) {
+    const int lanes = c_blk * s_blk;
+    int threads = ((lanes + 31) / 32) * 32;
+    if (threads > 1024) threads = 1024;
+    size_t smem = (size_t)(c_blk * SYM_TILE + lanes) * sizeof(int);
+    if (table_in_smem) smem += (size_t)Q * n_cls * sizeof(int);
+    const dim3 grid((C + c_blk - 1) / c_blk, (S + s_blk - 1) / s_blk);
+    cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+    if (table_in_smem) {
+        auto kern = spec_match<true>;
+        spec_scan::allow_smem(kern, smem);
+        kern<<<grid, threads, smem, s>>>(table, chunks, init, out, C, L, Q,
+                                         n_cls, S, c_blk, s_blk);
+    } else {
+        auto kern = spec_match<false>;
+        spec_scan::allow_smem(kern, smem);
+        kern<<<grid, threads, smem, s>>>(table, chunks, init, out, C, L, Q,
+                                         n_cls, S, c_blk, s_blk);
     }
     return (int)cudaGetLastError();
 }
@@ -235,6 +276,13 @@ int spec_match_merge_lanes_launch(
                         absorbing, out, skipped, scratch, B, C, L, Q,
                         n_cls_pad, K, S, pad_key, l_blk, early_exit,
                         table_in_smem, carry_in_smem, stream);
+}
+
+int spec_match_launch(const int* table, const int* chunks, const int* init,
+                      int* out, int C, int L, int Q, int n_cls, int S,
+                      int c_blk, int s_blk, int table_in_smem, void* stream) {
+    return spec_match_impl(table, chunks, init, out, C, L, Q, n_cls, S,
+                           c_blk, s_blk, table_in_smem, stream);
 }
 
 }  // extern "C"

@@ -1,9 +1,10 @@
-// Keyed lane-map compose (the out-of-order gap-close fold) for Hopper
-// (sm_90a).
+// L-vector composition for Hopper (sm_90a): the keyed lane-map compose
+// (the out-of-order gap-close fold, B3 and B4) and the full-map compose (B7).
 //
 // Replaces the Pallas TPU kernels of the JAX package:
 //   B3  repro/kernels/lvec_compose.py::spec_compose_lanes_kernel       (carry)
 //   B4  repro/kernels/lvec_compose.py::spec_compose_lanes_tree_kernel  (tree)
+//   B7  repro/kernels/lvec_compose.py::lvec_compose_kernel        (full maps)
 //
 // What it computes, per run b (one CTA each): the composition of the
 // candidate-keyed [K, S] lane maps lanes[b, 0..N-1].  Element 0 seeds the
@@ -36,6 +37,17 @@
 // 1024 CTAs keep every SM busy at that shape.  cand_index ([1370, 194]
 // int32 = 1.06 MB under r = 2) is read through the read-only path and
 // stays in L2; it never goes to shared memory.
+
+//
+// B7, lvec_compose: the left-to-right composition of N full [Q] maps,
+// out[q] = maps[N-1][...maps[0][q]] (acc <- maps[i][acc]), one CTA per
+// composed map of a leading batch axis (the paper engine's basic and holub
+// modes compose every chunk's block maps this way).  Each thread owns acc
+// for one q; tiles of maps are staged in shared memory (coalesced), then
+// every thread walks the tile with one dependent shared-memory load per
+// map.  Bound: B*N*Q dependent loads at 8.4e12/s, against the maps read
+// once at 3.35 TB/s; bytes bind.  One CTA per map is a chain of N dependent
+// loads per thread: a long single composition runs on one SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -119,6 +131,27 @@ __global__ void compose_tree(const int* __restrict__ lanes,  // [B, N, K*S]
         out[(size_t)b * ks + o] = res[o];
 }
 
+__global__ void lvec_compose(const int* __restrict__ maps,  // [B, N, Q]
+                             int* __restrict__ out,          // [B, Q]
+                             int N, int Q, int tile) {
+    extern __shared__ int s_maps[];                          // [tile, Q]
+    const int* maps_b = maps + (size_t)blockIdx.x * N * Q;
+    for (int q0 = 0; q0 < Q; q0 += blockDim.x) {
+        const int q = q0 + threadIdx.x;
+        int acc = q;
+        for (int i0 = 0; i0 < N; i0 += tile) {
+            const int tn = min(tile, N - i0);
+            __syncthreads();                      // the last tile is used up
+            for (int j = threadIdx.x; j < tn * Q; j += blockDim.x)
+                s_maps[j] = maps_b[(size_t)i0 * Q + j];
+            __syncthreads();
+            if (q < Q)
+                for (int i = 0; i < tn; ++i) acc = s_maps[i * Q + acc];
+        }
+        if (q < Q) out[(size_t)blockIdx.x * Q + q] = acc;
+    }
+}
+
 int threads_for(int work) {
     int t = ((work + 31) / 32) * 32;
     if (t > 1024) t = 1024;
@@ -161,6 +194,18 @@ int spec_compose_lanes_tree_launch(const int* lanes, const int* keys,
         kern<<<B, threads, 0, s>>>(lanes, keys, cidx, sinks, out, scratch, N,
                                    Q, K, S, pad_key);
     }
+    return (int)cudaGetLastError();
+}
+
+int lvec_compose_launch(const int* maps, int* out, int B, int N, int Q,
+                        int tile, void* stream) {
+    cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+    const size_t smem = (size_t)tile * Q * sizeof(int);
+    if (smem > 48 * 1024)
+        cudaFuncSetAttribute(lvec_compose,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    lvec_compose<<<B, threads_for(Q), smem, s>>>(maps, out, N, Q, tile);
     return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""Launch wrappers of the fused speculative match + merge kernels (B1, B2).
+"""Launch wrappers of the speculative match kernels (B1, B2, B6).
 
 ``spec_match_merge_cuda`` and ``spec_match_merge_lanes_cuda`` launch the
 Hopper kernel of ``csrc/dfa_match.cu`` (one CTA per document: chunk x
@@ -15,6 +15,12 @@ init [B, C, K*S], lookahead [B, C] boundary keys, cand_index
 [n_keys + 1, Q], sinks [K], absorbing [Q] 0/1.  ``pad_key`` is the boundary
 key the fold passes through (the pad class under r=1, ``n_classes ** 2``
 under r=2).
+
+``spec_match_cuda`` launches the plain chunk x lane scan of the same source
+(B6, replacing ``repro/kernels/dfa_match.py::spec_match_kernel``): table
+[Q, n_cls], chunks [C, L], init [C, S] -> final states [C, S], no fold.
+It is the matcher of the paper engine (``core/engine/baselines.py``), and
+with one chunk and one lane its sequential matcher.
 """
 
 from __future__ import annotations
@@ -27,10 +33,12 @@ from . import _build, ref
 
 __all__ = ["spec_match_merge_cuda", "spec_match_merge_lanes_cuda",
            "spec_match_merge_torch", "spec_match_merge_lanes_torch",
-           "launches", "reset_launches", "smem_plan"]
+           "spec_match_cuda", "spec_match_torch", "launches",
+           "reset_launches", "smem_plan", "spec_plan", "spec_table_in_smem"]
 
 # kernel launches per wrapper; incremented only where the kernel launches
-launches = {"spec_match_merge": 0, "spec_match_merge_lanes": 0}
+launches = {"spec_match_merge": 0, "spec_match_merge_lanes": 0,
+            "spec_match": 0}
 
 SMEM_BUDGET = 232_448   # dynamic shared memory one block may use (H100)
 SYM_TILE = 64           # must equal SYM_TILE in csrc/dfa_match.cu
@@ -148,6 +156,81 @@ def spec_match_merge_lanes_cuda(table, chunks, init_states, lookahead,
                    carry_in_smem=carry_in_smem)
 
 
+SPEC_CTA_LANES = 4096    # most lanes one B6 CTA holds (shared-memory carry)
+SPEC_CTAS = 264          # B6 aims at two CTAs per SM of the H100's 132
+SPEC_MAX_CHUNKS = 64     # most chunks one B6 CTA stages symbols for
+
+
+def spec_plan(c: int, s: int) -> tuple[int, int]:
+    """(chunks, lanes per chunk) of one B6 CTA for C chunks x S lanes.
+
+    Spreads the C*S lanes over about ``SPEC_CTAS`` CTAs of 32 to 4096
+    lanes: narrow speculation groups several chunks into one CTA, wide
+    speculation (up to 22,857 lanes in a PROSITE search DFA) splits a
+    chunk's lanes over several CTAs.
+    """
+    target = min(SPEC_CTA_LANES, max(32, -(-c * s // SPEC_CTAS)))
+    if s <= target:
+        return max(1, min(c, SPEC_MAX_CHUNKS, target // s)), s
+    parts = -(-s // target)
+    return 1, -(-s // parts)
+
+
+def spec_table_in_smem(q: int, n_cls: int, c: int, s: int,
+                       table_in_smem: bool | None = None) -> bool:
+    """Whether B6 stages the [Q, n_cls] table in shared memory beside one
+    CTA's symbol tiles and lane carry (``spec_plan``); ``table_in_smem``
+    forces a placement and raises if a shared one cannot fit."""
+    c_blk, s_blk = spec_plan(c, s)
+    fits = 4 * (c_blk * SYM_TILE + c_blk * s_blk + q * n_cls) <= SMEM_BUDGET
+    if table_in_smem is None:
+        return fits
+    if table_in_smem and not fits:
+        raise ValueError(f"a {4 * q * n_cls}-byte table does not fit in "
+                         "shared memory")
+    return bool(table_in_smem)
+
+
+def spec_match_cuda(table, chunks, init_states, *,
+                    table_in_smem: bool | None = None):
+    """B6 on the card: C chunks x S lanes -> final states [C, S]; never
+    synchronises.  table [Q, n_cls], chunks [C, L] class ids < n_cls, init
+    [C, S] states < Q, all contiguous int32 on one CUDA device.  The table
+    goes to shared memory when it fits beside the symbol tiles and the lane
+    carry; ``table_in_smem`` forces a placement."""
+    dev = chunks.device
+    for t in (table, chunks, init_states):
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError("spec_match_cuda needs every operand on one "
+                             f"CUDA device, got {t.device}")
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError("operands must be contiguous int32 tensors")
+    q, n_cls = table.shape
+    c, l = chunks.shape
+    s = init_states.shape[1]
+    if init_states.shape[0] != c:
+        raise ValueError("chunks and init_states disagree on C")
+    c_blk, s_blk = spec_plan(c, s)
+    table_in_smem = spec_table_in_smem(q, n_cls, c, s, table_in_smem)
+    out = torch.empty((c, s), dtype=torch.int32, device=dev)
+    if c == 0 or s == 0:
+        return out
+    fn = _build.load("dfa_match").spec_match_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(table.data_ptr(), chunks.data_ptr(), init_states.data_ptr(),
+                 out.data_ptr(), c, l, q, n_cls, s, c_blk, s_blk,
+                 int(bool(table_in_smem)), stream)
+    if err:
+        raise RuntimeError(f"spec_match kernel launch failed: CUDA error {err}")
+    launches["spec_match"] += 1
+    return out
+
+
 # --------------------------------------------------------------------------
 # plain versions (same arithmetic, same block-granular skip count)
 # --------------------------------------------------------------------------
@@ -207,3 +290,9 @@ def spec_match_merge_lanes_torch(table, chunks, init_states, lookahead,
     lanes = ref.spec_merge_lanes_ref(lv.reshape(b, c, k, -1), lookahead,
                                      cand_index, sinks, pad_cls=pad_key)
     return lanes.reshape(b, -1), skipped
+
+
+def spec_match_torch(table, chunks, init_states):
+    """Plain version of B6: one gather per symbol over every lane ->
+    [C, S]."""
+    return ref.spec_match_ref(table, chunks, init_states)

@@ -1,4 +1,4 @@
-"""Launch wrappers of the keyed lane-map compose kernels (B3, B4).
+"""Launch wrappers of the L-vector compose kernels (B3, B4, B7).
 
 ``spec_compose_lanes_cuda`` (the sequential carry fold) and
 ``spec_compose_lanes_tree_cuda`` (the pairwise tree reduce) launch the
@@ -16,6 +16,11 @@ all -1 pad row, sinks [K].  Both return the composition [B, K, S].  The
 carry fold is the sequential oracle's order, so it equals
 ``ref.spec_compose_lanes_ref`` on every lane; the tree pairs elements as the
 Pallas tree does and may differ from the oracle on pad lanes only.
+
+``lvec_compose_cuda`` (B7, replacing ``lvec_compose_kernel``) composes full
+[Q] maps left to right, batched over a leading axis: maps [B, N, Q] ->
+[B, Q].  The paper engine's basic and holub modes compose every chunk's
+one-hot block maps with it.
 """
 
 from __future__ import annotations
@@ -25,16 +30,19 @@ import ctypes
 import torch
 
 from . import _build
-from .ref import compose_lanes_torch
+from .ref import compose_lanes_torch, lvec_compose_ref
 
 __all__ = ["spec_compose_lanes_cuda", "spec_compose_lanes_tree_cuda",
            "spec_compose_lanes_torch", "spec_compose_lanes_tree_torch",
-           "launches", "reset_launches", "tree_in_smem"]
+           "lvec_compose_cuda", "lvec_compose_torch", "launches",
+           "reset_launches", "tree_in_smem"]
 
 # kernel launches per wrapper; incremented only where the kernel launches
-launches = {"spec_compose_lanes": 0, "spec_compose_lanes_tree": 0}
+launches = {"spec_compose_lanes": 0, "spec_compose_lanes_tree": 0,
+            "lvec_compose": 0}
 
 SMEM_BUDGET = 232_448   # dynamic shared memory one block may use (H100)
+MAP_TILE_BYTES = 48 * 1024   # maps B7 stages per shared-memory tile
 
 
 def reset_launches() -> None:
@@ -122,6 +130,27 @@ def spec_compose_lanes_tree_cuda(lanes, keys, cand_index, sinks, *,
     return out
 
 
+def lvec_compose_cuda(maps):
+    """B7 on the card: maps [B, N, Q] int32 (contiguous, every entry < Q)
+    composed left to right -> [B, Q]; N = 0 gives identities.  Never
+    synchronises."""
+    dev = maps.device
+    if dev.type != "cuda":
+        raise ValueError(f"lvec_compose_cuda needs a CUDA tensor, got {dev}")
+    if maps.dtype != torch.int32 or not maps.is_contiguous():
+        raise ValueError("maps must be a contiguous int32 tensor")
+    if maps.dim() != 3:
+        raise ValueError(f"maps must be [B, N, Q], got {tuple(maps.shape)}")
+    b, n, q = maps.shape
+    if 4 * q > SMEM_BUDGET:
+        raise ValueError(f"a map of {q} states does not fit in shared memory")
+    tile = max(1, min(n, MAP_TILE_BYTES // (4 * q)))
+    out = torch.empty((b, q), dtype=torch.int32, device=dev)
+    if b and q:
+        _launch("lvec_compose", dev, (maps, out), (b, n, q, tile))
+    return out
+
+
 # --------------------------------------------------------------------------
 # plain versions (same combine, same order)
 # --------------------------------------------------------------------------
@@ -151,3 +180,8 @@ def spec_compose_lanes_tree_torch(lanes, keys, cand_index, sinks, *,
         keys = keys[:, 0::2]
         n //= 2
     return lanes[:, 0]
+
+
+def lvec_compose_torch(maps):
+    """Plain version of B7: one gather per map, left to right -> [B, Q]."""
+    return lvec_compose_ref(maps)

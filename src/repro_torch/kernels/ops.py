@@ -12,11 +12,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import dfa_match, flash_attn as _flash_attn, lvec_compose
-from . import token_mask as _token_mask
+from . import dfa_match, flash_attn as _flash_attn, lvec_compose as _lvec
+from . import onehot_match, token_mask as _token_mask
 
-__all__ = ["spec_match_merge", "spec_match_merge_lanes",
-           "spec_compose_lanes", "token_mask", "flash_attn"]
+__all__ = ["spec_match", "spec_match_merge", "spec_match_merge_lanes",
+           "spec_compose_lanes", "lvec_compose", "onehot_block_maps",
+           "mxu_profitable", "token_mask", "flash_attn"]
 
 
 def _pad_to_block(n: int, target: int) -> tuple[int, int]:
@@ -28,6 +29,100 @@ def _pad_to_block(n: int, target: int) -> tuple[int, int]:
     """
     blk = max(1, min(n, target))
     return blk, n + (-n) % blk
+
+
+def _identity_padded_table(table: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """Append an identity class column (state q maps to itself).
+
+    Raw transition tables have no reserved padding class; this returns a
+    widened table plus the new class index, giving padded symbols a sound
+    no-op transition.
+    """
+    q = table.shape[0]
+    ident = torch.arange(q, dtype=table.dtype, device=table.device)[:, None]
+    return torch.cat([table, ident], dim=1), table.shape[1]
+
+
+def mxu_profitable(q: int, s: int, *, vpu_lanes: int = 1024,
+                   mxu_dim: int = 128) -> bool:
+    """The JAX package's crossover between the gather route (B6) and the
+    one-hot product route (B8 + B7) of ``spec_match``.
+
+    Its constants are the TPU's (a 1024-lane vector unit, a 128 x 128
+    matrix unit): the product route when the DFA is small (Q <= 256) and
+    the speculation wide (S >= Q / 2, S > 8).  The route changes only the
+    speed, never a result; the port keeps the JAX decision so both packages
+    pick the same route, and ``chip_smoke.py`` measures both routes on the
+    card.
+    """
+    return q <= mxu_dim * 2 and s >= q // 2 and s > vpu_lanes // mxu_dim
+
+
+def spec_match(table, chunks, init_states, *, use_mxu: bool | None = None):
+    """Match [C] chunks x [S] lanes; the semantics of ``ref.spec_match_ref``.
+
+    table [Q, n_cls], chunks [C, L] class ids, init_states [C, S] -> [C, S]
+    final states.  ``use_mxu`` picks the route (``mxu_profitable`` when
+    None): the gather route is one launch of kernel B6 on the unpadded
+    operands (the kernel takes any C and L); the product route pads L to
+    the 256-symbol block with an appended identity class, computes every
+    chunk's full [Q] map with one B8 launch over all (chunk, block) pairs
+    and one B7 launch over chunks, and reads the lanes' states from it.
+    """
+    c, l = chunks.shape
+    q = table.shape[0]
+    s = init_states.shape[1]
+    if use_mxu is None:
+        use_mxu = mxu_profitable(q, s)
+    if use_mxu:
+        l_blk, l_pad = _pad_to_block(l, 256)
+        if l_pad != l:
+            table, id_cls = _identity_padded_table(table)
+            chunks = F.pad(chunks, (0, l_pad - l), value=id_cls)
+        maps = _dispatch(onehot_match.onehot_block_maps_cuda,
+                         onehot_match.onehot_block_maps_torch, chunks,
+                         (table.contiguous(), chunks.contiguous()),
+                         dict(l_blk=l_blk), cuda_only=())
+        full = lvec_compose(maps)                               # [C, Q]
+        return torch.gather(full, 1, init_states.long())
+    return _dispatch(dfa_match.spec_match_cuda, dfa_match.spec_match_torch,
+                     chunks, (table.contiguous(), chunks.contiguous(),
+                              init_states.contiguous()), {}, cuda_only=())
+
+
+def lvec_compose(maps):
+    """Compose maps left to right (kernel B7); ``ref.lvec_compose_ref``.
+
+    maps [C, Q] -> [Q], or [B, C, Q] -> [B, Q] in one launch of any C.
+    """
+    batched = maps.dim() == 3
+    maps = maps if batched else maps[None]
+    out = _dispatch(_lvec.lvec_compose_cuda, _lvec.lvec_compose_torch, maps,
+                    (maps.contiguous(),), {}, cuda_only=())
+    return out if batched else out[0]
+
+
+def onehot_block_maps(table, symbols, *, block_l: int = 256):
+    """Block maps of the one-hot product formulation (kernel B8); see
+    ``ref.onehot_block_maps_ref``.
+
+    symbols [L] -> [L / l_blk, Q], or [C, L] -> [C, L / l_blk, Q] in one
+    launch, with ``l_blk = min(L, block_l)``.  A length that is not a
+    multiple is padded with an appended identity class, so the extra
+    trailing block maps are identities.
+    """
+    batched = symbols.dim() == 2
+    symbols = symbols if batched else symbols[None]
+    l = symbols.shape[1]
+    l_blk, l_pad = _pad_to_block(l, block_l)
+    if l_pad != l:
+        table, id_cls = _identity_padded_table(table)
+        symbols = F.pad(symbols, (0, l_pad - l), value=id_cls)
+    out = _dispatch(onehot_match.onehot_block_maps_cuda,
+                    onehot_match.onehot_block_maps_torch, symbols,
+                    (table.contiguous(), symbols.contiguous()),
+                    dict(l_blk=l_blk), cuda_only=())
+    return out if batched else out[0]
 
 
 def _pad_merge_chunks(chunks: torch.Tensor, pad_cls: int,
@@ -125,12 +220,12 @@ def spec_compose_lanes(lane_maps, entry_keys, cand_index, sinks, *,
     assert n >= 1, "empty runs are the caller's fast path"
     if mode == "tree":
         n_pad = 1 << (n - 1).bit_length()
-        cuda_fn = lvec_compose.spec_compose_lanes_tree_cuda
-        torch_fn = lvec_compose.spec_compose_lanes_tree_torch
+        cuda_fn = _lvec.spec_compose_lanes_tree_cuda
+        torch_fn = _lvec.spec_compose_lanes_tree_torch
     elif mode == "carry":
         _, n_pad = _pad_to_block(n, n_blk)
-        cuda_fn = lvec_compose.spec_compose_lanes_cuda
-        torch_fn = lvec_compose.spec_compose_lanes_torch
+        cuda_fn = _lvec.spec_compose_lanes_cuda
+        torch_fn = _lvec.spec_compose_lanes_torch
     else:
         raise ValueError(f"unknown compose mode {mode!r}")
     if n_pad != n:  # pad_key tail elements compose as identities

@@ -13,11 +13,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["classify_pad_ref", "spec_match_merge_ref",
+__all__ = ["classify_pad_ref", "spec_match_ref", "spec_match_merge_ref",
            "spec_match_merge_lanes_ref", "spec_merge_ref",
            "spec_merge_lanes_ref", "cursor_merge_ref", "scan_lanes",
            "compose_lanes_torch", "spec_merge_lanes_scan_ref",
-           "spec_compose_lanes_ref", "token_mask_ref", "flash_attn_ref"]
+           "spec_compose_lanes_ref", "lvec_compose_ref",
+           "onehot_block_maps_ref", "token_mask_ref", "flash_attn_ref"]
 
 
 def classify_pad_ref(byte_to_class: torch.Tensor, bytes_buf: torch.Tensor,
@@ -46,6 +47,17 @@ def scan_lanes(table: torch.Tensor, chunks: torch.Tensor,
     for pos in range(cols.shape[1]):
         st = flat[st * n_cls_pad + cols[:, pos:pos + 1]]
     return st.to(torch.int32)
+
+
+def spec_match_ref(table: torch.Tensor, chunks: torch.Tensor,
+                   init_states: torch.Tensor) -> torch.Tensor:
+    """Match [C] chunks x [S] speculative lanes; table [Q, n_cls] int32.
+
+    chunks [C, L] int32 class ids; init_states [C, S] int32.  Returns [C, S]
+    final states, one gather per symbol over every lane: the semantics of
+    paper Listing 2.
+    """
+    return scan_lanes(table, chunks, init_states)
 
 
 def compose_lanes_torch(a: torch.Tensor, b: torch.Tensor,
@@ -230,6 +242,34 @@ def spec_compose_lanes_ref(lane_maps: np.ndarray, entry_keys: np.ndarray,
     """
     return spec_merge_lanes_scan_ref(lane_maps, entry_keys, cand_index,
                                      sinks, pad_cls=pad_cls)[:, -1]
+
+
+def lvec_compose_ref(maps: torch.Tensor) -> torch.Tensor:
+    """Left-to-right composition of full maps: out = m_{C-1} o ... o m_0.
+
+    maps [..., C, Q] int32; out [..., Q] with out[q] = delta*(q, chunk_0 ...
+    chunk_{C-1}).  Leading axes are independent batches.
+    """
+    acc = torch.arange(maps.shape[-1], device=maps.device).expand(
+        maps.shape[:-2] + maps.shape[-1:])
+    for i in range(maps.shape[-2]):
+        acc = torch.gather(maps[..., i, :].long(), -1, acc)
+    return acc.to(torch.int32)
+
+
+def onehot_block_maps_ref(table: torch.Tensor, symbols: torch.Tensor,
+                          block_l: int) -> torch.Tensor:
+    """Per-block transition maps of the one-hot product formulation.
+
+    symbols [..., L] (L divisible by block_l).  Block b's map is
+    delta*(q, symbols[..., b*block_l:(b+1)*block_l]) for every q, returned
+    as int32 [..., L // block_l, Q].
+    """
+    q = table.shape[0]
+    blocks = symbols.reshape(-1, block_l)
+    acc = torch.arange(q, dtype=torch.int32, device=symbols.device)
+    out = scan_lanes(table, blocks, acc.expand(blocks.shape[0], q))
+    return out.reshape(*symbols.shape[:-1], -1, q)
 
 
 def token_mask_ref(states: torch.Tensor, allowed: torch.Tensor,

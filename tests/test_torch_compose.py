@@ -230,7 +230,8 @@ def test_spec_compose_lanes_contract_errors():
         lvec_compose.spec_compose_lanes_cuda(maps, keys, dev.cidx_pad_t,
                                              dev.sinks_t, pad_key=dev.pad_key)
     assert lvec_compose.launches == {"spec_compose_lanes": 0,
-                                     "spec_compose_lanes_tree": 0}
+                                     "spec_compose_lanes_tree": 0,
+                                     "lvec_compose": 0}
     assert lvec_compose.tree_in_smem(32, 14, 15)
     assert not lvec_compose.tree_in_smem(2048, 14, 15)
     assert not lvec_compose.tree_in_smem(32, 14, 15, in_smem=False)

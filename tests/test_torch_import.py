@@ -19,6 +19,9 @@ def test_port_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None\n"
             "import repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
             "import repro_torch.core.engine, repro_torch.core.lvector\n"
+            "import repro_torch.core.engine.baselines\n"
+            "import repro_torch.core.engine.spec, repro_torch.core.profiling\n"
+            "import repro_torch.kernels.onehot_match\n"
             "import repro_torch.streaming, repro_torch.streaming.ooo\n"
             "import repro_torch.models, repro_torch.serving\n"
             "import repro_torch.configs, repro_torch.launch.serve\n"

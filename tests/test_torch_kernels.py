@@ -1,11 +1,13 @@
-"""The fused match + merge wrappers (kernels B1/B2), the serving kernels'
-wrappers (B5 ``token_mask``, B9 ``flash_attn``) and the card checks of every
-kernel.
+"""The fused match + merge wrappers (kernels B1/B2), the paper engine's
+kernels' wrappers (B6 ``spec_match``, B7 ``lvec_compose``, B8
+``onehot_block_maps``), the serving kernels' wrappers (B5 ``token_mask``,
+B9 ``flash_attn``) and the card checks of every kernel.
 
 On CPU tensors the port's ops run the kernels' plain versions.
 ``ops.spec_match_merge``/``spec_match_merge_lanes`` must return the JAX
 Pallas kernels' finals or lanes, ``skipped`` block counts and ``l_blk``
-exactly, ``ops.token_mask`` the JAX op's bits; ``ops.flash_attn`` agrees with
+exactly, ``ops.spec_match``/``lvec_compose``/``onehot_block_maps`` the JAX
+ops' ids on both ``spec_match`` routes, ``ops.token_mask`` the JAX op's bits; ``ops.flash_attn`` agrees with
 the JAX op within atol = rtol = 3e-2, the JAX package's own tolerance for
 the kernel (the JAX side runs in interpret mode, as its own tests do).  The
 CUDA kernels are held against their plain versions by the tests that need
@@ -21,7 +23,8 @@ from repro_torch.core import make_search_dfa as t_make_search_dfa
 from repro_torch.core import pack_dfas as t_pack_dfas
 from repro_torch.core import random_dfa as t_random_dfa
 from repro_torch.core.engine.plan import DeviceTables
-from repro_torch.kernels import dfa_match, flash_attn, lvec_compose, ops
+from repro_torch.kernels import (dfa_match, flash_attn, lvec_compose,
+                                 onehot_match, ops)
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import token_mask
 
@@ -403,3 +406,210 @@ def test_flash_attn_kernel_equals_plain_on_card():
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
                                    rtol=3e-2, msg=str(case))
+
+
+# --------------------------------------------------------------------------
+# B6 spec_match, B7 lvec_compose, B8 onehot_block_maps
+# --------------------------------------------------------------------------
+
+def _spec_case(q, ncls, c, l, s, seed):
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, q, size=(q, ncls)).astype(np.int32)
+    chunks = rng.integers(0, ncls, size=(c, l)).astype(np.int32)
+    init = rng.integers(0, q, size=(c, s)).astype(np.int32)
+    return table, chunks, init
+
+
+SPEC_GATHER = [(4, 2, 1, 16, 1), (17, 5, 6, 384, 9), (64, 16, 8, 512, 16),
+               (130, 7, 3, 130, 130), (257, 26, 2, 1024, 33),
+               (11, 3, 13, 601, 5)]
+SPEC_MXU = [(8, 3, 2, 64, 8), (32, 4, 4, 256, 32), (128, 8, 2, 512, 64),
+            (20, 6, 3, 389, 20)]
+
+
+@pytest.mark.parametrize("q,ncls,c,l,s,use_mxu",
+                         [g + (False,) for g in SPEC_GATHER]
+                         + [m + (True,) for m in SPEC_MXU])
+def test_spec_match_cpu_equals_pallas_interpret(jops, q, ncls, c, l, s,
+                                                use_mxu):
+    """Both routes of ``ops.spec_match`` (the gather route runs unpadded,
+    the product route pads L) against the JAX op (which pads both) and the
+    oracles, prime L and C included."""
+    import jax.numpy as jnp
+
+    table, chunks, init = _spec_case(q, ncls, c, l, s, q * 1000 + l)
+    want = np.asarray(jops.spec_match(*map(jnp.asarray, (table, chunks, init)),
+                                      use_mxu=use_mxu))
+    args = tuple(map(torch.from_numpy, (table, chunks, init)))
+    got = ops.spec_match(*args, use_mxu=use_mxu)
+    assert got.dtype == torch.int32 and got.shape == (c, s)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(tref.spec_match_ref(*args).numpy(), want)
+    np.testing.assert_array_equal(dfa_match.spec_match_torch(*args).numpy(),
+                                  want)
+    assert ops.mxu_profitable(q, s) == jops.mxu_profitable(q, s)
+
+
+def test_mxu_profitable_decides_as_jax(jops):
+    grid = [(q, s) for q in (1, 2, 8, 9, 16, 17, 64, 128, 200, 255, 256, 257,
+                             300, 1288, 43125)
+            for s in (1, 4, 8, 9, 16, 32, 64, 100, 128, 129, 256, 257, 22857)]
+    assert [ops.mxu_profitable(q, s) for q, s in grid] == [
+        jops.mxu_profitable(q, s) for q, s in grid]
+    assert ops.mxu_profitable(256, 256) and not ops.mxu_profitable(257, 257)
+
+
+@pytest.mark.parametrize("c,q", [(1, 4), (8, 17), (16, 128), (7, 33),
+                                 (24, 257)])
+def test_lvec_compose_cpu_equals_pallas_interpret(jops, c, q):
+    import jax.numpy as jnp
+
+    maps = np.random.default_rng(c * q).integers(
+        0, q, size=(c, q)).astype(np.int32)
+    want = np.asarray(jops.lvec_compose(jnp.asarray(maps)))
+    got = ops.lvec_compose(torch.from_numpy(maps))
+    assert got.dtype == torch.int32 and got.shape == (q,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    both = ops.lvec_compose(torch.from_numpy(np.stack([maps, maps])))
+    assert both.shape == (2, q)
+    np.testing.assert_array_equal(both.numpy(), np.stack([want, want]))
+
+
+def _worst_case_table(q=96):
+    """Many-to-one transitions (non-permutation P): every state -> 0 on
+    class 0, identity on class 1, a cycle on class 2."""
+    table = np.zeros((q, 3), dtype=np.int32)
+    table[:, 1] = np.arange(q)
+    table[:, 2] = (np.arange(q) + 1) % q
+    return table
+
+
+@pytest.mark.parametrize("q,ncls,l,blk", [
+    (4, 2, 64, 16), (16, 4, 256, 64), (64, 8, 512, 128), (128, 16, 256, 256),
+    (23, 5, 97, 32), ("worst", 3, 128, 64)])
+def test_onehot_block_maps_cpu_equals_pallas_interpret(jops, q, ncls, l, blk):
+    """Including a prime L (identity-class padding) and the worst-case
+    one-hot matrices."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(l + blk)
+    if q == "worst":
+        table = _worst_case_table()
+        syms = np.tile([0, 1, 2, 2], l // 4).astype(np.int32)
+    else:
+        table = rng.integers(0, q, size=(q, ncls)).astype(np.int32)
+        syms = rng.integers(0, ncls, size=l).astype(np.int32)
+    want = np.asarray(jops.onehot_block_maps(
+        jnp.asarray(table), jnp.asarray(syms), block_l=blk))
+    got = ops.onehot_block_maps(torch.from_numpy(table),
+                                torch.from_numpy(syms), block_l=blk)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    batched = ops.onehot_block_maps(torch.from_numpy(table),
+                                    torch.from_numpy(np.stack([syms, syms])),
+                                    block_l=blk)
+    np.testing.assert_array_equal(batched.numpy(), np.stack([want, want]))
+
+
+def test_build_pmats_equals_jax():
+    from repro.kernels.onehot_match import build_pmats as j_build_pmats
+    import jax.numpy as jnp
+
+    table = _worst_case_table(12)
+    want = np.asarray(j_build_pmats(jnp.asarray(table)).astype(jnp.float32))
+    got = onehot_match.build_pmats(torch.from_numpy(table))
+    assert got.dtype == torch.bfloat16 and got.shape == (36, 12)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_spec_plan_covers_every_lane():
+    for c, s in ((4096, 3), (4096, 120), (40, 256), (1, 1), (40, 22857),
+                 (7, 5000), (4096, 1), (3, 33)):
+        c_blk, s_blk = dfa_match.spec_plan(c, s)
+        assert 1 <= c_blk <= min(c, dfa_match.SPEC_MAX_CHUNKS)
+        assert 1 <= s_blk <= s and c_blk * s_blk <= dfa_match.SPEC_CTA_LANES
+        assert s_blk == s or c_blk == 1
+
+
+def test_paper_kernel_wrappers_refuse_cpu_tensors():
+    table, chunks, init = map(torch.from_numpy,
+                              _spec_case(8, 3, 2, 16, 4, 1))
+    before = (dict(dfa_match.launches), dict(lvec_compose.launches),
+              dict(onehot_match.launches))
+    with pytest.raises(ValueError, match="CUDA"):
+        dfa_match.spec_match_cuda(table, chunks, init)
+    with pytest.raises(ValueError, match="CUDA"):
+        lvec_compose.lvec_compose_cuda(init[None])
+    with pytest.raises(ValueError, match="CUDA"):
+        onehot_match.onehot_block_maps_cuda(table, chunks, l_blk=16)
+    assert (dfa_match.launches, lvec_compose.launches,
+            onehot_match.launches) == before
+
+
+def test_spec_match_kernel_equals_plain_on_card():
+    """Needs an NVIDIA card (sm_90a): B6 against its plain version, both
+    table placements, chunks grouped and lanes split over CTAs, one lane
+    over a long input, and ``ops.spec_match``'s gather route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    cases = SPEC_GATHER + [(9, 4, 1, 5000, 1), (300, 6, 3, 200, 5000),
+                           (40, 5, 700, 100, 3)]
+    for q, ncls, c, l, s in cases:
+        args = tuple(torch.from_numpy(x).cuda()
+                     for x in _spec_case(q, ncls, c, l, s, q + s))
+        want = dfa_match.spec_match_torch(*args)
+        for smem in (True, False):
+            got = dfa_match.spec_match_cuda(*args, table_in_smem=smem)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (q, c, l, s, smem)
+        got = ops.spec_match(*args, use_mxu=False)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (q, c, l, s)
+
+
+def test_lvec_compose_kernel_equals_plain_on_card():
+    """Needs an NVIDIA card (sm_90a): B7 against its plain version, one and
+    many maps per tile, more states than threads, no maps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    rng = np.random.default_rng(3)
+    for b, n, q in ((1, 1, 4), (3, 100, 17), (40, 103, 256), (1, 4096, 256),
+                    (2, 7, 1500), (5, 0, 9)):
+        maps = torch.from_numpy(
+            rng.integers(0, q, size=(b, n, q)).astype(np.int32)).cuda()
+        want = lvec_compose.lvec_compose_torch(maps)
+        got = lvec_compose.lvec_compose_cuda(maps)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (b, n, q)
+
+
+def test_onehot_kernel_equals_plain_on_card():
+    """Needs an NVIDIA card (sm_90a): B8 against its plain version at every
+    padded width class, a wide alphabet, the worst-case matrices, and
+    ``ops.spec_match``'s product route against its gather route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    rng = np.random.default_rng(4)
+    for q, ncls, c, l, blk in ((1, 2, 2, 64, 64), (5, 3, 3, 256, 256),
+                               (16, 16, 2, 512, 256), (17, 4, 2, 96, 32),
+                               (100, 9, 3, 256, 128), (128, 16, 2, 256, 256),
+                               (256, 17, 2, 512, 256), (256, 257, 1, 64, 64),
+                               ("worst", 3, 2, 128, 64)):
+        if q == "worst":
+            table = _worst_case_table()
+            syms = np.tile([0, 1, 2, 2], (c, l // 4)).astype(np.int32)
+        else:
+            table = rng.integers(0, q, size=(q, ncls)).astype(np.int32)
+            syms = rng.integers(0, ncls, size=(c, l)).astype(np.int32)
+        t, sy = torch.from_numpy(table).cuda(), torch.from_numpy(syms).cuda()
+        want = onehot_match.onehot_block_maps_torch(t, sy, l_blk=blk)
+        got = onehot_match.onehot_block_maps_cuda(t, sy, l_blk=blk)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (q, ncls, c, l, blk)
+    for q, ncls, c, l, s in SPEC_MXU + [(256, 16, 4, 700, 256)]:
+        args = tuple(torch.from_numpy(x).cuda()
+                     for x in _spec_case(q, ncls, c, l, s, q))
+        want = ops.spec_match(*args, use_mxu=False)
+        got = ops.spec_match(*args, use_mxu=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (q, c, l, s)

@@ -136,3 +136,53 @@ def test_cursor_merge_ref_agrees(r):
     np.testing.assert_array_equal(
         tref.cursor_merge_ref(*args, pad_cls=dev.pad_key),
         jref.cursor_merge_ref(*args, pad_cls=dev.pad_key))
+
+
+# the full-map oracles of the paper engine's kernels (B6, B7, B8), at the
+# shapes of the JAX package's kernel tests
+
+def _table(q, ncls, seed):
+    return np.random.default_rng(seed).integers(
+        0, q, size=(q, ncls)).astype(np.int32)
+
+
+@pytest.mark.parametrize("q,ncls,c,l,s", [
+    (4, 2, 1, 16, 1), (17, 5, 6, 384, 9), (130, 7, 3, 130, 130),
+    (257, 26, 2, 97, 33)])
+def test_spec_match_ref_agrees(q, ncls, c, l, s):
+    rng = np.random.default_rng(q + l)
+    table = _table(q, ncls, q)
+    chunks = rng.integers(0, ncls, size=(c, l)).astype(np.int32)
+    init = rng.integers(0, q, size=(c, s)).astype(np.int32)
+    want = np.asarray(jref.spec_match_ref(*map(jnp.asarray,
+                                                (table, chunks, init))))
+    got = tref.spec_match_ref(_t(table), _t(chunks), _t(init))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("c,q", [(1, 4), (8, 17), (16, 128), (7, 33),
+                                 (24, 257)])
+def test_lvec_compose_ref_agrees(c, q):
+    maps = np.random.default_rng(c * q).integers(
+        0, q, size=(c, q)).astype(np.int32)
+    want = np.asarray(jref.lvec_compose_ref(jnp.asarray(maps)))
+    got = tref.lvec_compose_ref(_t(maps))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    batched = tref.lvec_compose_ref(_t(np.stack([maps, maps[::-1]])))
+    np.testing.assert_array_equal(batched[0].numpy(), want)
+
+
+@pytest.mark.parametrize("q,ncls,l,blk", [
+    (4, 2, 64, 16), (16, 4, 256, 64), (64, 8, 512, 128), (128, 16, 256, 256),
+    (257, 5, 96, 32)])
+def test_onehot_block_maps_ref_agrees(q, ncls, l, blk):
+    rng = np.random.default_rng(q + l)
+    table = _table(q, ncls, q + 1)
+    syms = rng.integers(0, ncls, size=l).astype(np.int32)
+    want = np.asarray(jref.onehot_block_maps_ref(jnp.asarray(table),
+                                                 jnp.asarray(syms), blk))
+    got = tref.onehot_block_maps_ref(_t(table), _t(syms), blk)
+    assert got.dtype == torch.int32 and got.shape == (l // blk, q)
+    np.testing.assert_array_equal(got.numpy(), want)
