@@ -5,7 +5,9 @@
 
 Phases (any mismatch raises, so the exit code is non-zero):
   1. print the card (nvidia-smi name and power limit), build every CUDA
-     kernel from ``src/repro_torch/kernels/csrc`` and print the build time;
+     kernel from ``src/repro_torch/kernels/csrc`` and print the build time
+     and the registers and spills of each instance of ``flash_attn`` and
+     ``onehot_match``;
   2. hold kernels B1 (``spec_match_merge``) and B2 (``spec_match_merge_lanes``)
      against their plain PyTorch versions at the PCRE-14 shapes (B=64, C=8,
      L=8192): table and lane carry each in shared or global memory, early
@@ -38,7 +40,8 @@ Phases (any mismatch raises, so the exit code is non-zero):
      plain output's RMS, at the tinyllama prefill shape (128 query heads over
      16 kv heads, T = S = 2,048, D = 64, causal), at D = 128 and with a
      window of 512; time it beside the plain version and
-     ``scaled_dot_product_attention``;
+     ``scaled_dot_product_attention`` and print its share of its bound and
+     its ratio to that call;
  12. the serving path at full tinyllama-1.1b width, random weights from a
      seeded generator on the card: ``api.prefill`` at B=4, T=2,048 (B9 once
      per layer) against the same call on the blockwise attention path;
@@ -54,7 +57,8 @@ Phases (any mismatch raises, so the exit code is non-zero):
      S = 256, L = 26,214), at the lookahead shape of phase 14(a) (C = 4,096,
      S = I_max, L = 16,384), with the PS00028 search table in global memory
      and at a prime L and C through ``ops.spec_match``; B7 on 4,096 maps and
-     on [40, 103, 256]; B8 at Q = 16, 64, 128, 256 (Q = 257 refused); and
+     on [40, 103, 256]; B8 at Q = 16, 64, 128, 256 (Q = 257 refused) with
+     its share of its bound; and
      ``ops.spec_match`` on both routes at those Q (the crossover);
  14. the paper's per-document engine, ``SpecDFAEngine(dfa,
      matcher=ops.spec_match)``, on seeded residue data with planted PROSITE
@@ -325,6 +329,25 @@ def kernel_device_ms(fn, name, iters):
     return us / n / 1e3 if n and us > 0 else None
 
 
+def kernel_resources(log):
+    """[(template argument, registers, spill-store bytes)] of each kernel
+    instance in an ``nvcc -Xptxas -v`` log."""
+    import re
+    out, inst, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?ILi(\d+)E", line)
+        if m:
+            inst = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and inst is not None:
+            out.append((inst, int(m.group(1)), spill))
+            inst, spill = None, 0
+    return out
+
+
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
@@ -496,6 +519,10 @@ def phase11_flash_attn(kernels):
               f"{plain_ms:.3f} ms  library "
               f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound "
               f"{bound:.5f} ms ({by})")
+        print(f"[11]   share of bound {bound / ms:.3f}"
+              + ("" if lib_ms is None else
+                 f"; kernel / scaled_dot_product_attention "
+                 f"{ms / lib_ms:.3f}"))
         if (bh, bh_kv, t, d, window) == ATTN11[0]:
             kernels["flash_attn"] = dict(
                 name="flash_attn", route="cuda",
@@ -536,20 +563,18 @@ def phase12_serving(rng, counts):
                               .astype(np.int32)).to(DEVICE)
     batch = {"tokens": tokens}
     runs = {}
-    for route in ("auto", "0"):
-        os.environ["REPRO_PALLAS_ATTN"] = route
-        api.prefill(params, cfg, batch)          # warm
+    for route in ("auto", "blockwise"):
+        api.prefill(params, cfg, batch, attn_route=route)          # warm
         torch.cuda.synchronize()
         flash_attn.reset_launches()
         t0 = time.perf_counter()
-        logits, cache = api.prefill(params, cfg, batch)
+        logits, cache = api.prefill(params, cfg, batch, attn_route=route)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         runs[route] = (logits[:, -1].float(), wall,
                        flash_attn.launches["flash_attn"])
         del cache
-    os.environ.pop("REPRO_PALLAS_ATTN")
-    (lk, wk, nk), (lx, wx, nx) = runs["auto"], runs["0"]
+    (lk, wk, nk), (lx, wx, nx) = runs["auto"], runs["blockwise"]
     counts["flash_attn"] = nk
     check(nk == cfg.n_layers and nx == 0,
           f"api.prefill launched B9 {nk} times (blockwise route {nx}); "
@@ -824,7 +849,8 @@ def phase13_paper_kernels(rng, kernels, search):
         bound, by, flops = onehot_bound(qq, n_cls + 1, c, l_pad, l_blk)
         print(f"[13] onehot_block_maps Q={qq} C={c} L={l_pad} l_blk={l_blk}:"
               f" kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s)  plain "
-              f"{plain_ms:.1f} ms  bound {bound:.4f} ms ({by})  equal")
+              f"{plain_ms:.1f} ms  bound {bound:.4f} ms ({by}), share of "
+              f"bound {bound / ms:.3f}  equal")
         if qq == ONEHOT13[-1]:
             kernels["onehot_block_maps"] = dict(
                 name="onehot_block_maps", route="cuda",
@@ -1092,6 +1118,11 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[1]   {stem}: {line.strip()}")
+    for stem in ("flash_attn", "onehot_match"):
+        res = kernel_resources(_build.build_logs.get(stem, ""))
+        print(f"[1] {stem} registers / spill-store bytes per template "
+              f"instance: " + ", ".join(f"{k}: {r} / {sp}"
+                                         for k, r, sp in res))
 
     ps = PatternSet(PCRE_PATTERNS, k_blk=64)
     packed = ps.blocks[0]

@@ -1,8 +1,9 @@
 """Launch wrapper of the fused flash-attention forward kernel (B9).
 
 ``flash_attn_cuda`` launches the Hopper kernel of ``csrc/flash_attn.cu``: the
-online-softmax recurrence over 64-row kv tiles with bf16 tensor-core
-products, float32 m/l/acc and dead causal/window tiles skipped.  It replaces
+online-softmax recurrence over 128-row kv tiles that a producer warpgroup
+loads by TMA, with ``wgmma`` bf16 products on two consumer warpgroups,
+float32 m/l/acc in registers and dead causal/window tiles skipped.  It replaces
 the Pallas kernel ``repro/kernels/flash_attn.py::flash_attn_kernel``.
 ``flash_attn_torch`` is its plain PyTorch version (the same recurrence, tile
 by tile), and ``launches`` counts kernel launches only.
@@ -21,7 +22,7 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attn_cuda", "flash_attn_torch", "launches",
+__all__ = ["flash_attn_cuda", "flash_attn_torch", "flash_plan", "launches",
            "reset_launches", "HEAD_DIMS"]
 
 # kernel launches; incremented only where the kernel launches
@@ -29,11 +30,39 @@ launches = {"flash_attn": 0}
 
 HEAD_DIMS = (16, 32, 64, 128)   # template instances in csrc/flash_attn.cu
 NEG = -1e30
-KV_BLK = 64                     # must equal kBlockK in csrc/flash_attn.cu
+KV_BLK = 64                     # the plain version's kv tile
+BLK_CUDA = 128                  # kBlockQ = kBlockK in csrc/flash_attn.cu
 
 
 def reset_launches() -> None:
     launches["flash_attn"] = 0
+
+
+def flash_plan(t: int, s: int, d: int, *, causal: bool = True,
+               window: int = 0) -> dict:
+    """The kernel's launch plan, as ``csrc/flash_attn.cu`` computes it:
+    ``swizzle`` bytes of a shared-memory row and ``parts`` (64-column TMA
+    boxes) per row, ``stages`` of the K/V ring, ``smem`` bytes (with the
+    1 KiB alignment slack), ``q_blocks`` of 128 rows per head, and for q
+    block b (rows 128 b ..) the live kv tiles ``tiles[b] = (j_lo, j_hi)``
+    of 128 rows that the producer loads and the consumers walk."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    sw = min(2 * d, 128)
+    stages = 2 if d == 128 else 3
+    # two Q blocks, the K/V ring, barriers, alignment slack
+    smem = BLK_CUDA * d * 2 * (2 + 2 * stages) + 8 * (2 * stages + 4) + 1024
+    n_tiles = -(-s // BLK_CUDA)
+    tiles = []
+    for b in range(-(-t // BLK_CUDA)):
+        q_lo, q_hi = b * BLK_CUDA, min(b * BLK_CUDA + BLK_CUDA, t) - 1
+        j_hi = min(n_tiles, q_hi // BLK_CUDA + 1) if causal else n_tiles
+        k_first = q_lo - window + 1
+        j_lo = min(j_hi, k_first // BLK_CUDA
+                   if window > 0 and k_first > 0 else 0)
+        tiles.append((j_lo, j_hi))
+    return dict(swizzle=sw, parts=2 * d // sw, stages=stages, smem=smem,
+                q_blocks=len(tiles), tiles=tiles)
 
 
 def _entry():
@@ -76,6 +105,8 @@ def flash_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if bh == 0 or t == 0:
         return out
+    if s == 0:                  # no key: acc = l = 0, out = 0 / 1e-30
+        return out.zero_()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -90,7 +121,8 @@ def flash_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attn_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      causal: bool = True, window: int = 0, group: int = 1):
-    """Plain version of B9: the kernel's recurrence over 64-row kv tiles.
+    """Plain version of B9: the recurrence over 64-row kv tiles (the
+    kernel takes two such steps per 128-row tile).
 
     Products of bf16 values summed in float32 (the tensor cores' bf16 x bf16
     -> f32), f32 m/l/acc, p rounded to bf16 before it is summed into l and

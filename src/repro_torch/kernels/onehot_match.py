@@ -3,9 +3,9 @@
 ``onehot_block_maps_cuda`` launches the Hopper kernel of
 ``csrc/onehot_match.cu``: per (chunk, symbol block) the product of the
 one-hot transition matrices ``P_c[k, n] = (table[k, c] == n)`` of the
-block's symbols on the tensor cores (``mma.sync`` bf16, float32
-accumulate), then the argmax of every row: the block's map
-``delta*(q, block)`` for every state q.  It replaces the Pallas kernel
+block's symbols on the tensor cores (``wgmma`` bf16, float32 accumulate,
+the accumulator in registers, 64 rows per warpgroup), then the argmax of
+every row: the block's map ``delta*(q, block)`` for every state q.  It replaces the Pallas kernel
 ``repro/kernels/onehot_match.py::onehot_match_kernel``, batched over chunks:
 one launch covers every (chunk, block).  Products of one-hot matrices keep
 one 1 per row, so bf16 is exact; Q is at most 256.
@@ -23,7 +23,7 @@ import torch
 from . import _build
 
 __all__ = ["build_pmats", "onehot_block_maps_cuda", "onehot_block_maps_torch",
-           "launches", "reset_launches", "MAX_STATES"]
+           "onehot_plan", "launches", "reset_launches", "MAX_STATES"]
 
 # kernel launches per wrapper; incremented only where the kernel launches
 launches = {"onehot_block_maps": 0}
@@ -35,6 +35,32 @@ SMEM_BUDGET = 232_448     # dynamic shared memory one block may use (H100)
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def onehot_plan(q: int) -> dict:
+    """The kernel's launch plan for Q states, as ``csrc/onehot_match.cu``'s
+    ``Cfg`` computes it: Q padded to ``qp``, ``slabs`` of 64 rows, one
+    consumer warpgroup per slab and up to two per CTA (``consumers``,
+    ``ctas`` per symbol block, ``threads`` with the producer: a warp, or
+    from ``qp`` = 192 a warpgroup that lends its registers), and
+    the ring of P_c buffers: ``chunks`` per P_c (2 when two full P_c do
+    not fit in shared memory), ``stages`` buffers, ``smem`` bytes (with
+    the 1 KiB alignment slack)."""
+    if not 1 <= q <= MAX_STATES:
+        raise ValueError(f"the one-hot kernel takes 1 <= Q <= {MAX_STATES}, "
+                         f"got {q}")
+    qp = -(-q // 16) * 16
+    slabs = -(-qp // 64)
+    consumers = 2 if slabs >= 2 else 1
+    region = qp * 128                      # 64 k columns of QP rows, bf16
+    split = 2 * slabs * region + 1024 + 64 > SMEM_BUDGET
+    buf = 2 * region if split else slabs * region
+    stages = 3 if split else min(8, max(2, 65536 // buf))
+    return dict(qp=qp, slabs=slabs, consumers=consumers,
+                ctas=-(-slabs // consumers),
+                threads=consumers * 128 + (128 if qp >= 192 else 32),
+                chunks=2 if split else 1, stages=stages,
+                smem=stages * buf + 16 * stages + 1024)
 
 
 def build_pmats(table: torch.Tensor) -> torch.Tensor:
@@ -71,10 +97,6 @@ def onehot_block_maps_cuda(table, symbols, *, l_blk: int):
         raise ValueError(f"the one-hot kernel takes Q <= {MAX_STATES}, "
                          f"got {q}")
     c, nb = _check_blocks(symbols, l_blk)
-    qp = -(-q // 16) * 16
-    smem = qp * (qp // 2 + 4) * 4 + n_cls * qp + l_blk * 4
-    if smem > SMEM_BUDGET:
-        raise ValueError(f"l_blk={l_blk} does not fit in shared memory")
     out = torch.empty((c, nb, q), dtype=torch.int32, device=dev)
     if c * nb == 0 or q == 0:
         return out

@@ -62,16 +62,18 @@ def train_logits(params, cfg: ModelConfig, batch: dict):
 
 
 def prefill(params, cfg: ModelConfig, batch: dict, *,
-            last_only: bool = True):
+            last_only: bool = True, attn_route: str = "auto"):
     """Prompt ingestion into a cache exactly the prompt's length, so its
     attention takes the fused kernel B9 on the card.  ``last_only``
-    (default) emits the final position's logits only."""
+    (default) emits the final position's logits only; ``attn_route``
+    (``"auto"``, ``"kernel"`` or ``"blockwise"``) picks the attention
+    route (``layers.attention``)."""
     _dense(cfg)
     tokens = batch["tokens"]
     b, t = tokens.shape
     cache = TF.init_cache(cfg, b, t, device=tokens.device)
     logits, cache, _ = TF.forward(params, cfg, tokens, cache=cache,
-                                  last_only=last_only)
+                                  last_only=last_only, attn_route=attn_route)
     return logits, cache
 
 

@@ -15,7 +15,6 @@ copies: a decode step then moves one token's K/V, not the whole cache.
 
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 import torch
@@ -113,21 +112,28 @@ def init_kv_cache_layer(batch: int, n_kv: int, max_len: int, head_dim: int,
             "v": torch.zeros(shape, dtype=Compute, device=device)}
 
 
-def _kernel_route(x) -> bool:
+ATTN_ROUTES = ("auto", "kernel", "blockwise")
+
+
+def _kernel_route(x, attn_route: str) -> bool:
     """Whether a full-prompt prefill takes the fused kernel B9.
 
-    ``REPRO_PALLAS_ATTN`` (the JAX package's switch): ``"auto"`` (default)
-    takes B9 for CUDA tensors and the blockwise torch path otherwise;
-    ``"1"`` forces B9's route, which on CPU tensors runs B9's plain version
-    (as the JAX package's interpret mode does); anything else never takes it.
+    ``"auto"`` (default) takes B9 for CUDA tensors and the blockwise torch
+    path otherwise; ``"kernel"`` forces B9's route, which on CPU tensors
+    runs B9's plain version (as the JAX package's interpret mode does);
+    ``"blockwise"`` never takes it.
     """
-    mode = os.environ.get("REPRO_PALLAS_ATTN", "auto")
-    return mode == "1" or (mode == "auto" and x.device.type == "cuda")
+    if attn_route not in ATTN_ROUTES:
+        raise ValueError(f"attn_route must be one of {ATTN_ROUTES}, got "
+                         f"{attn_route!r}")
+    return attn_route == "kernel" or (attn_route == "auto"
+                                      and x.device.type == "cuda")
 
 
 def attention(p, x, *, positions, rope_theta: float, window: int = 0,
               cache: Optional[dict] = None, cache_index: int = 0,
-              causal: bool = True, q_block: int = 512, kv_block: int = 1024):
+              causal: bool = True, q_block: int = 512, kv_block: int = 1024,
+              attn_route: str = "auto"):
     """GQA self-attention.
 
     x [B, T, D].  Without ``cache``: causal (or bidirectional) attention
@@ -136,7 +142,8 @@ def attention(p, x, *, positions, rope_theta: float, window: int = 0,
     first ``cache_index + T`` positions.  A prefill whose cache is exactly
     the prompt (T == S > 16) runs the fused kernel B9 on the card; other
     long queries run the blockwise path, short (decode) queries the direct
-    path.  Returns (out [B, T, D], cache).
+    path; ``attn_route`` picks the prefill's route (``_kernel_route``).
+    Returns (out [B, T, D], cache).
     """
     from ..kernels import ops as kops
 
@@ -161,7 +168,8 @@ def attention(p, x, *, positions, rope_theta: float, window: int = 0,
     group = n_heads // n_kv
     hd = q.shape[-1]
     qg = q.reshape(b, t, n_kv, group, hd)
-    if cache is not None and t > 16 and t == k.shape[1] and _kernel_route(x):
+    if cache is not None and t > 16 and t == k.shape[1] \
+            and _kernel_route(x, attn_route):
         # prefill: the full prompt, kv_valid == t, so the kernel mask is
         # exact; kv heads go over unrepeated, head h reading kv head h // g
         qf = qg.permute(0, 2, 3, 1, 4).reshape(b * n_heads, t, hd)

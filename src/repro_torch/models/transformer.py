@@ -82,11 +82,11 @@ def _layer(params: dict, i: int) -> dict:
 
 
 def _layer_body(cfg: ModelConfig, x, p, *, positions, cache=None,
-                cache_index: int = 0):
+                cache_index: int = 0, attn_route: str = "auto"):
     h, _ = L.attention(
         p["attn"], L.rms_norm(p["ln1"], x, cfg.norm_eps), positions=positions,
         rope_theta=cfg.rope_theta, window=cfg.attn_window, cache=cache,
-        cache_index=cache_index)
+        cache_index=cache_index, attn_route=attn_route)
     x = x + h
     hn = L.rms_norm(p["ln2"], x, cfg.norm_eps)
     return x + L.swiglu_mlp(p["mlp"], hn)
@@ -100,12 +100,15 @@ def _logits(params: dict, cfg: ModelConfig, x):
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-            cache: Optional[dict] = None, last_only: bool = False):
+            cache: Optional[dict] = None, last_only: bool = False,
+            attn_route: str = "auto"):
     """tokens [B, T] -> (logits [B, T or 1, V_pad], cache, aux_loss).
 
     With ``cache`` (zero-initialised, [L, B, S, K, H] leaves) this is a
     prefill: the prompt's K/V fill the cache's first T positions in place.
-    ``last_only`` emits the final position's logits only.
+    ``last_only`` emits the final position's logits only; ``attn_route``
+    (``"auto"``, ``"kernel"`` or ``"blockwise"``) picks the prefill's
+    attention route (``layers.attention``).
     """
     _dense_only(cfg)
     x = L.embed(params["embed"], tokens)
@@ -115,7 +118,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         c = None if cache is None else {"k": cache["k"][i],
                                         "v": cache["v"][i]}
         x = _layer_body(cfg, x, _layer(params, i), positions=positions,
-                        cache=c)
+                        cache=c, attn_route=attn_route)
     if last_only:
         x = x[:, -1:]
     return _logits(params, cfg, x), cache, torch.zeros((), device=x.device)

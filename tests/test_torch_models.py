@@ -122,11 +122,11 @@ def test_b9_plain_matches_attention_core():
     np.testing.assert_allclose(_f32(got), _f32(want), atol=3e-2, rtol=3e-2)
 
 
-@pytest.mark.parametrize("route", ["auto", "1"])
-def test_prefill_matches_jax(model, monkeypatch, route):
+@pytest.mark.parametrize("route", ["auto", "kernel"])
+def test_prefill_matches_jax(model, route):
     """``api.prefill``: logits and cache against JAX's on both attention
-    routes (``"auto"`` on the CPU: the blockwise path; ``"1"``: B9's plain
-    version); the JAX side always takes its XLA path."""
+    routes (``"auto"`` on the CPU: the blockwise path; ``"kernel"``: B9's
+    plain version); the JAX side always takes its XLA path."""
     cfg, jparams, tcfg, tparams = model
     shape = ShapeSpec("p", "prefill", 64, 2)
     jbatch = japi.make_inputs(cfg, shape, seed=1)
@@ -134,9 +134,9 @@ def test_prefill_matches_jax(model, monkeypatch, route):
     assert np.array_equal(np.asarray(jbatch["tokens"]),
                           tbatch["tokens"].numpy())
     want_logits, want_cache = japi.prefill(jparams, cfg, jbatch)
-    monkeypatch.setenv("REPRO_PALLAS_ATTN", route)
     tflash.reset_launches()
-    got_logits, got_cache = tapi.prefill(tparams, tcfg, tbatch)
+    got_logits, got_cache = tapi.prefill(tparams, tcfg, tbatch,
+                                         attn_route=route)
     assert tflash.launches["flash_attn"] == 0   # no kernel on the CPU
     assert got_logits.shape == want_logits.shape == (2, 1, cfg.padded_vocab)
     np.testing.assert_allclose(_f32(got_logits), _f32(want_logits), **TOL)
@@ -144,21 +144,28 @@ def test_prefill_matches_jax(model, monkeypatch, route):
         assert got_cache[name].shape == want_cache[name].shape
         np.testing.assert_allclose(_f32(got_cache[name]),
                                    _f32(want_cache[name]), **TOL)
-    full, _ = tapi.prefill(tparams, tcfg, tbatch, last_only=False)
+    full, _ = tapi.prefill(tparams, tcfg, tbatch, last_only=False,
+                           attn_route=route)
     assert full.shape == (2, 64, cfg.padded_vocab)
     assert torch.equal(full[:, -1:], got_logits)
 
 
-def test_prefill_routes_agree(model, monkeypatch):
+def test_prefill_routes_agree(model):
     """B9's route against the blockwise route in the port alone."""
     _, _, tcfg, tparams = model
     tbatch = tapi.make_inputs(tcfg, ShapeSpec("p", "prefill", 48, 2), seed=3,
                               device="cpu")
-    monkeypatch.setenv("REPRO_PALLAS_ATTN", "0")
-    want, _ = tapi.prefill(tparams, tcfg, tbatch)
-    monkeypatch.setenv("REPRO_PALLAS_ATTN", "1")
-    got, _ = tapi.prefill(tparams, tcfg, tbatch)
+    want, _ = tapi.prefill(tparams, tcfg, tbatch, attn_route="blockwise")
+    got, _ = tapi.prefill(tparams, tcfg, tbatch, attn_route="kernel")
     np.testing.assert_allclose(_f32(got), _f32(want), **TOL)
+
+
+def test_prefill_refuses_unknown_attn_route(model):
+    _, _, tcfg, tparams = model
+    tbatch = tapi.make_inputs(tcfg, ShapeSpec("p", "prefill", 32, 1), seed=3,
+                              device="cpu")
+    with pytest.raises(ValueError, match="attn_route"):
+        tapi.prefill(tparams, tcfg, tbatch, attn_route="1")
 
 
 def test_decode_step_teacher_forced_matches_jax(model):
