@@ -6,12 +6,13 @@
 Phases (any mismatch raises, so the exit code is non-zero):
   1. print the card (nvidia-smi name and power limit), build every CUDA
      kernel from ``src/repro_torch/kernels/csrc`` and print the build time
-     and the registers and spills of each instance of ``flash_attn`` and
-     ``onehot_match``;
+     and the registers and spills of each instance of ``flash_attn``,
+     ``onehot_match`` and ``dfa_match``;
   2. hold kernels B1 (``spec_match_merge``) and B2 (``spec_match_merge_lanes``)
      against their plain PyTorch versions at the PCRE-14 shapes (B=64, C=8,
      L=8192): table and lane carry each in shared or global memory, early
-     exit on and off, r=1 and r=2 — bit for bit — and time both;
+     exit on and off, r=1 and r=2 — bit for bit — and time both; print
+     their cluster launch (CTAs per document, lanes per thread);
   3. the main path: ``Matcher(PCRE-14).membership_batch`` over 256 ragged
      documents of 32-64 KiB, against ``backend="local"`` on the same card and
      the host sequential oracle on small documents;
@@ -55,8 +56,12 @@ Phases (any mismatch raises, so the exit code is non-zero):
      (``onehot_block_maps``) against their plain versions bit for bit and
      time them: B6 at the holub shape (Q = 256, 16 classes, C = 40,
      S = 256, L = 26,214), at the lookahead shape of phase 14(a) (C = 4,096,
-     S = I_max, L = 16,384), with the PS00028 search table in global memory
-     and at a prime L and C through ``ops.spec_match``; B7 on 4,096 maps and
+     S = I_max, L = 16,384) for PS00010 and for EF-hand (16 classes), with
+     one chunk and one lane over 4 Mi symbols (the sequential matcher; held
+     against its plain version over 4,096 sub-chunks x every state, folded
+     by B7's), with the PS00028 search table in
+     global memory and at a prime L and C through ``ops.spec_match``; B7 on
+     4,096 maps and
      on [40, 103, 256]; B8 at Q = 16, 64, 128, 256 (Q = 257 refused) with
      its share of its bound; and
      ``ops.spec_match`` on both routes at those Q (the crossover);
@@ -127,6 +132,8 @@ SERVE12 = (8, 512, 32, 64)           # prompts, bytes, new tokens, chunk bytes
 GRAMMAR12 = r"([0-9]{1,6}[.,] )*[0-9]{0,6}"
 HOLUB13 = (256, 16, 40, 26_214)      # phase 13 B6/B8: Q, classes, C, L
 LOOK13 = ("PS00010_ASX_HYDROXYL", 4096, 16_384)  # B6 at 14(a)'s shape: C, L
+LOOK13B = ("PS00018_EF_HAND_1", 4096, 16_384)    # B6, 16 classes: C, L
+SINGLE13 = (64, 16, 4 << 20)         # B6, one chunk, one lane: Q, classes, L
 BIG13 = ("PS00028_ZINC_FINGER_C2H2", 40, 4096)  # B6, global table: C, L
 PRIME13 = (17, 5, 37, 10_007, 9)     # ops.spec_match: Q, classes, C, L, S
 COMPOSE13 = ((1, 4096, 256), (40, 103, 256))   # B7: B, N, Q
@@ -330,14 +337,15 @@ def kernel_device_ms(fn, name, iters):
 
 
 def kernel_resources(log):
-    """[(template argument, registers, spill-store bytes)] of each kernel
-    instance in an ``nvcc -Xptxas -v`` log."""
+    """[(template arguments, registers, spill-store bytes)] of each kernel
+    instance in an ``nvcc -Xptxas -v`` log; the arguments joined by '/'."""
     import re
     out, inst, spill = [], None, 0
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?ILi(\d+)E", line)
+        m = re.search(r"Compiling entry function '\S*?I((?:L[a-z]+\d+E)+)E",
+                      line)
         if m:
-            inst = int(m.group(1))
+            inst = "/".join(re.findall(r"L[a-z]+(\d+)E", m.group(1)))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spill = int(m.group(1))
@@ -755,10 +763,31 @@ def phase13_paper_kernels(rng, kernels, search):
     holub = random_dfa(q, n_cls, rng=rng, with_sink=False)
     chunks = rng.integers(0, n_cls, size=(c, l))
 
-    def b6(tag, table, chunks_t, init, n_iter, row=False):
-        want = dfa_match.spec_match_torch(table, chunks_t, init)
-        plain_ms = cuda_ms(lambda: dfa_match.spec_match_torch(
-            table, chunks_t, init), 1)
+    def b6(tag, table, chunks_t, init, n_iter, row=False, split=0):
+        """One B6 row.  ``split`` > 0 (one lane over millions of symbols,
+        where the plain version would launch four small kernels a symbol)
+        holds the kernel against the plain versions composed: plain B6 over
+        ``split`` sub-chunks x every state, then plain B7 folding their
+        maps, read at the lane's entry state -- the same function."""
+        if split:
+            q = table.shape[0]
+            every = torch.arange(q, dtype=torch.int32, device=DEVICE)
+
+            def plain_fn():
+                maps = dfa_match.spec_match_torch(
+                    table, chunks_t.reshape(split, -1).contiguous(),
+                    every.expand(split, q).contiguous())
+                full = lvec_compose.lvec_compose_torch(maps[None])[0]
+                return full[init.long()]
+            want = plain_fn()
+            plain_ms = cuda_ms(plain_fn, 1)
+            plain = (f"plain {plain_ms:.2f} ms (B6 over {split} sub-chunks x "
+                     f"{q} states, then B7)")
+        else:
+            want = dfa_match.spec_match_torch(table, chunks_t, init)
+            plain_ms = cuda_ms(lambda: dfa_match.spec_match_torch(
+                table, chunks_t, init), 1)
+            plain = f"plain {plain_ms:.2f} ms"
         got = dfa_match.spec_match_cuda(table, chunks_t, init)
         torch.cuda.synchronize()
         held("spec_match", got, want, f"spec_match {tag}")
@@ -767,11 +796,16 @@ def phase13_paper_kernels(rng, kernels, search):
                      n_iter)
         (cc, ll), ss = chunks_t.shape, init.shape[1]
         bound, by, steps = spec_bound(cc, ss, ll, *table.shape)
-        smem = dfa_match.spec_table_in_smem(*table.shape, cc, ss)
+        sp = dfa_match.spec_launch_plan(cc, ss, ll, *table.shape)
         print(f"[13] spec_match {tag}: C={cc} S={ss} L={ll} Q={table.shape[0]}"
-              f" table {'smem' if smem else 'global'}: kernel {ms:.4f} ms "
-              f"({steps / ms / 1e9:.3f} T lane-steps/s)  plain "
-              f"{plain_ms:.2f} ms  bound {bound:.5f} ms ({by})  equal")
+              f" classes={table.shape[1]} table "
+              f"{'smem' if sp['table_in_smem'] else 'global'}: kernel "
+              f"{ms:.4f} ms ({steps / ms / 1e9:.3f} T lane-steps/s, "
+              f"{ms * 1e6 / ll:.2f} ns a symbol)  {plain}  bound "
+              f"{bound:.5f} ms ({by}), share of bound {bound / ms:.3f}; "
+              f"grid {sp['grid']} of {sp['c_blk']} chunks x {sp['s_blk']} "
+              f"lanes, {dfa_match.LPT} lanes per thread, {sp['cons']} "
+              f"consumer threads, ring tile {sp['tile']}  equal")
         if row:
             kernels["spec_match"] = dict(
                 name="spec_match", route="cuda",
@@ -788,6 +822,17 @@ def phase13_paper_kernels(rng, kernels, search):
     b6(f"lookahead shape ({name})", put(look.table),
        put(rng.integers(0, look.n_classes, size=(cl, ll))),
        put(rng.integers(0, look.n_states, size=(cl, s_look))), 5, row=True)
+    name, cl, ll = LOOK13B
+    look = search[name]
+    s_look = build_lookahead_tables(look).i_max
+    b6(f"lookahead shape ({name})", put(look.table),
+       put(rng.integers(0, look.n_classes, size=(cl, ll))),
+       put(rng.integers(0, look.n_states, size=(cl, s_look))), 3)
+    qs, ns, ls = SINGLE13
+    single = random_dfa(qs, ns, rng=rng)
+    b6("single lane", put(single.table),
+       put(rng.integers(0, ns, size=(1, ls))), put([[single.start]]), 3,
+       split=4096)
     name, cg, lg = BIG13
     big = search[name]
     s_big = build_lookahead_tables(big).i_max
@@ -1118,11 +1163,13 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[1]   {stem}: {line.strip()}")
-    for stem in ("flash_attn", "onehot_match"):
+    for stem, args in (("flash_attn", ""), ("onehot_match", ""),
+                       ("dfa_match", " (table in shared memory/B6 0, B1 1, "
+                                     "B2 2)")):
         res = kernel_resources(_build.build_logs.get(stem, ""))
         print(f"[1] {stem} registers / spill-store bytes per template "
-              f"instance: " + ", ".join(f"{k}: {r} / {sp}"
-                                         for k, r, sp in res))
+              f"instance{args}: " + ", ".join(f"{k}: {r} / {sp}"
+                                             for k, r, sp in res))
 
     ps = PatternSet(PCRE_PATTERNS, k_blk=64)
     packed = ps.blocks[0]
@@ -1149,6 +1196,15 @@ def main() -> int:
             args = (dt.table_pad_t, body, init, la, dt.cidx_pad_t,
                     dt.sinks_t, dt.absorbing_t)
             name = "spec_match_merge_lanes" if lanes else "spec_match_merge"
+            mp = dfa_match.merge_plan(b, c, init.shape[-1],
+                                      *dt.table_pad_t.shape, body.shape[-1],
+                                      512)
+            print(f"[2] {name} r={r}: a cluster of {mp['cluster']} CTAs per "
+                  f"document ({mp['rows']} chunks each, {mp['ctas']} CTAs), "
+                  f"{dfa_match.LPT} lanes per thread, {mp['cons']} consumer "
+                  f"threads + a producer warp, {mp['passes']} pass(es), "
+                  f"ring tile {mp['tile']} symbols, {mp['smem']} B of shared "
+                  "memory")
             fn = ops.spec_match_merge_lanes if lanes else ops.spec_match_merge
             plain = (dfa_match.spec_match_merge_lanes_torch if lanes
                      else dfa_match.spec_match_merge_torch)
@@ -1181,7 +1237,7 @@ def main() -> int:
                           f"plain {plain_ms:.2f} ms  skipped blocks "
                           f"{int(skip.sum())}  equal")
                     if r == 2 and smem and carry and early:
-                        main_inputs[name] = (args, skip, ms, plain_ms)
+                        main_inputs[name] = (args, skip, ms, plain_ms, mp)
     print(f"[2] kernels equal their plain versions (max |err| {max_err})")
 
     # -- phase 3: the main path at full width ---------------------------------
@@ -1274,7 +1330,7 @@ def main() -> int:
     kernels = {}
     for name, line in (("spec_match_merge", 159),
                        ("spec_match_merge_lanes", 218)):
-        args, skip, ms, plain_ms = main_inputs[name]
+        args, skip, ms, plain_ms, mp = main_inputs[name]
         table, _, init, la, cidx, sinks, absorbing = args
         n_out = init.shape[-1] if name.endswith("lanes") else packed.n_patterns
         scanned = 512 * int((lc // 512 - skip.long()).sum())  # symbols/chunk
@@ -1300,7 +1356,9 @@ def main() -> int:
               f"lane-steps/s; bound {max(t_bytes, t_ops):.4f} ms (bytes "
               f"{t_bytes:.4f} ms; operations {t_ops:.4f} ms: one "
               f"shared-memory load per lane-step at "
-              f"{SMEM_LOADS_PER_S / 1e12:.3f} T/s)")
+              f"{SMEM_LOADS_PER_S / 1e12:.3f} T/s), share of bound "
+              f"{max(t_bytes, t_ops) / ms:.3f}; cluster {mp['cluster']}, "
+              f"{dfa_match.LPT} lanes per thread")
 
     # -- phase 8: B3/B4 against their plain versions, real lane maps ---------
     mg = Matcher(ps, num_chunks=8, batch_tile=1024, device=DEVICE)

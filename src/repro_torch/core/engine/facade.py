@@ -93,13 +93,20 @@ class Matcher:
     early_exit_segments : absorbing-state early-exit granularity of the
                    eager scans (1 disables; pow2).
     lookahead_r  : boundary-key depth: 1 (Eq. 11), 2 (Eq. 13) or "auto".
+    mesh, mesh_shape, devices, capacities, spec_m, calibrate : the sharded
+                   backend's layout keywords; ``backend="sharded"`` is not
+                   ported, and the single-device backends refuse them with
+                   the reference's ``ValueError``.
     device       : where the tensors live; ``None`` is the CUDA card and
                    raises ``RuntimeError`` when there is none.
     """
 
     def __init__(self, source, *, num_chunks: int = 8, max_buckets: int = 2,
-                 batch_tile: int = 64, backend: str = "cuda",
-                 calibrate: bool = False, early_exit_segments: int = 4,
+                 batch_tile: int = 64, backend: str = "cuda", mesh=None,
+                 mesh_shape=None, devices: Optional[int] = None,
+                 capacities: Optional[Sequence[float]] = None,
+                 spec_m: int = 1, calibrate: bool = False,
+                 early_exit_segments: int = 4,
                  lookahead_r: int | str = "auto", autotune: bool = False,
                  device=None):
         if backend == "pallas":
@@ -110,9 +117,20 @@ class Matcher:
         if backend == "sharded":
             raise NotImplementedError("backend='sharded' is not ported yet "
                                       "(ROADMAP A14)")
-        if autotune or calibrate:
-            raise NotImplementedError("autotune/calibrate are not ported yet "
+        if autotune:
+            raise NotImplementedError("autotune is not ported yet "
                                       "(ROADMAP A10)")
+        # the sharded-only keywords, refused as the reference refuses them
+        if capacities is not None:
+            raise ValueError("capacities only apply to the sharded backend")
+        if mesh is not None or mesh_shape is not None or devices is not None:
+            raise ValueError("mesh/mesh_shape/devices only apply to the "
+                             "sharded backend")
+        if spec_m != 1:
+            raise ValueError("spec_m only applies to the sharded backend")
+        if calibrate:
+            raise ValueError("calibrate only applies to the sharded "
+                             "backend (single-device layouts are uniform)")
         if num_chunks < 1:
             raise ValueError("num_chunks must be >= 1")
         if max_buckets < 1:

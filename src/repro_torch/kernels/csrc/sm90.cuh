@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks of the warp-specialised kernels
-// (flash_attn.cu, onehot_match.cu), written as inline PTX: shared-memory
-// barriers (mbarrier), tensor-memory-accelerator loads (TMA) and the
-// shared-memory matrix descriptors that wgmma reads its operands through.
+// (flash_attn.cu, onehot_match.cu, dfa_match.cu), written as inline PTX:
+// shared-memory barriers (mbarrier), tensor-memory-accelerator loads (TMA
+// and plain bulk copies), thread-block clusters and their distributed
+// shared memory, and the shared-memory matrix descriptors that wgmma reads
+// its operands through.
 
 #pragma once
 
@@ -57,6 +59,27 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         if (clock64() - t0 > (1ll << 34)) __trap();
 }
 
+// wait with cluster-scope acquire: for a barrier that peer CTAs arrive on
+// (their writes before the arrival become visible)
+__device__ __forceinline__ bool mbar_try_cluster(uint32_t a, uint32_t parity) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    return done != 0;
+}
+
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+    const uint32_t a = smem_addr(bar);
+    if (mbar_try_cluster(a, parity)) return;
+    const long long t0 = clock64();
+    while (!mbar_try_cluster(a, parity))
+        if (clock64() - t0 > (1ll << 34)) __trap();
+}
+
 // generic-proxy shared-memory writes -> visible to wgmma (async proxy)
 __device__ __forceinline__ void fence_async_smem() {
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -74,6 +97,89 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
         :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
            "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
         : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// into this CTA's shared memory; completes on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+           "r"(smem_addr(bar))
+        : "memory");
+}
+
+// -- shared-memory loads by address -------------------------------------------
+
+__device__ __forceinline__ uint32_t lds(uint32_t a) {
+    uint32_t v;
+    asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(a));
+    return v;
+}
+
+__device__ __forceinline__ uint4 lds4(uint32_t a) {
+    uint4 v;
+    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(a));
+    return v;
+}
+
+// -- named barriers -------------------------------------------------------------
+
+// AND of `pred` over the `n` threads (whole warps) that meet at barrier `id`
+__device__ __forceinline__ bool bar_and(int id, int n, bool pred) {
+    uint32_t r;
+    asm volatile(
+        "{\n.reg .pred p, q;\n"
+        "setp.ne.u32 q, %1, 0;\n"
+        "bar.red.and.pred p, %2, %3, q;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(r) : "r"((uint32_t)pred), "r"(id), "r"(n) : "memory");
+    return r != 0;
+}
+
+// -- thread-block clusters and distributed shared memory ----------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    return r;
+}
+
+// every thread of every CTA of the cluster; orders all memory operations
+// before it (release) against all after it (acquire), cluster-wide
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n"
+                 "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the address of this CTA's shared word `a` in CTA `rank` of the cluster
+__device__ __forceinline__ uint32_t cluster_map(uint32_t a, uint32_t rank) {
+    uint32_t r;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(r) : "r"(a), "r"(rank));
+    return r;
+}
+
+__device__ __forceinline__ uint32_t ld_cluster(uint32_t a) {
+    uint32_t v;
+    asm volatile("ld.shared::cluster.u32 %0, [%1];\n"
+                 : "=r"(v) : "r"(a) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t a, uint32_t v) {
+    asm volatile("st.shared::cluster.u32 [%0], %1;\n"
+                 :: "r"(a), "r"(v) : "memory");
+}
+
+// arrive (release, cluster scope) on a barrier of any CTA of the cluster
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t a) {
+    asm volatile(
+        "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+        :: "r"(a) : "memory");
 }
 
 // -- wgmma shared-memory descriptors ------------------------------------------

@@ -109,6 +109,33 @@ def test_matcher_unported_options_raise():
         m.swap_patterns(dfa)
 
 
+SHARDED_ONLY = [("calibrate", True), ("capacities", [1.0]), ("spec_m", 2),
+                ("mesh", "mesh"), ("mesh_shape", (1, 1)), ("devices", [0])]
+
+
+@pytest.mark.parametrize("backend", ["local", "cuda"])
+@pytest.mark.parametrize("key,value", SHARDED_ONLY,
+                         ids=[k for k, _ in SHARDED_ONLY])
+def test_matcher_sharded_only_keywords_raise_as_reference(backend, key,
+                                                          value):
+    """A single-device Matcher refuses each sharded-only keyword with the
+    JAX package's ValueError and message (its backend="local"; the port's
+    "local" and "cuda" on CPU tensors)."""
+    from repro.core import Matcher as JMatcher
+    from repro.core import compile_regex as j_compile_regex
+    from repro_torch.core import Matcher, compile_regex
+
+    with pytest.raises(ValueError) as want:
+        JMatcher(j_compile_regex("ab"), backend="local", **{key: value})
+    with pytest.raises(ValueError) as got:
+        Matcher(compile_regex("ab"), backend=backend, device="cpu",
+                **{key: value})
+    assert str(got.value) == str(want.value)
+    with pytest.raises(NotImplementedError, match="A14"):
+        Matcher(compile_regex("ab"), backend="sharded", device="cpu",
+                **{key: value})
+
+
 def test_serving_entry_points_without_device_need_cuda():
     from repro_torch import configs
     from repro_torch.core import compile_regex

@@ -160,37 +160,109 @@ def test_smem_plan():
         dfa_match.smem_plan(100, 10, 8, 10 ** 6, carry_in_smem=True)
 
 
+def _class16_case(seed, shape):
+    """One random DFA of 15 classes (16 with the pad column) and a sink."""
+    b, c, lc = shape
+    rng = np.random.default_rng(seed)
+    packed = t_pack_dfas([t_random_dfa(40, 15, rng=rng)])
+    dev = DeviceTables.build(packed, lookahead_r=1, device="cpu")
+    docs = [rng.integers(0, 256, size=int(n), dtype=np.uint8)
+            for n in rng.integers(c * lc // 2, c * lc + 1, size=b)]
+    return packed, dev, docs, rng, shape
+
+
+def _staggered_case(seed, shape=(4, 8, 512)):
+    """K = 1 search DFA; chunk i of a document meets its first hit in
+    symbol block i (of 64), so the CTAs of one cluster absorb at different
+    blocks; one document never absorbs, one absorbs at once."""
+    b, c, lc = shape
+    rng = np.random.default_rng(seed)
+    packed = t_pack_dfas([t_make_search_dfa(t_compile_regex(".*(ab|ba)"))])
+    dev = DeviceTables.build(packed, device="cpu")
+    docs = []
+    for d in range(b):
+        doc = bytearray(b"q" * (c * lc))
+        for i in range(c):
+            blk = {0: i, 1: c - 1 - i, 3: 0}.get(d)
+            if blk is not None:
+                at = i * lc + blk * 64 + 10
+                doc[at:at + 2] = b"ab"
+        docs.append(bytes(doc))
+    return packed, dev, docs, rng, shape
+
+
+def _merge_on_card(args, b, l_blk, lanes, what, pad_key):
+    """B1 or B2 on the card against its plain version: every placement,
+    early exit on and off, ``skipped`` included."""
+    table, chunks = args[0], args[1]
+    pad_cls = table.shape[1] - 1
+    tfn = ops.spec_match_merge_lanes if lanes else ops.spec_match_merge
+    pfn = (dfa_match.spec_match_merge_lanes_torch if lanes
+           else dfa_match.spec_match_merge_torch)
+    for early_exit in (False, True):
+        chunks_p, blk = ops._pad_merge_chunks(chunks, pad_cls, l_blk)
+        want, wskip = pfn(table, chunks_p, *args[2:], pad_key=pad_key,
+                          l_blk=blk, early_exit=early_exit)
+        for smem, carry in ((True, True), (False, True), (True, False),
+                            (False, False)):
+            got, skip, _ = tfn(*args, pad_cls=pad_cls, pad_key=pad_key,
+                               early_exit=early_exit, l_blk=l_blk,
+                               table_in_smem=smem, carry_in_smem=carry)
+            torch.cuda.synchronize()
+            tag = (what, lanes, early_exit, smem, carry)
+            assert torch.equal(got.reshape(b, -1), want.reshape(b, -1)), tag
+            assert torch.equal(skip, wskip), tag
+    return wskip
+
+
+def _synthetic_merge(seed, b, c, l, k, s, q=64, n_cls=7, absorbing=32):
+    """Random B1/B2 operands of K*S lanes per chunk: a table whose first
+    ``absorbing`` states are fixed points, random entry lanes, boundary
+    keys, candidate index (misses included) and sinks."""
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, q, size=(q, n_cls + 1)).astype(np.int32)
+    table[:absorbing] = np.arange(absorbing)[:, None]
+    table[:, n_cls] = np.arange(q)
+    n_keys = n_cls
+    cand = rng.integers(-1, s, size=(n_keys + 1, q)).astype(np.int32)
+    put = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.int32)).cuda()
+    return (put(table), put(rng.integers(0, n_cls, size=(b, c, l))),
+            put(rng.integers(0, q, size=(b, c, k * s))),
+            put(rng.integers(0, n_keys + 1, size=(b, c))), put(cand),
+            put(np.array([3, -1][:k])),
+            put((table == np.arange(q)[:, None]).all(axis=1)))
+
+
 def test_kernel_equals_plain_on_card():
     """Needs an NVIDIA card (sm_90a): the CUDA kernels against their plain
-    versions, both table and both lane-carry placements, early exit on and
-    off, r = 1 and 2."""
+    versions, bit for bit with ``skipped``: both table and both lane-carry
+    placements, early exit on and off, r = 1 and 2, a 16-column table, L
+    not a multiple of 4 or of the ring tile, C not a multiple of a cluster
+    CTA's chunks, the CTAs of one cluster absorbing at different blocks,
+    and lanes beyond one CTA's registers (passes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernels have no CPU mode")
-    for make in (lambda: _random_case(1, 21, (5, 8, 200)),
-                 lambda: _random_case(2, 22, (5, 8, 200)),
-                 lambda: _hit_case(23, (3, 8, 160))):
+    for make, l_blk in ((lambda: _random_case(1, 21, (5, 8, 200)), 16),
+                        (lambda: _random_case(2, 22, (5, 8, 200)), 16),
+                        (lambda: _hit_case(23, (3, 8, 160)), 16),
+                        (lambda: _class16_case(24, (6, 5, 200)), 13),
+                        (lambda: _random_case(1, 25, (3, 7, 96)), 24),
+                        (lambda: _staggered_case(26), 64)):
         packed, dev, docs, rng, (b, c, lc) = make()
         for lanes in (False, True):
             chunks, la, init = _batch(packed, dev, docs, c, lc, rng, lanes)
             args = _operands(dev, chunks, la, init, device="cuda")
-            tfn = ops.spec_match_merge_lanes if lanes else ops.spec_match_merge
-            pfn = (dfa_match.spec_match_merge_lanes_torch if lanes
-                   else dfa_match.spec_match_merge_torch)
-            for early_exit in (False, True):
-                chunks_p, blk = ops._pad_merge_chunks(args[1], dev.pad_cls, 16)
-                want, wskip = pfn(args[0], chunks_p, *args[2:],
-                                  pad_key=dev.pad_key, l_blk=blk,
-                                  early_exit=early_exit)
-                for smem, carry in ((True, True), (False, True),
-                                    (True, False), (False, False)):
-                    got, skip, _ = tfn(*args, pad_cls=dev.pad_cls,
-                                       pad_key=dev.pad_key,
-                                       early_exit=early_exit, l_blk=16,
-                                       table_in_smem=smem,
-                                       carry_in_smem=carry)
-                    torch.cuda.synchronize()
-                    assert torch.equal(got.reshape(b, -1), want.reshape(b, -1))
-                    assert torch.equal(skip, wskip)
+            skip = _merge_on_card(args, b, l_blk, lanes, (b, c, lc),
+                                  dev.pad_key)
+        if c == 8 and lc == 512:   # the staggered case exits per document
+            assert skip.tolist() == [0, 0, 0, 7], skip
+    for k, s in ((2, 4000), (1, 9)):
+        args = _synthetic_merge(27, 2, 2, 64, k, s)
+        plan = dfa_match.merge_plan(2, 2, k * s, 64, 8, 64, 16)
+        assert (plan["passes"] > 1) == (s == 4000)
+        for lanes in (False, True):
+            skip = _merge_on_card(args, 2, 16, lanes, (k, s), 7)
+            assert int(skip.min()) > 0, skip
 
 
 def _compose_runs(seed, r, lens, seg_len=16):
@@ -576,13 +648,138 @@ def test_build_pmats_equals_jax():
     np.testing.assert_array_equal(got.float().numpy(), want)
 
 
-def test_spec_plan_covers_every_lane():
-    for c, s in ((4096, 3), (4096, 120), (40, 256), (1, 1), (40, 22857),
-                 (7, 5000), (4096, 1), (3, 33)):
-        c_blk, s_blk = dfa_match.spec_plan(c, s)
-        assert 1 <= c_blk <= min(c, dfa_match.SPEC_MAX_CHUNKS)
-        assert 1 <= s_blk <= s and c_blk * s_blk <= dfa_match.SPEC_CTA_LANES
-        assert s_blk == s or c_blk == 1
+SPEC_SHAPES = [(4096, 44, 16_384), (4096, 120, 16_384), (40, 256, 26_214),
+               (1, 1, 4 << 20), (40, 22_857, 4096), (7, 5000, 100),
+               (4096, 1, 64), (3, 33, 10_007), (100_000, 44, 64),
+               (300, 9000, 64), (37, 9, 10_007), (4096, 3, 4096)]
+
+
+def _spec_cover(plan, c, s):
+    """(chunk, lane) -> how many consumer lanes of the B6 launch hold it,
+    walking the kernel's mapping: CTA (x, y) holds chunks [x * c_blk, ...)
+    and lanes [y * s_blk, ...); consumer thread t its row t // tpc and
+    lanes g + u * tpc of it."""
+    seen = np.zeros((c, s), np.int64)
+    tpc = plan["tpc"]
+    gx, gy = plan["grid"]
+    t = np.arange(plan["cons"])
+    for x in range(gx):
+        c0 = x * plan["c_blk"]
+        rows = min(plan["c_blk"], c - c0)
+        for y in range(gy):
+            s0 = y * plan["s_blk"]
+            width = min(plan["s_blk"], s - s0)
+            live = t < rows * tpc
+            row, g = t // tpc, t % tpc
+            for u in range(dfa_match.LPT):
+                j = g + u * tpc
+                ok = live & (j < width)
+                np.add.at(seen, (c0 + row[ok], s0 + j[ok]), 1)
+    return seen
+
+
+def test_plan_constants_equal_the_kernel_header():
+    """The plans' lanes per thread, ring stages, step group and consumer
+    threads are the ones csrc/spec_scan.cuh compiles in."""
+    import re
+    from pathlib import Path
+
+    header = (Path(dfa_match.__file__).parent / "csrc"
+              / "spec_scan.cuh").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", header))
+    assert {k: int(consts[k]) for k in ("LPT", "STAGES", "GROUP",
+                                        "MAX_CONSUMERS")} == {
+        "LPT": dfa_match.LPT, "STAGES": dfa_match.STAGES,
+        "GROUP": dfa_match.GROUP, "MAX_CONSUMERS": dfa_match.MAX_CONSUMERS}
+    assert dfa_match.LPT > 1   # a thread carries several chains
+
+
+@pytest.mark.parametrize("c,s,l", SPEC_SHAPES)
+def test_spec_plan_covers_every_lane(c, s, l):
+    """The B6 launch holds every (chunk, lane) exactly once, within one
+    CTA's consumer threads and shared memory; a CTA holds whole chunks
+    unless it splits one chunk's lanes; large C x S fill whole waves of
+    132 SMs."""
+    plan = dfa_match.spec_launch_plan(c, s, l, 230, 16)
+    assert plan["table_in_smem"]
+    assert 1 <= plan["c_blk"] <= c and 1 <= plan["s_blk"] <= s
+    assert plan["s_blk"] == s or plan["c_blk"] == 1
+    assert plan["cons"] % 32 == 0
+    assert plan["c_blk"] * plan["tpc"] <= plan["cons"] \
+        <= dfa_match.MAX_CONSUMERS
+    assert plan["smem"] <= dfa_match.SMEM_BUDGET
+    assert plan["tile"] % dfa_match.GROUP == 0
+    if c * s <= 4_000_000:
+        assert (_spec_cover(plan, c, s) == 1).all()
+    ctas = plan["grid"][0] * plan["grid"][1]
+    if c * s >= dfa_match.SMS * 1024:
+        waves = -(-ctas // dfa_match.SMS)
+        assert ctas >= 0.9 * waves * dfa_match.SMS, (ctas, waves)
+    if s >= 8:   # a live thread carries several chains on average
+        assert plan["s_blk"] / plan["tpc"] >= 2
+
+
+MERGE_SHAPES = [(64, 8, 210, 194, 38, 8192, 512), (1024, 8, 210, 194, 38,
+                                                     8192, 512),
+                (64, 8, 22_857, 43_125, 6, 8192, 512), (5, 5, 40, 41, 16,
+                                                        208, 13),
+                (3, 7, 26, 13, 5, 96, 24), (2, 2, 8000, 64, 8, 64, 16),
+                (1, 1, 9, 40, 16, 48, 16), (64, 8, 100_000, 100, 10, 512,
+                                            512)]
+
+
+@pytest.mark.parametrize("b,c,ks,q,ncls,l,l_blk", MERGE_SHAPES)
+def test_merge_plan_covers_every_lane_once(b, c, ks, q, ncls, l, l_blk):
+    """The B1/B2 cluster launch: at most 8 CTAs a document, no more than
+    C, their chunk ranges cover C; every lane of a document is held once
+    over the passes; shared memory (ring, table, carry) within one block's
+    budget; whole tiles per symbol block."""
+    plan = dfa_match.merge_plan(b, c, ks, q, ncls, l, l_blk)
+    cs = plan["cluster"]
+    assert 1 <= cs <= dfa_match.MAX_CLUSTER and cs <= c and cs & (cs - 1) == 0
+    assert plan["cons"] % 32 == 0 and plan["cons"] <= dfa_match.MAX_CONSUMERS
+    assert plan["smem"] <= dfa_match.SMEM_BUDGET
+    assert l_blk % plan["tile"] == 0
+    lo = [r * c // cs for r in range(cs + 1)]
+    assert lo[0] == 0 and lo[-1] == c
+    assert all(1 <= lo[r + 1] - lo[r] <= plan["rows"] for r in range(cs))
+    seen = np.zeros((c, ks), np.int64)
+    tpc, cons = plan["tpc"], plan["cons"]
+    for r in range(cs):
+        rows = lo[r + 1] - lo[r]
+        for p in range(plan["passes"]):
+            x = p * cons + np.arange(cons)
+            live = x < rows * tpc
+            row, g = x // tpc, x % tpc
+            for u in range(dfa_match.LPT):
+                j = g + u * tpc
+                ok = live & (j < ks)
+                np.add.at(seen, (lo[r] + row[ok], j[ok]), 1)
+    assert (seen == 1).all()
+    if ks <= dfa_match.MAX_CONSUMERS * dfa_match.LPT:
+        assert plan["rows"] * tpc <= cons * plan["passes"]
+    if b * 2 <= dfa_match.SMS and c >= 2:
+        assert cs >= 2   # a small batch spreads its documents over SMs
+
+
+def test_merge_plan_forced_placements():
+    """Forced shared placements raise where they cannot fit, for any
+    cluster; a forced global placement always plans."""
+    with pytest.raises(ValueError):
+        dfa_match.merge_plan(64, 8, 10, 72531, 23, 512, 512,
+                             table_in_smem=True)
+    with pytest.raises(ValueError):
+        dfa_match.merge_plan(64, 8, 10 ** 6, 100, 10, 512, 512,
+                             carry_in_smem=True)
+    plan = dfa_match.merge_plan(64, 8, 210, 194, 38, 8192, 512,
+                                table_in_smem=False, carry_in_smem=False)
+    assert not plan["table_in_smem"] and not plan["carry_in_smem"]
+    with pytest.raises(ValueError):
+        dfa_match.spec_launch_plan(40, 22_857, 4096, 43_125, 5,
+                                   table_in_smem=True)
+    plan = dfa_match.spec_launch_plan(40, 22_857, 4096, 43_125, 5)
+    assert not plan["table_in_smem"]
+    assert (_spec_cover(plan, 40, 22_857) == 1).all()
 
 
 def test_paper_kernel_wrappers_refuse_cpu_tensors():
@@ -602,12 +799,15 @@ def test_paper_kernel_wrappers_refuse_cpu_tensors():
 
 def test_spec_match_kernel_equals_plain_on_card():
     """Needs an NVIDIA card (sm_90a): B6 against its plain version, both
-    table placements, chunks grouped and lanes split over CTAs, one lane
-    over a long input, and ``ops.spec_match``'s gather route."""
+    table placements, chunks grouped and lanes split over CTAs, a 16-class
+    table, L not a multiple of 4 or of the ring tile, one lane over 1 Mi
+    symbols (its plain version on the CPU), and ``ops.spec_match``'s
+    gather route."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernel has no CPU mode")
     cases = SPEC_GATHER + [(9, 4, 1, 5000, 1), (300, 6, 3, 200, 5000),
-                           (40, 5, 700, 100, 3)]
+                           (40, 5, 700, 100, 3), (256, 16, 40, 300, 256),
+                           (230, 16, 300, 130, 120), (17, 5, 37, 10_007, 9)]
     for q, ncls, c, l, s in cases:
         args = tuple(torch.from_numpy(x).cuda()
                      for x in _spec_case(q, ncls, c, l, s, q + s))
@@ -619,6 +819,12 @@ def test_spec_match_kernel_equals_plain_on_card():
         got = ops.spec_match(*args, use_mxu=False)
         torch.cuda.synchronize()
         assert torch.equal(got, want), (q, c, l, s)
+    args = _spec_case(64, 16, 1, (1 << 20) + 3, 1, 5)
+    want = dfa_match.spec_match_torch(*map(torch.from_numpy, args))
+    for smem in (True, False):
+        got = dfa_match.spec_match_cuda(
+            *(torch.from_numpy(x).cuda() for x in args), table_in_smem=smem)
+        assert torch.equal(got.cpu(), want), smem
 
 
 def test_lvec_compose_kernel_equals_plain_on_card():
