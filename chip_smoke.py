@@ -7,7 +7,7 @@ Phases (any mismatch raises, so the exit code is non-zero):
   1. print the card (nvidia-smi name and power limit), build every CUDA
      kernel from ``src/repro_torch/kernels/csrc`` and print the build time
      and the registers and spills of each instance of ``flash_attn``,
-     ``onehot_match`` and ``dfa_match``;
+     ``onehot_match``, ``dfa_match`` and ``lvec_compose``;
   2. hold kernels B1 (``spec_match_merge``) and B2 (``spec_match_merge_lanes``)
      against their plain PyTorch versions at the PCRE-14 shapes (B=64, C=8,
      L=8192): table and lane carry each in shared or global memory, early
@@ -25,13 +25,17 @@ Phases (any mismatch raises, so the exit code is non-zero):
      PCRE-14 lane maps (r=2, ragged runs): B=1024 runs of N=32 (the tree in
      shared memory) and B=8 runs of N=2048 (the tree in its global scratch
      copy) — bit for bit, the tree also against the sequential oracle on
-     real lanes — and time them;
+     real lanes — and time them per call and on the device, with B3's plan
+     (runs a CTA, elements a ring tile); B3 also at the (B, N) of three of
+     phase 9's calls, and its wide instance (an element past the ring) on
+     random operands at PS00028's Q = 43,125 and S = 22,857;
   9. the out-of-order path: ``OooStreamMatcher`` over 1024 streams of
      64 KiB in 16 segments at shuffle fractions 0, 0.25 and 1 (and 1 again
      on the tree compose, 0.25 again on ``backend="local"``), every stream's
      decision against whole-document ``membership_batch``, zero host merges,
-     throughput and the device idle share; the default ``num_chunks=1``
-     matcher timed beside ``num_chunks=8`` on 64 streams of 16 KiB;
+     the (B, N) of each B3 call, throughput and the device idle share; the
+     default ``num_chunks=1`` matcher timed beside ``num_chunks=8`` on 64
+     streams of 16 KiB;
  10. hold kernel B5 (``token_mask``) against its plain version bit for bit:
      B=8, V=32,000 bf16 with the phase-12 grammar's mask table, and B=128,
      V=128,256 (the llama3 vocabulary) in bf16 and f32; time it beside the
@@ -61,8 +65,10 @@ Phases (any mismatch raises, so the exit code is non-zero):
      against its plain version over 4,096 sub-chunks x every state, folded
      by B7's), with the PS00028 search table in
      global memory and at a prime L and C through ``ops.spec_match``; B7 on
-     4,096 maps and
-     on [40, 103, 256]; B8 at Q = 16, 64, 128, 256 (Q = 257 refused) with
+     one composition of 4,096 maps, on (d)'s [40, 103, 256] and
+     [40, 103, 16], on (a)'s product-route shape [4,096, 64, Q] for
+     EF-hand and on 256 maps of PS00028's 43,125 states (the wide instance),
+     per call and on the device, with its segment and cluster plan; B8 at Q = 16, 64, 128, 256 (Q = 257 refused) with
      its share of its bound; and
      ``ops.spec_match`` on both routes at those Q (the crossover);
  14. the paper's per-document engine, ``SpecDFAEngine(dfa,
@@ -117,6 +123,8 @@ DEVICE = "cuda"
 B, C, LC = 64, 8, 8192               # kernel shapes of phase 2
 N_DOCS, DOC_BYTES = 256, (32 * 1024, 64 * 1024)   # phase 3 corpus
 RUNS8 = ((1024, 32), (8, 2048))      # phase 8 compose shapes (B, N)
+CALLS8 = ((959, 16), (205, 16), (21, 4))   # phase 9's B3 calls (B, N), carry
+WIDE8 = (4, 8, 43_125, 1, 22_857, 22)   # B3 past the ring: B, N, Q, K, S, keys
 SEG8 = 256                           # bytes per phase-8 segment
 STREAMS9, DOC9, SEGS9 = 1024, 64 * 1024, 16   # phase 9 streams
 FRACS9 = (0.0, 0.25, 1.0)            # phase 9 shuffle fractions
@@ -136,7 +144,9 @@ LOOK13B = ("PS00018_EF_HAND_1", 4096, 16_384)    # B6, 16 classes: C, L
 SINGLE13 = (64, 16, 4 << 20)         # B6, one chunk, one lane: Q, classes, L
 BIG13 = ("PS00028_ZINC_FINGER_C2H2", 40, 4096)  # B6, global table: C, L
 PRIME13 = (17, 5, 37, 10_007, 9)     # ops.spec_match: Q, classes, C, L, S
-COMPOSE13 = ((1, 4096, 256), (40, 103, 256))   # B7: B, N, Q
+COMPOSE13 = ((1, 4096, 256), (40, 103, 256), (40, 103, 16),
+             (4096, 64, LOOK13B[0]),
+             (1, 256, BIG13[0]))      # B7: B, N, Q (or the DFA of Q)
 ONEHOT13 = (16, 64, 128, 256)        # B8 and the route crossover: Q
 SCAN14, BAL14, SMALL14 = 64 << 20, 8 << 20, 1 << 20   # 14(a), (b), (c)/(d)
 HEAD14C = 64 << 10                   # 14(c): bytes of the cross-checks
@@ -336,22 +346,39 @@ def kernel_device_ms(fn, name, iters):
     return us / n / 1e3 if n and us > 0 else None
 
 
+def device_share(dev_ms, bound):
+    """"device time X ms, share of bound Y" (n/a where the profiler
+    recorded none)."""
+    if dev_ms is None:
+        return "device time n/a"
+    return f"device time {dev_ms:.4f} ms, share of bound {bound / dev_ms:.3f}"
+
+
 def kernel_resources(log):
-    """[(template arguments, registers, spill-store bytes)] of each kernel
-    instance in an ``nvcc -Xptxas -v`` log; the arguments joined by '/'."""
+    """[(kernel, template arguments, registers, spill-store bytes)] of each
+    kernel instance in an ``nvcc -Xptxas -v`` log; the arguments joined by
+    '/'."""
     import re
     out, inst, spill = [], None, 0
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?I((?:L[a-z]+\d+E)+)E",
+        m = re.search(r"Compiling entry function '(\S*?)I((?:L[a-z]+\d+E)+)E",
                       line)
-        if m:
-            inst = "/".join(re.findall(r"L[a-z]+(\d+)E", m.group(1)))
+        if m:   # the name is the length-prefixed component before the 'I'
+            pre = m.group(1)
+            name = next((pre[-n:] for n in range(1, len(pre))
+                         if pre[:-n].endswith(str(n))), pre)
+            inst = (name, "/".join(re.findall(r"L[a-z]+(\d+)E", m.group(2))))
+        else:   # not a template: the name after the source's 8-digit hash
+            m = re.search(r"Compiling entry function '_ZN\S*?_cu_[0-9a-f]{8}"
+                          r"(\d+)(\w+)", line)
+            if m:
+                inst = (m.group(2)[:int(m.group(1))], "")
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and inst is not None:
-            out.append((inst, int(m.group(1)), spill))
+            out.append((*inst, int(m.group(1)), spill))
             inst, spill = None, 0
     return out
 
@@ -853,6 +880,7 @@ def phase13_paper_kernels(rng, kernels, search):
 
     # -- B7
     for b, n, qq in COMPOSE13:
+        qq = qq if isinstance(qq, int) else search[qq].n_states
         maps = put(rng.integers(0, qq, size=(b, n, qq)))
         want = lvec_compose.lvec_compose_torch(maps)
         plain_ms = cuda_ms(lambda: lvec_compose.lvec_compose_torch(maps), 1)
@@ -860,14 +888,28 @@ def phase13_paper_kernels(rng, kernels, search):
         torch.cuda.synchronize()
         held("lvec_compose", got, want, f"lvec_compose [{b}, {n}, {qq}]")
         ms = cuda_ms(lambda: lvec_compose.lvec_compose_cuda(maps), 20)
+        dev_ms = kernel_device_ms(lambda: lvec_compose.lvec_compose_cuda(maps),
+                                  "lvec_compose", 20)
+        lp = lvec_compose.lvec_plan(b, n, qq)
+        if dev_ms is not None and lp["folds"] > 1:
+            # a call past one cluster (or one wide segment) launches twice;
+            # the mean launch of a call, times two, does not undercount a
+            # call whose device records the profiler dropped
+            dev_ms *= 2
         loads = b * n * qq
         t_ops = loads / SMEM_LOADS_PER_S * 1e3
         t_bytes = 4 * (b * n * qq + b * qq) / HBM_BYTES_PER_S * 1e3
         bound, by = max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
                                           else "operations")
-        print(f"[13] lvec_compose [{b}, {n}, {qq}]: kernel {ms:.4f} ms "
-              f"({loads / ms / 1e9:.3f} G map-steps/s)  plain {plain_ms:.3f} "
-              f"ms  bound {bound:.6f} ms ({by})  equal")
+        print(f"[13] lvec_compose [{b}, {n}, {qq}]: kernel {ms:.4f} ms per "
+              f"call ({loads / ms / 1e6:.3f} G map-steps/s; "
+              f"{device_share(dev_ms, bound)})  plain {plain_ms:.3f} ms  "
+              f"bound {bound:.6f} ms ({by})  equal; plan: "
+              f"{'wide, ' if lp['wide'] else ''}{lp['segments']} "
+              f"segments a composition, clusters of {lp['cluster']}, "
+              f"{lp['folds']} cluster partials (a second launch when > 1), "
+              f"{lp['pack']} compositions a CTA, {lp['cons']} consumer "
+              f"threads, {lp['ctas']} CTAs, tile {lp['tile']} maps")
         if (b, n, qq) == COMPOSE13[1]:
             kernels["lvec_compose"] = dict(
                 name="lvec_compose", route="cuda",
@@ -1169,7 +1211,14 @@ def main() -> int:
         res = kernel_resources(_build.build_logs.get(stem, ""))
         print(f"[1] {stem} registers / spill-store bytes per template "
               f"instance{args}: " + ", ".join(f"{k}: {r} / {sp}"
-                                             for k, r, sp in res))
+                                             for _, k, r, sp in res))
+    res = kernel_resources(_build.build_logs.get("lvec_compose", ""))
+    print("[1] lvec_compose registers / spill-store bytes per kernel "
+          "instance (B3 compose_carry<lanes a thread>, B4 compose_tree<in "
+          "shared memory>, B7 lvec_compose<states a thread>, and the "
+          "instances past the rings): "
+          + ", ".join(f"{n}<{k}>: {r} / {sp}" if k else f"{n}: {r} / {sp}"
+                      for n, k, r, sp in res))
 
     ps = PatternSet(PCRE_PATTERNS, k_blk=64)
     packed = ps.blocks[0]
@@ -1367,7 +1416,7 @@ def main() -> int:
     cidx, sinks = dt.cidx_pad_t, dt.sinks_t
     k, s = packed.n_patterns, dt.i_max
     err8 = 0
-    for nb, nn in RUNS8:
+    for nb, nn in RUNS8 + CALLS8:
         maps, keys = lane_runs(mg, rng, nb, nn, SEG8)
         lanes = torch.from_numpy(maps).to(DEVICE)
         kt = torch.from_numpy(keys).to(DEVICE)
@@ -1378,7 +1427,7 @@ def main() -> int:
         mask = real_lane_mask(dt.tables, keys[:, 0])
         placements = [("carry", lvec_compose.spec_compose_lanes_cuda,
                        lvec_compose.spec_compose_lanes_torch, {})]
-        for smem in (True, False):
+        for smem in (True, False) if (nb, nn) in RUNS8 else ():
             if lvec_compose.tree_in_smem(nn, k, s) or not smem:
                 placements.append((
                     f"tree/{'smem' if smem else 'global'}",
@@ -1417,11 +1466,24 @@ def main() -> int:
             for _ in range(2):
                 call()
             ms = cuda_ms(call, 20)
+            dev_ms = kernel_device_ms(call, "compose_carry" if mode == "carry"
+                                      else "compose_tree", 20)
+            plan = (lvec_compose.carry_plan(nb, nn, cidx.shape[1], k, s)
+                    if mode == "carry" else None)
             print(f"[8] compose {mode:11s} B={nb} N={nn} ({real} real "
-                  f"combines) kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  "
-                  f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
-                  f"bytes {t_bytes:.4f}, operations {t_ops:.4f})  equal")
-            if (nb, nn) == RUNS8[0] and mode in ("carry", "tree/smem"):
+                  f"combines) kernel {ms:.4f} ms per call "
+                  f"({device_share(dev_ms, bound['bound_ms'])})"
+                  f"  plain {plain_ms:.3f} ms  bound {bound['bound_ms']:.4f} "
+                  f"ms ({bound['bound_by']}; bytes {t_bytes:.4f}, operations "
+                  f"{t_ops:.4f})  equal"
+                  + ("" if plan is None else
+                     f"; plan: {plan['runs']} runs x {plan['tile']} "
+                     f"elements a tile, {plan['cons']} consumer threads, "
+                     f"{plan['ctas']} CTAs, {plan['smem']} B of shared "
+                     "memory"))
+            # B3's line: the largest of phase 9's calls; B4's: [1024, 32]
+            if ((nb, nn), mode) in ((CALLS8[0], "carry"),
+                                    (RUNS8[0], "tree/smem")):
                 name = ("spec_compose_lanes" if mode == "carry"
                         else "spec_compose_lanes_tree")
                 kernels[name] = dict(
@@ -1431,6 +1493,42 @@ def main() -> int:
                              f"{95 if mode == 'carry' else 171}",
                     launches=None, max_abs_err=None, ms=ms, plain_ms=plain_ms,
                     **bound, library_ms=None)
+    # B3's wide instance: random operands at PS00028's shape (a key row and
+    # a lane map past the ring), against its plain version
+    nb, nn, qw, kw8, sw, nk = WIDE8
+    check(lvec_compose.carry_plan(nb, nn, qw, kw8, sw)["wide"],
+          "B3 at PS00028's shape did not take its wide instance")
+    cw = rng.integers(-1, sw, size=(nk + 1, qw))
+    cw[-1] = -1
+    ops8 = [rng.integers(0, qw, size=(nb, nn, kw8, sw)),
+            rng.integers(0, nk + 1, size=(nb, nn)), cw,
+            rng.integers(0, qw, size=kw8)]
+    args8 = tuple(torch.from_numpy(np.ascontiguousarray(x, np.int32))
+                  .to(DEVICE) for x in ops8)
+    want = lvec_compose.spec_compose_lanes_torch(*args8, pad_key=nk)
+    plain_ms = cuda_ms(
+        lambda: lvec_compose.spec_compose_lanes_torch(*args8, pad_key=nk), 1)
+    call = lambda: lvec_compose.spec_compose_lanes_cuda(*args8, pad_key=nk)
+    got = call()
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    err8 = max(err8, err)
+    check(err == 0, f"wide carry compose B={nb} N={nn} Q={qw} S={sw}: kernel "
+          "differs from its plain version")
+    ms = cuda_ms(call, 20)
+    dev_ms = kernel_device_ms(call, "compose_carry", 20)
+    real = int((ops8[1][:, 1:] != nk).sum())
+    combines = real * kw8 * sw
+    t_bytes = 4 * ((nb + real) * kw8 * sw + nb * nn + nb * kw8 * sw
+                   + min(cw.size, combines)) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * combines / SMEM_LOADS_PER_S * 1e3
+    print(f"[8] compose carry/wide B={nb} N={nn} Q={qw} K={kw8} S={sw} "
+          f"({real} real combines) kernel {ms:.4f} ms per call "
+          f"({device_share(dev_ms, max(t_bytes, t_ops))})  plain "
+          f"{plain_ms:.3f} ms  bound {max(t_bytes, t_ops):.4f} ms "
+          f"({'bytes' if t_bytes >= t_ops else 'operations'})  equal; plan: "
+          f"wide, {lvec_compose.carry_plan(nb, nn, qw, kw8, sw)['ctas']} "
+          "CTAs, rows and maps from global memory")
     for name in ("spec_compose_lanes", "spec_compose_lanes_tree"):
         kernels[name]["max_abs_err"] = err8
     print(f"[8] compose kernels equal their plain versions (max |err| "
@@ -1445,11 +1543,21 @@ def main() -> int:
     merges = merge_calls()
     counts = {}
 
-    def ooo_run(matcher, plans, tag):
+    def ooo_run(matcher, plans, tag, shapes=None):
+        """``shapes`` collects the (B, N) of every B3 call."""
         ooo = OooStreamMatcher(matcher, policy=policy)
         dfa_match.reset_launches()
         lvec_compose.reset_launches()
-        res = run_streams(ooo, docs9, plans, seg9)
+        carry = lvec_compose.spec_compose_lanes_cuda
+        if shapes is not None:
+            def recording(lanes, *args, **kw):
+                shapes.append(tuple(lanes.shape[:2]))
+                return carry(lanes, *args, **kw)
+            lvec_compose.spec_compose_lanes_cuda = recording
+        try:
+            res = run_streams(ooo, docs9, plans, seg9)
+        finally:
+            lvec_compose.spec_compose_lanes_cuda = carry
         launched = {**dfa_match.launches, **lvec_compose.launches}
         got = np.stack([r.final_states for r in res])
         check(np.array_equal(got, want9), f"{tag}: stream decisions differ "
@@ -1473,12 +1581,15 @@ def main() -> int:
         tag = f"[9] shuffle {frac:g}:"
         plans = arrival_plans(np.random.default_rng(41), STREAMS9, SEGS9,
                               frac)
-        st, launched = ooo_run(m9, plans, tag)
+        shapes = []
+        st, launched = ooo_run(m9, plans, tag, shapes)
         print(f"{tag} {STREAMS9} streams equal whole-document matching; "
               f"scan_folds {st.scan_folds}, scan_batch {st.scan_batch:.2f}, "
               f"gap_closes {st.gap_closes}, peak_buffered_segments "
               f"{st.peak_buffered_segments}, spec_matched {st.spec_matched}, "
               f"launches {launched}")
+        if shapes:
+            print(f"{tag} B3 calls (B, N): {shapes}")
         if frac == 0.0:
             check(st.spec_matched == 0 and st.scan_folds == 0
                   and launched["spec_compose_lanes"] == 0,

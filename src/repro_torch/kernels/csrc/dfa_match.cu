@@ -55,9 +55,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <mutex>
 #include <type_traits>
 
+#include "launch.cuh"
 #include "sm90.cuh"
 #include "spec_scan.cuh"
 
@@ -365,59 +365,6 @@ KernelFn pick(bool table) {
                  : spec_scan_kernel<false, MODE>;
 }
 
-// The shared-memory limit, raised once per device and kernel to the whole
-// budget (the attribute belongs to the function, so a smaller launch must
-// not lower it under a larger one), and the cluster occupancy check, kept
-// for the last configurations seen.
-constexpr int SMEM_LIMIT = 232448;   // dynamic shared memory of a block
-struct Raised {
-    int dev;
-    KernelFn kern;
-};
-struct Fits {
-    int dev, cluster, threads;
-    KernelFn kern;
-    size_t smem;
-};
-std::mutex prepare_mu;
-Raised raised[64];
-int n_raised = 0;
-Fits fits[64];
-int n_fits = 0;
-
-cudaError_t prepare(KernelFn kern, const cudaLaunchConfig_t& cfg,
-                    int cluster) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    const int threads = (int)cfg.blockDim.x;
-    std::lock_guard<std::mutex> lock(prepare_mu);
-    bool done = false;
-    for (int i = 0; i < n_raised && !done; ++i)
-        done = raised[i].dev == dev && raised[i].kern == kern;
-    if (!done) {
-        err = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
-        if (err != cudaSuccess) return err;
-        if (n_raised < 64) raised[n_raised++] = {dev, kern};
-    }
-    if (cluster == 0) return cudaSuccess;
-    const int seen = n_fits < 64 ? n_fits : 64;
-    for (int i = 0; i < seen; ++i) {
-        const Fits& f = fits[i];
-        if (f.dev == dev && f.kern == kern && f.cluster == cluster
-            && f.threads == threads && f.smem == cfg.dynamicSmemBytes)
-            return cudaSuccess;
-    }
-    int n = 0;
-    err = cudaOccupancyMaxActiveClusters(
-        &n, reinterpret_cast<const void*>(kern), &cfg);
-    if (err != cudaSuccess) return err;
-    if (n < 1) return cudaErrorInvalidConfiguration;   // no SM set fits it
-    fits[n_fits++ % 64] = {dev, cluster, threads, kern, cfg.dynamicSmemBytes};
-    return cudaSuccess;
-}
-
 Params common(const int* table, const int* chunks, const int* init, int* out,
               int C, int L, int Q, int n_cls, int tile, int bulk) {
     Params p = {};
@@ -469,24 +416,10 @@ int launch_merge(const int* table, const int* chunks, const int* init,
     if (cluster < 1 || cluster > 8 || cons < 32 || cons % 32
         || cons > spec_scan::MAX_CONSUMERS || l_blk % tile)
         return (int)cudaErrorInvalidValue;
-    KernelFn kern = pick<MODE>(table_in_smem != 0);
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)(B * cluster));
-    cfg.blockDim = dim3((unsigned)(cons + 32));
-    cfg.dynamicSmemBytes = layout(p, table_in_smem != 0, true).total;
-    cfg.stream = reinterpret_cast<cudaStream_t>(stream);
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = (unsigned)cluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    cudaError_t err = prepare(kern, cfg, cluster);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaLaunchKernelEx(&cfg, kern, p);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
+    return launch::launch_ex(pick<MODE>(table_in_smem != 0), p,
+                             dim3((unsigned)(B * cluster)), cons + 32,
+                             layout(p, table_in_smem != 0, true).total,
+                             cluster, stream);
 }
 
 }  // namespace
@@ -534,17 +467,12 @@ int spec_match_launch(const int* table, const int* chunks, const int* init,
     if (cons < 32 || cons % 32 || cons > spec_scan::MAX_CONSUMERS
         || p.rows * p.tpc > cons)
         return (int)cudaErrorInvalidValue;
-    KernelFn kern = pick<SPEC>(table_in_smem != 0);
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)((C + c_blk - 1) / c_blk),
-                       (unsigned)((S + s_blk - 1) / s_blk));
-    cfg.blockDim = dim3((unsigned)(cons + 32));
-    cfg.dynamicSmemBytes = layout(p, table_in_smem != 0, false).total;
-    cfg.stream = reinterpret_cast<cudaStream_t>(stream);
-    cudaError_t err = prepare(kern, cfg, 0);
-    if (err != cudaSuccess) return (int)err;
-    kern<<<cfg.gridDim, cfg.blockDim, cfg.dynamicSmemBytes, cfg.stream>>>(p);
-    return (int)cudaGetLastError();
+    return launch::launch_ex(pick<SPEC>(table_in_smem != 0), p,
+                             dim3((unsigned)((C + c_blk - 1) / c_blk),
+                                  (unsigned)((S + s_blk - 1) / s_blk)),
+                             cons + 32,
+                             layout(p, table_in_smem != 0, false).total, 1,
+                             stream);
 }
 
 }  // extern "C"

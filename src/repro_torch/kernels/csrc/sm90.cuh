@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks of the warp-specialised kernels
-// (flash_attn.cu, onehot_match.cu, dfa_match.cu), written as inline PTX:
-// shared-memory barriers (mbarrier), tensor-memory-accelerator loads (TMA
-// and plain bulk copies), thread-block clusters and their distributed
-// shared memory, and the shared-memory matrix descriptors that wgmma reads
-// its operands through.
+// (flash_attn.cu, onehot_match.cu, dfa_match.cu, lvec_compose.cu), written as
+// inline PTX: shared-memory barriers (mbarrier), tensor-memory-accelerator
+// loads (TMA, plain bulk copies) and cp.async copies, thread-block
+// clusters and their distributed shared memory, and the shared-memory matrix
+// descriptors that wgmma reads its operands through.
 
 #pragma once
 
@@ -35,6 +35,12 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 // arrive and add `bytes` to the transaction count the phase waits for
 __device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// add `bytes` to the transaction count of the current phase (no arrival)
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n"
                  :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
 }
 
@@ -109,6 +115,21 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
         :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
            "r"(smem_addr(bar))
         : "memory");
+}
+
+// one 4-byte asynchronous copy from global into shared memory (for rows that
+// are not whole aligned 16-byte units; cp_async_arrive tracks it)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src))
+                 : "memory");
+}
+
+// hold the current phase of `bar` open until this thread's earlier cp.async
+// copies have landed (no net arrival: the thread still arrives itself)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+    asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n"
+                 :: "r"(smem_addr(bar)) : "memory");
 }
 
 // -- shared-memory loads by address -------------------------------------------

@@ -1,13 +1,17 @@
 """Launch wrappers of the L-vector compose kernels (B3, B4, B7).
 
-``spec_compose_lanes_cuda`` (the sequential carry fold) and
-``spec_compose_lanes_tree_cuda`` (the pairwise tree reduce) launch the
-Hopper kernels of ``csrc/lvec_compose.cu``, one CTA per run.  They replace
-the Pallas kernels ``repro/kernels/lvec_compose.py::spec_compose_lanes_kernel``
-and ``spec_compose_lanes_tree_kernel``: the out-of-order gap-close fold of
-``Matcher.compose_lane_maps``.  Each has its plain PyTorch version beside it
-(``*_torch``) and a launch counter in ``launches`` that only a kernel launch
-increments.
+``spec_compose_lanes_cuda`` (B3, the sequential carry fold) and
+``spec_compose_lanes_tree_cuda`` (B4, the pairwise tree reduce) launch the
+Hopper kernels of ``csrc/lvec_compose.cu``.  They replace the Pallas kernels
+``repro/kernels/lvec_compose.py::spec_compose_lanes_kernel`` and
+``spec_compose_lanes_tree_kernel``: the out-of-order gap-close fold of
+``Matcher.compose_lane_maps``.  B3 streams each element's key row of
+``cand_index`` and its lane map through a shared-memory ring that a producer
+warp fills, several runs a CTA (``carry_plan``; elements that do not fit
+the ring take a wide instance that reads them from global memory); B4 runs
+one CTA per run.
+Each has its plain PyTorch version beside it (``*_torch``) and a launch
+counter in ``launches`` that only a kernel launch increments.
 
 Operands (all int32, contiguous, on one CUDA device): lanes [B, N, K, S]
 keyed lane-map runs, keys [B, N] boundary keys (element 0's never read;
@@ -20,12 +24,20 @@ Pallas tree does and may differ from the oracle on pad lanes only.
 ``lvec_compose_cuda`` (B7, replacing ``lvec_compose_kernel``) composes full
 [Q] maps left to right, batched over a leading axis: maps [B, N, Q] ->
 [B, Q].  The paper engine's basic and holub modes compose every chunk's
-one-hot block maps with it.
+one-hot block maps with it.  ``lvec_plan`` splits each composition into
+segments on a thread-block cluster (and a second launch past a cluster) so
+that a batch of few long compositions fills the card; maps too large for
+its shared-memory ring take a wide instance that reads them from global
+memory.
+
+The plans mirror the kernels' launch arithmetic, so the CPU tests hold them
+to the card's limits.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,14 +47,32 @@ from .ref import compose_lanes_torch, lvec_compose_ref
 __all__ = ["spec_compose_lanes_cuda", "spec_compose_lanes_tree_cuda",
            "spec_compose_lanes_torch", "spec_compose_lanes_tree_torch",
            "lvec_compose_cuda", "lvec_compose_torch", "launches",
-           "reset_launches", "tree_in_smem"]
+           "reset_launches", "tree_in_smem", "lvec_plan", "carry_plan"]
 
-# kernel launches per wrapper; incremented only where the kernel launches
+# kernel launches per wrapper; incremented only where a kernel launches
 launches = {"spec_compose_lanes": 0, "spec_compose_lanes_tree": 0,
             "lvec_compose": 0}
 
+SMS = 132               # streaming multiprocessors of the H100
 SMEM_BUDGET = 232_448   # dynamic shared memory one block may use (H100)
-MAP_TILE_BYTES = 48 * 1024   # maps B7 stages per shared-memory tile
+# these equal csrc/lvec_compose.cu's constants
+STAGES = 4              # tiles in each ring
+MAX_CONSUMERS = 992     # consumer threads of a CTA (+ one producer warp)
+MAX_CLUSTER = 8         # portable thread-block cluster size
+QPT = 16                # most states a B7 thread carries
+LPT = 4                 # lanes a B3 thread carries in a large batch
+PAIRS = 32              # most (run, element) pairs of a B3 tile
+WIDE_THREADS = 256      # threads of a CTA of the instances for operands
+                        # that do not fit the rings
+WPT = 4                 # lanes (B3) or states (B7) a thread of those carries
+BARRIERS = 2 * STAGES * 8   # the full and empty mbarriers of a ring
+# planning targets
+MIN_SEGMENT = 16        # fewest maps a B7 segment takes: its ring's loads
+                        # overlap its walk
+MAP_STAGE_BYTES = 8 * 1024   # a B7 ring tile's target size
+PACK_THREADS = 128      # consumer threads of a B7 CTA of small maps
+CARRY_RING_BYTES = 112 * 1024   # a B3 ring's target size: two CTAs an SM
+MAX_RUNS = 4            # most runs of one B3 CTA
 
 
 def reset_launches() -> None:
@@ -62,12 +92,184 @@ def tree_in_smem(n: int, k: int, s: int, in_smem: bool | None = None) -> bool:
     return bool(in_smem)
 
 
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def slot_words(words: int) -> int:
+    """Words of a ring slot for ``words`` int32 (``slot_words`` in
+    csrc/lvec_compose.cu): room for the aligned 16-byte units that hold
+    them wherever they start."""
+    return (words + 6) & ~3
+
+
+def lvec_smem(pack: int, tile: int, q: int, cluster: int) -> int:
+    """Shared memory of one B7 CTA (``lvec_bars`` in csrc/lvec_compose.cu):
+    the ring [STAGES, pack, slot of tile * Q], the partials [pack, Q] of a
+    cluster, the barriers."""
+    part = 4 * pack * q if cluster > 1 else 0
+    return _up(4 * STAGES * pack * slot_words(tile * q) + part, 8) + BARRIERS
+
+
+def _lvec_tile(pack: int, n: int, q: int, cluster: int) -> int:
+    """Maps per composition in a ring tile: up to ``MAP_STAGE_BYTES`` a
+    tile, no more than the segment's ``n``, within the budget."""
+    tile = max(1, min(n, MAP_STAGE_BYTES // (4 * pack * q)))
+    while tile > 1 and lvec_smem(pack, tile, q, cluster) > SMEM_BUDGET:
+        tile -= 1
+    if lvec_smem(pack, tile, q, cluster) > SMEM_BUDGET:
+        raise ValueError(f"{STAGES} maps of {q} states do not fit the "
+                         "compose ring in shared memory")
+    return tile
+
+
+def _lvec_segments(groups: int, n: int) -> int:
+    """Segments per composition: as many as put ``groups`` CTA groups on
+    the 132 SMs, no segment under ``MIN_SEGMENT`` maps, a multiple of 8
+    past one cluster."""
+    g = 1
+    if groups < SMS:
+        g = max(1, min(-(-SMS // groups), n // MIN_SEGMENT))
+    return g - g % MAX_CLUSTER if g > MAX_CLUSTER else g
+
+
+def _wide_blocks(width: int) -> int:
+    """CTAs along the lanes or states of one run or composition of a wide
+    instance (``wide_blocks`` in csrc/lvec_compose.cu)."""
+    return -(-width // (WIDE_THREADS * WPT))
+
+
+def lvec_plan(b: int, n: int, q: int) -> dict:
+    """The B7 launch for B compositions of N maps of Q states.
+
+    One consumer thread per state (``nq`` <= QPT states a thread past
+    ``MAX_CONSUMERS`` states).  Maps of fewer than 64 states pack ``pack``
+    compositions into one CTA (up to ``PACK_THREADS`` consumer threads):
+    the most that still leave 0.9 of a wave of CTAs.  Each composition is
+    split into ``segments`` (G) CTAs (``_lvec_segments``; 1 where the
+    partials would not fit beside the ring).  G <= 8 CTAs fold their
+    partials within one cluster; a larger G (a multiple of 8) folds in
+    clusters of 8 and a second launch composes the ``folds`` = G / 8
+    cluster partials.  A map that does not fit the ring (four slots of one
+    map past shared memory, or more than QPT states a thread) takes the
+    ``wide`` instance: maps read from global memory, ``WPT`` states a
+    thread over several CTAs a segment, no clusters (``folds`` = G)."""
+    return _lvec_plan(b, n, q, None)
+
+
+@functools.lru_cache(maxsize=256)
+def _lvec_plan(b: int, n: int, q: int, segments: int | None) -> dict:
+    """``lvec_plan`` with G forced to ``segments`` where it is not None
+    (1..8 or a multiple of 8 on the ring instance, any G >= 1 on the wide
+    one): the card tests reach splits the plan itself never makes."""
+    nq = -(-q // MAX_CONSUMERS)
+    if nq > QPT or lvec_smem(1, 1, q, 1) > SMEM_BUDGET:
+        blocks = _wide_blocks(q)
+        g = segments
+        if g is None:
+            g = 1 if b * blocks >= SMS else max(
+                1, min(-(-SMS // (b * blocks)), n // MIN_SEGMENT))
+        if g < 1:
+            raise ValueError(f"segments={g}: at least 1")
+        return dict(wide=True, segments=g, cluster=1, folds=g, pack=1,
+                    tpu=WIDE_THREADS, nq=WPT, cons=WIDE_THREADS, tile=1,
+                    fold_tile=1, smem=0, ctas=b * g * blocks)
+    if q < 64:
+        tpu, nq = 1 << max(0, q - 1).bit_length(), 1
+        top = max(1, min(PACK_THREADS // tpu, b))
+        pack = next((p for p in range(top, 1, -1)
+                     if -(-b // p) * _lvec_segments(-(-b // p), n)
+                     >= 0.9 * SMS), 1)
+    else:
+        tpu, pack = _up(-(-q // nq), 32), 1
+    groups = -(-b // pack)
+    if segments is None:
+        g = _lvec_segments(groups, n)
+        if lvec_smem(pack, 1, q, min(g, MAX_CLUSTER)) > SMEM_BUDGET:
+            g = 1
+    else:
+        g = int(segments)
+        if g < 1 or (g > MAX_CLUSTER and g % MAX_CLUSTER):
+            raise ValueError(f"segments={g}: 1..{MAX_CLUSTER} or a multiple "
+                             f"of {MAX_CLUSTER}")
+    cluster = min(g, MAX_CLUSTER)
+    folds = g // cluster
+    tile = _lvec_tile(pack, -(-n // g), q, cluster)
+    cons = max(32, _up(pack * tpu, 32))
+    return dict(wide=False, segments=g, cluster=cluster, folds=folds,
+                pack=pack, tpu=tpu, nq=nq, cons=cons, tile=tile,
+                fold_tile=_lvec_tile(pack, folds, q, 1),
+                smem=lvec_smem(pack, tile, q, cluster), ctas=groups * g)
+
+
+def carry_stage_bytes(runs: int, tile: int, q: int, ks: int) -> int:
+    """One B3 ring tile (``CarryLayout`` in csrc/lvec_compose.cu): the
+    header [3, PAIRS] (keys, row addresses, map offsets), the key rows
+    [runs * tile, slot of Q], the maps [runs, slot of tile * K*S]."""
+    return 4 * (3 * PAIRS + runs * tile * slot_words(q)
+                + runs * slot_words(tile * ks))
+
+
+def carry_smem(runs: int, tile: int, q: int, ks: int) -> int:
+    """Shared memory of one B3 CTA: the ring, the row of -1s a pad_key
+    element reads, the barriers."""
+    return (STAGES * carry_stage_bytes(runs, tile, q, ks)
+            + 4 * slot_words(q) + BARRIERS)
+
+
+@functools.lru_cache(maxsize=256)
+def carry_plan(b: int, n: int, q: int, k: int, s: int) -> dict:
+    """The B3 launch for B runs of N elements of K*S lanes, keyed rows of Q.
+
+    A consumer thread carries ``lpt`` lanes of one run (``tpr`` threads a
+    run): one lane where the batch leaves SMs to spare (fewer than two runs
+    an SM: more warps walk each run's chain), LPT in a larger batch, where
+    ``runs`` runs share a CTA while the batch still fills the 132 SMs at
+    two CTAs an SM.  A ring tile holds ``tile`` elements of every run (a
+    multiple of 4 where it can: whole 16-byte map spans), ``runs * tile <=
+    PAIRS``, the ring within ``CARRY_RING_BYTES`` (two CTAs an SM) where
+    the CTAs outnumber the SMs.  Where an element does not fit the ring (a
+    key row and a lane map past four slots of shared memory) or a run has
+    more lanes than one CTA carries, the ``wide`` instance: rows and maps
+    read from global memory, ``WPT`` lanes a thread, the lanes of a run
+    over ``ctas / B`` CTAs of ``WIDE_THREADS``."""
+    ks = k * s
+    lpt = 1 if b < 2 * SMS and ks <= MAX_CONSUMERS else LPT
+    tpr = -(-ks // lpt)
+    runs = max(1, min(MAX_CONSUMERS // tpr, b // SMS, MAX_RUNS))
+    top = min(PAIRS // runs, _up(max(n, 1), 4))
+    fits = [t for t in range(top, 0, -1)
+            if carry_smem(runs, t, q, ks) <= SMEM_BUDGET]
+    if tpr > MAX_CONSUMERS or not fits:
+        return dict(wide=True, runs=1, tile=1, lpt=WPT,
+                    tpr=_wide_blocks(ks) * WIDE_THREADS, cons=WIDE_THREADS,
+                    smem=0, ctas=b * _wide_blocks(ks))
+    # two CTAs an SM where the batch fills the card; one (the whole budget,
+    # longer tiles over which the producer spreads its per-tile work) where
+    # it does not
+    cap = CARRY_RING_BYTES if -(-b // runs) > SMS else SMEM_BUDGET
+    near = [t for t in fits
+            if STAGES * carry_stage_bytes(runs, t, q, ks) <= cap]
+    tile = (near or fits[-1:])[0]
+    if tile >= 4:
+        tile -= tile % 4
+    cons = _up(runs * tpr, 32)
+    return dict(wide=False, runs=runs, tile=tile, lpt=lpt, tpr=tpr,
+                cons=cons, smem=carry_smem(runs, tile, q, ks),
+                ctas=-(-b // runs))
+
+
+_fns: dict[str, object] = {}
+
+
 def _entry(name: str, n_ptrs: int, n_ints: int):
-    fn = getattr(_build.load("lvec_compose"), name)
-    if fn.argtypes is None:
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.load("lvec_compose"), name)
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        _fns[name] = fn
     return fn
 
 
@@ -88,15 +290,24 @@ def _check(lanes, keys, cand_index, sinks):
     return dev, b, n, k, s
 
 
-def _launch(name, dev, args, ints):
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _entry(f"{name}_launch", len(args), len(ints))(
-            *(None if t is None else t.data_ptr() for t in args),
-            *(int(i) for i in ints), stream)
+def _launch(name, dev, args, ints, kernels=1):
+    """One call of ``<name>_launch`` on ``dev``'s current stream (entering
+    ``dev`` only when it is not the current device); it launches
+    ``kernels`` kernels."""
+    fn = _entry(f"{name}_launch", len(args), len(ints))
+    ptrs = [None if t is None else t.data_ptr() for t in args]
+    current = torch.cuda.current_device()
+    index = current if dev.index is None else dev.index
+    # the raw handle of torch.cuda.current_stream(index).cuda_stream, without
+    # building a Stream object on every call
+    if index == current:
+        err = fn(*ptrs, *ints, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*ptrs, *ints, torch._C._cuda_getCurrentRawStream(index))
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    launches[name] += 1
+    launches[name] += kernels
 
 
 def spec_compose_lanes_cuda(lanes, keys, cand_index, sinks, *,
@@ -106,9 +317,12 @@ def spec_compose_lanes_cuda(lanes, keys, cand_index, sinks, *,
     dev, b, n, k, s = _check(lanes, keys, cand_index, sinks)
     out = torch.empty((b, k, s), dtype=torch.int32, device=dev)
     if b:
+        rows, q = cand_index.shape
+        plan = carry_plan(b, n, q, k, s)
         _launch("spec_compose_lanes", dev,
                 (lanes, keys, cand_index, sinks, out),
-                (b, n, cand_index.shape[1], k, s, pad_key))
+                (b, n, q, k, s, int(pad_key), rows, plan["runs"],
+                 plan["tile"], plan["cons"], plan["lpt"], plan["wide"]))
     return out
 
 
@@ -126,14 +340,15 @@ def spec_compose_lanes_tree_cuda(lanes, keys, cand_index, sinks, *,
     if b:
         _launch("spec_compose_lanes_tree", dev,
                 (lanes, keys, cand_index, sinks, out, scratch),
-                (b, n, cand_index.shape[1], k, s, pad_key, smem))
+                (b, n, cand_index.shape[1], k, s, int(pad_key), smem))
     return out
 
 
 def lvec_compose_cuda(maps):
     """B7 on the card: maps [B, N, Q] int32 (contiguous, every entry < Q)
     composed left to right -> [B, Q]; N = 0 gives identities.  Never
-    synchronises."""
+    synchronises.  ``lvec_plan`` picks the instance and the segments per
+    composition (one launch, or two when they exceed a cluster)."""
     dev = maps.device
     if dev.type != "cuda":
         raise ValueError(f"lvec_compose_cuda needs a CUDA tensor, got {dev}")
@@ -142,12 +357,22 @@ def lvec_compose_cuda(maps):
     if maps.dim() != 3:
         raise ValueError(f"maps must be [B, N, Q], got {tuple(maps.shape)}")
     b, n, q = maps.shape
-    if 4 * q > SMEM_BUDGET:
-        raise ValueError(f"a map of {q} states does not fit in shared memory")
-    tile = max(1, min(n, MAP_TILE_BYTES // (4 * q)))
-    out = torch.empty((b, q), dtype=torch.int32, device=dev)
+    return _lvec_launch(maps, lvec_plan(b, n, q) if b and q else None)
+
+
+def _lvec_launch(maps, plan):
+    """B7 on ``maps`` [B, N, Q] as ``plan`` (an ``lvec_plan`` dict) says."""
+    b, n, q = maps.shape
+    out = torch.empty((b, q), dtype=torch.int32, device=maps.device)
     if b and q:
-        _launch("lvec_compose", dev, (maps, out), (b, n, q, tile))
+        folds = plan["folds"]
+        scratch = (torch.empty((b, folds, q), dtype=torch.int32,
+                               device=maps.device) if folds > 1 else None)
+        _launch("lvec_compose", maps.device, (maps, out, scratch),
+                (b, n, q, plan["segments"], plan["cluster"], plan["pack"],
+                 plan["tpu"], plan["nq"], plan["cons"], plan["tile"],
+                 plan["fold_tile"], plan["wide"]),
+                kernels=2 if folds > 1 else 1)
     return out
 
 

@@ -239,6 +239,28 @@ def test_spec_compose_lanes_contract_errors():
         lvec_compose.tree_in_smem(2048, 14, 15, in_smem=True)
 
 
+def test_launch_entry_is_resolved_once(monkeypatch):
+    """A C entry point is looked up (and its ctypes signature set) once per
+    name, not on every launch."""
+    import ctypes
+
+    looked = []
+
+    class Lib:
+        def __getattr__(self, name):
+            looked.append(name)
+            return lambda *args: 0
+
+    monkeypatch.setattr(lvec_compose._build, "load", lambda stem: Lib())
+    monkeypatch.setattr(lvec_compose, "_fns", {})
+    first = lvec_compose._entry("spec_compose_lanes_launch", 5, 12)
+    assert lvec_compose._entry("spec_compose_lanes_launch", 5, 12) is first
+    assert looked == ["spec_compose_lanes_launch"]
+    assert first.argtypes == ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
+                              + [ctypes.c_void_p])
+    assert first.restype is ctypes.c_int
+
+
 # --------------------------------------------------------------------------
 # facade: Matcher.compose_lane_maps on both backends vs the JAX Matcher
 # --------------------------------------------------------------------------

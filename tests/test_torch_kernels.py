@@ -303,7 +303,10 @@ def t_matcher(patterns, r):
 def test_compose_kernels_equal_plain_on_card():
     """Needs an NVIDIA card (sm_90a): B3 and B4 against their plain versions
     on every lane, the tree staged in shared memory and in its global
-    scratch copy, r = 1 and 2, ragged runs."""
+    scratch copy, r = 1 and 2, ragged runs; B3 also on a run of N = 2,048,
+    on runs that are all ``pad_key`` after element 0, on random operands
+    with Q % 4 != 0 (unaligned ``cand_index`` rows), patterns with and
+    without sinks, and several runs to a CTA."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the compose kernels have no CPU "
                     "mode")
@@ -326,6 +329,100 @@ def test_compose_kernels_equal_plain_on_card():
                     *args, pad_key=dev.pad_key, in_smem=in_smem)
                 torch.cuda.synchronize()
                 assert torch.equal(got, want), (r, lens, in_smem)
+    # real runs: one of N = 2,048, and runs that pad after element 0
+    dev, maps, keys = _compose_runs(33, 2, [2048, 700])
+    keys = np.concatenate([keys, np.full_like(keys[:1], dev.pad_key)])
+    keys[-1, 0] = keys[0, 0]
+    maps = np.concatenate([maps, maps[:1]])
+    args = (torch.from_numpy(maps).cuda(), torch.from_numpy(keys).cuda(),
+            dev.cidx_pad_t.cuda(), dev.sinks_t.cuda())
+    want = lvec_compose.spec_compose_lanes_torch(*args, pad_key=dev.pad_key)
+    got = lvec_compose.spec_compose_lanes_cuda(*args, pad_key=dev.pad_key)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got[-1], args[0][-1, 0])   # pads after element 0
+    # random operands: Q % 4 in {0, 1, 2, 3}, sinks on some patterns only,
+    # pad keys scattered, B from one run to several runs per CTA
+    rng = np.random.default_rng(34)
+    for b, n, q, k, s in ((1, 5, 17, 3, 4), (300, 9, 194, 14, 15),
+                          (140, 33, 10, 2, 3), (1024, 32, 195, 7, 30),
+                          (4, 40, 43, 1, 1000), (2, 7, 8, 2, 2)):
+        n_keys = 2 * q + 3
+        cidx = rng.integers(-1, s, size=(n_keys + 1, q))
+        cidx[-1] = -1
+        sinks = np.where(rng.random(k) < 0.5, rng.integers(0, q, size=k), -1)
+        lanes = rng.integers(0, q, size=(b, n, k, s))
+        keys = rng.integers(0, n_keys + 1, size=(b, n))   # n_keys = pad
+        args = tuple(torch.from_numpy(np.ascontiguousarray(x, np.int32))
+                     .cuda() for x in (lanes, keys, cidx, sinks))
+        want = lvec_compose.spec_compose_lanes_torch(*args, pad_key=n_keys)
+        got = lvec_compose.spec_compose_lanes_cuda(*args, pad_key=n_keys)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (b, n, q, k, s)
+        # operands that do not start on 16 bytes (the 4-byte copy path)
+        shifted = tuple(_off16(x) for x in args)
+        got = lvec_compose.spec_compose_lanes_cuda(*shifted, pad_key=n_keys)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (b, n, q, k, s, "shifted")
+    # past the ring (the wide instance): a cand_index row and a lane map
+    # past four ring slots (PS00028's Q = 43,125 and S = 22,857; Q = 20,000),
+    # more lanes than one CTA's threads carry (K*S = 5,000)
+    for b, n, q, k, s in ((3, 9, 43_125, 1, 22_857), (2, 40, 17, 2, 2_500),
+                          (5, 33, 20_000, 3, 100)):
+        assert lvec_compose.carry_plan(b, n, q, k, s)["wide"]
+        n_keys = 40
+        cidx = rng.integers(-1, s, size=(n_keys + 1, q))
+        cidx[-1] = -1
+        sinks = np.where(rng.random(k) < 0.5, rng.integers(0, q, size=k), -1)
+        lanes = rng.integers(0, q, size=(b, n, k, s))
+        keys = rng.integers(0, n_keys + 1, size=(b, n))
+        args = tuple(torch.from_numpy(np.ascontiguousarray(x, np.int32))
+                     .cuda() for x in (lanes, keys, cidx, sinks))
+        want = lvec_compose.spec_compose_lanes_torch(*args, pad_key=n_keys)
+        got = lvec_compose.spec_compose_lanes_cuda(*args, pad_key=n_keys)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (b, n, q, k, s, "wide")
+
+
+def test_matcher_compose_lane_maps_past_the_ring_on_card():
+    """Needs an NVIDIA card (sm_90a): ``Matcher(PS00028).compose_lane_maps``
+    (Q = 43,125, S = I_max = 22,857: a key row and a lane map past B3's
+    ring, so its wide instance) equals the plain carry fold on every lane,
+    through one B3 launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the compose kernels have no CPU "
+                    "mode")
+    from repro_torch.core import Matcher
+    from repro_torch.core.patterns import PROSITE_PATTERNS
+    from repro_torch.core.regex import prosite_to_regex
+    dfa = t_make_search_dfa(t_compile_regex(
+        ".*(" + prosite_to_regex(PROSITE_PATTERNS["PS00028_ZINC_FINGER_C2H2"])
+        + ")"))
+    m = Matcher(dfa)
+    dev = m.dev
+    k, s, q = m.packed.n_patterns, dev.i_max, dfa.n_states
+    assert lvec_compose.carry_plan(4, 8, q, k, s)["wide"]
+    rng = np.random.default_rng(35)
+    b, n = 4, 6   # compose_lane_maps pads N to 8 with pad_key elements
+    lanes = rng.integers(0, q, size=(b, n, k, s)).astype(np.int32)
+    keys = rng.integers(0, dev.pad_key + 1, size=(b, n)).astype(np.int32)
+    lvec_compose.reset_launches()
+    got = m.compose_lane_maps(lanes, keys)
+    assert lvec_compose.launches["spec_compose_lanes"] == 1
+    want = lvec_compose.spec_compose_lanes_torch(
+        torch.from_numpy(lanes).cuda(), torch.from_numpy(keys).cuda(),
+        dev.cidx_pad_t, dev.sinks_t, pad_key=dev.pad_key)
+    assert np.array_equal(got, want.cpu().numpy())
+
+
+def _off16(x):
+    """A contiguous copy of ``x`` whose data starts 4 bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
 
 
 # --------------------------------------------------------------------------
@@ -694,6 +791,185 @@ def test_plan_constants_equal_the_kernel_header():
     assert dfa_match.LPT > 1   # a thread carries several chains
 
 
+def test_compose_plan_constants_equal_the_kernel_source():
+    """The B3/B7 plans' ring stages, consumer threads, cluster size, states
+    and lanes per thread and tile pairs are the ones csrc/lvec_compose.cu
+    compiles in."""
+    import re
+    from pathlib import Path
+
+    src = (Path(lvec_compose.__file__).parent / "csrc"
+           / "lvec_compose.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    names = ("STAGES", "MAX_CONSUMERS", "MAX_CLUSTER", "QPT", "LPT", "PAIRS")
+    assert {k: int(consts[k]) for k in names} == {
+        k: getattr(lvec_compose, k) for k in names}
+    assert lvec_compose.PAIRS == 32   # one pair per producer lane
+
+
+LVEC_SHAPES = [(1, 4096, 256), (40, 103, 256), (40, 103, 16), (40, 103, 64),
+               (40, 103, 128), (4096, 64, 17), (4096, 64, 120), (1, 1, 4),
+               (3, 100, 17), (2, 7, 1500), (5, 0, 9), (1, 300, 1),
+               (7, 50, 103), (1, 10 ** 6, 64), (200, 5, 33), (1, 40, 14_000),
+               (2, 64, 20_000), (1, 300, 60_000), (1, 8, 16_000),
+               (300, 4, 30_000)]
+
+
+def _lvec_cover(b, n, q, plan):
+    """Maps of each composition the plan's CTAs take (stage 1), and the
+    partials of each composition its fold takes (stage 2); a wide plan's
+    CTAs along the states (grid y) take the same maps."""
+    g, cl, pack = plan["segments"], plan["cluster"], plan["pack"]
+    seen = np.zeros((b, n), np.int64)
+    folded = np.zeros((b, plan["folds"]), np.int64)
+    xs = plan["ctas"] // (lvec_compose._wide_blocks(q) if plan["wide"] else 1)
+    for cta in range(xs):
+        seg, b0 = cta % g, cta // g * pack
+        lo, hi = seg * n // g, (seg + 1) * n // g
+        for u in range(min(pack, b - b0)):
+            seen[b0 + u, lo:hi] += 1
+            if seg % cl == 0:   # one fold row per cluster
+                folded[b0 + u, seg // cl] += 1
+    return seen, folded
+
+
+@pytest.mark.parametrize("b,n,q", LVEC_SHAPES)
+def test_lvec_plan_covers_every_map_once(b, n, q):
+    """The B7 launch takes every map of every composition exactly once, in
+    segments of consecutive maps; a cluster is <= 8 CTAs and divides the
+    segments; a second launch folds the cluster partials of compositions
+    split past one cluster; each CTA's consumers hold every state of its
+    compositions within 992 threads and QPT states a thread; shared memory
+    within one block's budget; a batch of few long compositions fills the
+    132 SMs with segments of >= MIN_SEGMENT maps.  Maps past the ring take
+    the wide instance, whose CTAs cover every state."""
+    plan = lvec_compose.lvec_plan(b, n, q)
+    g, cl = plan["segments"], plan["cluster"]
+    ring = lvec_compose.lvec_smem(1, 1, q, 1) <= lvec_compose.SMEM_BUDGET \
+        and q <= lvec_compose.MAX_CONSUMERS * lvec_compose.QPT
+    assert plan["wide"] == (not ring)
+    assert 1 <= cl <= lvec_compose.MAX_CLUSTER and g % cl == 0
+    assert plan["folds"] == g // cl and (g <= cl or cl == 8 or plan["wide"])
+    if plan["wide"]:
+        blocks = lvec_compose._wide_blocks(q)
+        assert blocks * lvec_compose.WIDE_THREADS * lvec_compose.WPT >= q
+        assert (blocks - 1) * lvec_compose.WIDE_THREADS * lvec_compose.WPT < q
+        assert plan["ctas"] == b * g * blocks and cl == 1
+        assert plan["smem"] == 0
+    else:
+        assert plan["cons"] % 32 == 0
+        assert plan["cons"] <= lvec_compose.MAX_CONSUMERS
+        assert plan["pack"] * plan["tpu"] <= plan["cons"]
+        assert plan["tpu"] * plan["nq"] >= q
+        assert plan["nq"] <= lvec_compose.QPT
+        assert plan["pack"] == 1 or q < 64
+        assert plan["smem"] <= lvec_compose.SMEM_BUDGET
+        assert lvec_compose.lvec_smem(plan["pack"], plan["fold_tile"], q, 1) \
+            <= lvec_compose.SMEM_BUDGET
+    seen, folded = _lvec_cover(b, n, q, plan)
+    assert (seen == 1).all() and (folded == 1).all()
+    if g > 1:
+        assert n // g >= lvec_compose.MIN_SEGMENT
+    if b * n >= lvec_compose.SMS * lvec_compose.MIN_SEGMENT * plan["pack"]:
+        assert plan["ctas"] >= 0.9 * lvec_compose.SMS or b >= 16 * 132
+
+
+@pytest.mark.parametrize("g", [1, 2, 5, 8, 16, 24, 128, 1024])
+def test_lvec_plan_forced_segments(g):
+    """A forced G covers every map once, also where N < G (empty segments
+    are identities); G past one cluster must be a multiple of 8 on the ring
+    instance, any G on the wide one."""
+    for b, n, q in ((3, 37, 16), (1, 4096, 256), (2, 5, 64), (2, 1, 1500),
+                    (2, 5, 20_000)):
+        plan = lvec_compose._lvec_plan(b, n, q, g)
+        assert plan["segments"] == g
+        seen, folded = _lvec_cover(b, n, q, plan)
+        assert (seen == 1).all() and (folded == 1).all()
+    with pytest.raises(ValueError, match="segments"):
+        lvec_compose._lvec_plan(1, 100, 64, 12)
+    assert lvec_compose._lvec_plan(1, 100, 20_000, 12)["folds"] == 12
+
+
+def test_lvec_plan_takes_the_wide_instance_past_the_ring():
+    """The ring takes every map whose four slots fit shared memory; one
+    state more, or more states than QPT a thread, takes the wide instance
+    (no shared memory), and no Q is refused."""
+    q = max(x for x in range(64, 16_000)
+            if lvec_compose.lvec_smem(1, 1, x, 1) <= lvec_compose.SMEM_BUDGET)
+    assert 14_000 < q < lvec_compose.MAX_CONSUMERS * lvec_compose.QPT
+    assert not lvec_compose.lvec_plan(1, 8, q)["wide"]
+    assert lvec_compose.lvec_plan(1, 8, q + 1)["wide"]
+    for big in (16_000 + 992 * 16, 43_125, 1 << 20):
+        plan = lvec_compose.lvec_plan(3, 8, big)
+        assert plan["wide"] and plan["smem"] == 0
+
+
+CARRY_SHAPES = [(1024, 32, 194, 14, 15), (8, 2048, 194, 14, 15),
+                (1024, 32, 195, 7, 30), (5, 8, 41, 3, 8), (2, 1, 4, 1, 1),
+                (140, 33, 10, 2, 3), (4, 40, 43, 1, 1000), (1, 3, 17, 3, 4),
+                (3000, 16, 80, 8, 2), (64, 8, 43_125, 1, 8),
+                (4, 8, 43_125, 1, 22_857), (2, 40, 17, 2, 2_500),
+                (959, 16, 194, 14, 15), (205, 16, 194, 14, 15),
+                (21, 4, 194, 14, 15)]
+
+
+@pytest.mark.parametrize("b,n,q,k,s", CARRY_SHAPES)
+def test_carry_plan_covers_every_element_once(b, n, q, k, s):
+    """The B3 launch holds every lane of every run exactly once (``runs``
+    runs a CTA, ``lpt`` lanes of one run a thread); its tiles cover every
+    element once with at most one (run, element) pair per producer lane;
+    the ring fits one block's shared memory (two CTAs an SM where it can);
+    several runs share a CTA only when the batch still fills the 132
+    SMs.  An element past the ring, or more lanes than one CTA carries,
+    takes the wide instance, whose CTAs hold every lane once."""
+    ks = k * s
+    plan = lvec_compose.carry_plan(b, n, q, k, s)
+    ring = (lvec_compose.carry_smem(1, 1, q, ks) <= lvec_compose.SMEM_BUDGET
+            and ks <= lvec_compose.MAX_CONSUMERS * lvec_compose.LPT)
+    assert plan["wide"] == (not ring)
+    if plan["wide"]:
+        width = lvec_compose.WIDE_THREADS * lvec_compose.WPT
+        blocks = lvec_compose._wide_blocks(ks)
+        assert plan["ctas"] == b * blocks and plan["smem"] == 0
+        lanes = np.zeros(ks, np.int64)
+        t = np.arange(lvec_compose.WIDE_THREADS)
+        for y in range(blocks):
+            for u in range(lvec_compose.WPT):
+                o = y * width + t + u * lvec_compose.WIDE_THREADS
+                np.add.at(lanes, o[o < ks], 1)
+        assert (lanes == 1).all()
+        return
+    runs, tile, cons, tpr, lpt = (plan[x] for x in ("runs", "tile", "cons",
+                                                    "tpr", "lpt"))
+    assert runs * tile <= lvec_compose.PAIRS and tile >= 1
+    assert cons % 32 == 0 and runs * tpr <= cons <= lvec_compose.MAX_CONSUMERS
+    assert lpt in (1, lvec_compose.LPT) and tpr * lpt >= ks
+    assert lpt == lvec_compose.LPT or runs == 1
+    assert plan["smem"] <= lvec_compose.SMEM_BUDGET
+    assert plan["smem"] == lvec_compose.carry_smem(runs, tile, q, ks)
+    lanes = np.zeros((b, ks), np.int64)
+    t = np.arange(cons)
+    r, g = t // tpr, t % tpr
+    for cta in range(plan["ctas"]):
+        for u in range(lpt):
+            o = g + u * tpr
+            live = (r < min(runs, b - cta * runs)) & (o < ks)
+            np.add.at(lanes, (cta * runs + r[live], o[live]), 1)
+    assert (lanes == 1).all()
+    elems = np.zeros(n, np.int64)
+    for i in range(-(-n // tile)):
+        elems[i * tile:(i + 1) * tile] += 1
+    assert (elems == 1).all()
+    if runs > 1:
+        assert plan["ctas"] >= lvec_compose.SMS
+    if tile >= 4:
+        assert tile % 4 == 0   # whole 16-byte spans of K*S % 4 != 0 maps
+    ring = lvec_compose.STAGES * lvec_compose.carry_stage_bytes(runs, tile,
+                                                                q, ks)
+    if ring > lvec_compose.CARRY_RING_BYTES and plan["ctas"] > 132:
+        assert tile == 1   # two CTAs an SM where it can be
+
+
 @pytest.mark.parametrize("c,s,l", SPEC_SHAPES)
 def test_spec_plan_covers_every_lane(c, s, l):
     """The B6 launch holds every (chunk, lane) exactly once, within one
@@ -829,18 +1105,43 @@ def test_spec_match_kernel_equals_plain_on_card():
 
 def test_lvec_compose_kernel_equals_plain_on_card():
     """Needs an NVIDIA card (sm_90a): B7 against its plain version, one and
-    many maps per tile, more states than threads, no maps."""
+    many maps per tile, more states than threads, no maps, one map; small
+    maps packed several to a CTA (Q = 16, 17, 103 and 4,096 compositions of
+    64 maps of 17 states); compositions split into segments on a cluster
+    and past one (a second launch), the plan's largest G on one
+    composition of 4,096 maps, and forced splits the plan never makes
+    (N not a multiple of G, N < G); maps past the ring (Q = 20,000 and
+    60,000: the wide instance, split and folded too)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernel has no CPU mode")
     rng = np.random.default_rng(3)
-    for b, n, q in ((1, 1, 4), (3, 100, 17), (40, 103, 256), (1, 4096, 256),
-                    (2, 7, 1500), (5, 0, 9)):
+    for b, n, q, g in ((1, 1, 4, None), (3, 100, 17, None),
+                       (40, 103, 256, None), (1, 4096, 256, None),
+                       (2, 7, 1500, None),
+                       (5, 0, 9, None), (4096, 64, 17, None),
+                       (40, 103, 16, None), (40, 103, 64, None),
+                       (40, 103, 128, None), (7, 50, 103, None),
+                       (3, 37, 16, 5), (3, 37, 64, 8), (2, 5, 64, 7),
+                       (2, 100, 17, 24), (3, 3, 256, 16), (2, 1, 64, 4),
+                       (9, 1, 16, None), (3, 2000, 1500, 16),
+                       (2, 64, 20_000, None), (1, 300, 60_000, None),
+                       (2, 5, 20_000, 7), (3, 1, 14_600, None)):
         maps = torch.from_numpy(
             rng.integers(0, q, size=(b, n, q)).astype(np.int32)).cuda()
         want = lvec_compose.lvec_compose_torch(maps)
-        got = lvec_compose.lvec_compose_cuda(maps)
+        plan = lvec_compose._lvec_plan(b, n, q, g) if b and q else None
+        assert plan is None or plan["wide"] == (q >= 14_600)
+        got = lvec_compose._lvec_launch(maps, plan)
         torch.cuda.synchronize()
-        assert torch.equal(got, want), (b, n, q)
+        assert torch.equal(got, want), (b, n, q, g)
+        if n and b * n * q < 10 ** 6:   # maps not starting on 16 bytes
+            got = lvec_compose._lvec_launch(_off16(maps), plan)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (b, n, q, g, "shifted")
+    maps = torch.from_numpy(
+        rng.integers(0, 64, size=(3, 200, 64)).astype(np.int32)).cuda()
+    assert torch.equal(lvec_compose.lvec_compose_cuda(maps),
+                       lvec_compose.lvec_compose_torch(maps))
 
 
 def test_onehot_kernel_equals_plain_on_card():
