@@ -22,13 +22,14 @@ Phases (any mismatch raises, so the exit code is non-zero):
   7. the bounds of B1 and B2;
   8. hold kernels B3 (``spec_compose_lanes``, the carry fold) and B4
      (``spec_compose_lanes_tree``) against their plain versions on real
-     PCRE-14 lane maps (r=2, ragged runs): B=1024 runs of N=32 (the tree in
-     shared memory) and B=8 runs of N=2048 (the tree in its global scratch
-     copy) — bit for bit, the tree also against the sequential oracle on
-     real lanes — and time them per call and on the device, with B3's plan
-     (runs a CTA, elements a ring tile); B3 also at the (B, N) of three of
-     phase 9's calls, and its wide instance (an element past the ring) on
-     random operands at PS00028's Q = 43,125 and S = 22,857;
+     PCRE-14 lane maps (r=2, ragged runs) at the (B, N) of three of phase
+     9's calls, B=1024 runs of N=32 and B=8 runs of N=2048 (the tree split
+     past one cluster) — bit for bit, the tree also against the sequential
+     oracle on real lanes — and time them per call and on the device, with
+     each plan (B3: runs a CTA, elements a ring tile; B4: segments,
+     clusters, runs a CTA, row slots); both wide instances (an element or a
+     unit past shared memory) on random operands at PS00028's Q = 43,125 and
+     S = 22,857;
   9. the out-of-order path: ``OooStreamMatcher`` over 1024 streams of
      64 KiB in 16 segments at shuffle fractions 0, 0.25 and 1 (and 1 again
      on the tree compose, 0.25 again on ``backend="local"``), every stream's
@@ -123,7 +124,7 @@ DEVICE = "cuda"
 B, C, LC = 64, 8, 8192               # kernel shapes of phase 2
 N_DOCS, DOC_BYTES = 256, (32 * 1024, 64 * 1024)   # phase 3 corpus
 RUNS8 = ((1024, 32), (8, 2048))      # phase 8 compose shapes (B, N)
-CALLS8 = ((959, 16), (205, 16), (21, 4))   # phase 9's B3 calls (B, N), carry
+CALLS8 = ((959, 16), (205, 16), (21, 4))   # phase 9's B3/B4 calls (B, N)
 WIDE8 = (4, 8, 43_125, 1, 22_857, 22)   # B3 past the ring: B, N, Q, K, S, keys
 SEG8 = 256                           # bytes per phase-8 segment
 STREAMS9, DOC9, SEGS9 = 1024, 64 * 1024, 16   # phase 9 streams
@@ -381,6 +382,17 @@ def kernel_resources(log):
             out.append((*inst, int(m.group(1)), spill))
             inst, spill = None, 0
     return out
+
+
+def tree_how(plan):
+    """A B4 plan (``lvec_compose.tree_plan``) in words."""
+    if plan["wide"]:
+        return "wide, the levels in global memory"
+    return (f"{plan['segments']} segments of {plan['seg']} a run, clusters "
+            f"of {plan['cluster']}, {plan['folds']} cluster partials (a "
+            f"second launch when > 1), {plan['runs']} runs a CTA, "
+            f"{plan['threads']} threads a unit ({plan['hp']} pair groups), "
+            f"{plan['slots']} row slots")
 
 
 def check(cond, what):
@@ -1214,9 +1226,9 @@ def main() -> int:
                                              for _, k, r, sp in res))
     res = kernel_resources(_build.build_logs.get("lvec_compose", ""))
     print("[1] lvec_compose registers / spill-store bytes per kernel "
-          "instance (B3 compose_carry<lanes a thread>, B4 compose_tree<in "
-          "shared memory>, B7 lvec_compose<states a thread>, and the "
-          "instances past the rings): "
+          "instance (B3 compose_carry<lanes a thread>, B4 compose_tree, B7 "
+          "lvec_compose<states a thread>, and the instances past shared "
+          "memory): "
           + ", ".join(f"{n}<{k}>: {r} / {sp}" if k else f"{n}: {r} / {sp}"
                       for n, k, r, sp in res))
 
@@ -1426,14 +1438,9 @@ def main() -> int:
                                             packed.sinks, pad_cls=dt.pad_key)
         mask = real_lane_mask(dt.tables, keys[:, 0])
         placements = [("carry", lvec_compose.spec_compose_lanes_cuda,
-                       lvec_compose.spec_compose_lanes_torch, {})]
-        for smem in (True, False) if (nb, nn) in RUNS8 else ():
-            if lvec_compose.tree_in_smem(nn, k, s) or not smem:
-                placements.append((
-                    f"tree/{'smem' if smem else 'global'}",
-                    lvec_compose.spec_compose_lanes_tree_cuda,
-                    lvec_compose.spec_compose_lanes_tree_torch,
-                    dict(in_smem=smem)))
+                       lvec_compose.spec_compose_lanes_torch),
+                      ("tree", lvec_compose.spec_compose_lanes_tree_cuda,
+                       lvec_compose.spec_compose_lanes_tree_torch)]
         # bytes the function must move: the real maps and the keys once, the
         # outputs once, at most one cand_index entry per lane-combine; the
         # work: two dependent loads (cand_index, then the map) per combine
@@ -1445,10 +1452,10 @@ def main() -> int:
         t_ops = 2 * combines / SMEM_LOADS_PER_S * 1e3
         bound = dict(bound_ms=max(t_bytes, t_ops),
                      bound_by="bytes" if t_bytes >= t_ops else "operations")
-        for mode, kern, plain, extra in placements:
+        for mode, kern, plain in placements:
             want = plain(*args8, **kw)
             plain_ms = cuda_ms(lambda: plain(*args8, **kw), 1)
-            call = lambda: kern(*args8, **kw, **extra)
+            call = lambda: kern(*args8, **kw)
             got = call()
             torch.cuda.synchronize()
             err = int((got.long() - want.long()).abs().max())
@@ -1468,22 +1475,24 @@ def main() -> int:
             ms = cuda_ms(call, 20)
             dev_ms = kernel_device_ms(call, "compose_carry" if mode == "carry"
                                       else "compose_tree", 20)
-            plan = (lvec_compose.carry_plan(nb, nn, cidx.shape[1], k, s)
-                    if mode == "carry" else None)
-            print(f"[8] compose {mode:11s} B={nb} N={nn} ({real} real "
+            if mode == "carry":
+                plan = lvec_compose.carry_plan(nb, nn, cidx.shape[1], k, s)
+                how = (f"{plan['runs']} runs x {plan['tile']} elements a "
+                       f"tile, {plan['cons']} consumer threads")
+            else:
+                plan = lvec_compose.tree_plan(nb, nn, cidx.shape[1], k, s)
+                how = tree_how(plan)
+                if dev_ms is not None and plan["folds"] > 1:
+                    dev_ms *= 2   # two launches a call (see phase 13's B7)
+            print(f"[8] compose {mode:5s} B={nb} N={nn} ({real} real "
                   f"combines) kernel {ms:.4f} ms per call "
                   f"({device_share(dev_ms, bound['bound_ms'])})"
                   f"  plain {plain_ms:.3f} ms  bound {bound['bound_ms']:.4f} "
                   f"ms ({bound['bound_by']}; bytes {t_bytes:.4f}, operations "
-                  f"{t_ops:.4f})  equal"
-                  + ("" if plan is None else
-                     f"; plan: {plan['runs']} runs x {plan['tile']} "
-                     f"elements a tile, {plan['cons']} consumer threads, "
-                     f"{plan['ctas']} CTAs, {plan['smem']} B of shared "
-                     "memory"))
-            # B3's line: the largest of phase 9's calls; B4's: [1024, 32]
-            if ((nb, nn), mode) in ((CALLS8[0], "carry"),
-                                    (RUNS8[0], "tree/smem")):
+                  f"{t_ops:.4f})  equal; plan: {how}, {plan['ctas']} CTAs, "
+                  f"{plan['smem']} B of shared memory")
+            # each kernel's line: the largest of phase 9's calls
+            if (nb, nn) == CALLS8[0]:
                 name = ("spec_compose_lanes" if mode == "carry"
                         else "spec_compose_lanes_tree")
                 kernels[name] = dict(
@@ -1529,6 +1538,29 @@ def main() -> int:
           f"({'bytes' if t_bytes >= t_ops else 'operations'})  equal; plan: "
           f"wide, {lvec_compose.carry_plan(nb, nn, qw, kw8, sw)['ctas']} "
           "CTAs, rows and maps from global memory")
+    # B4's wide instance on the same operands (N = 8, a power of two)
+    check(lvec_compose.tree_plan(nb, nn, qw, kw8, sw)["wide"],
+          "B4 at PS00028's shape did not take its wide instance")
+    want = lvec_compose.spec_compose_lanes_tree_torch(*args8, pad_key=nk)
+    plain_ms = cuda_ms(
+        lambda: lvec_compose.spec_compose_lanes_tree_torch(*args8,
+                                                           pad_key=nk), 1)
+    call = lambda: lvec_compose.spec_compose_lanes_tree_cuda(*args8,
+                                                             pad_key=nk)
+    got = call()
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    err8 = max(err8, err)
+    check(err == 0, f"wide tree compose B={nb} N={nn} Q={qw} S={sw}: kernel "
+          "differs from its plain version")
+    ms = cuda_ms(call, 20)
+    dev_ms = kernel_device_ms(call, "compose_tree", 20)
+    print(f"[8] compose tree/wide B={nb} N={nn} Q={qw} K={kw8} S={sw} "
+          f"({real} real combines) kernel {ms:.4f} ms per call "
+          f"({device_share(dev_ms, max(t_bytes, t_ops))})  plain "
+          f"{plain_ms:.3f} ms  bound {max(t_bytes, t_ops):.4f} ms "
+          f"({'bytes' if t_bytes >= t_ops else 'operations'})  equal; plan: "
+          f"wide, {nb} CTAs, the levels in global memory")
     for name in ("spec_compose_lanes", "spec_compose_lanes_tree"):
         kernels[name]["max_abs_err"] = err8
     print(f"[8] compose kernels equal their plain versions (max |err| "
@@ -1609,13 +1641,19 @@ def main() -> int:
     mt = Matcher(ps, num_chunks=8, device=DEVICE)
     mt.executor.compose_mode = "tree"
     st, launched = ooo_run(mt, plans, "[9] tree compose, shuffle 1:")
+    calls = mt.perf_report()["compose_calls"]
     check(launched["spec_compose_lanes_tree"] > 0
           and launched["spec_compose_lanes"] == 0
           and mt.perf_report()["compose_lowering"] == "compose-kernel-tree",
           f"the tree run did not ride B4: {launched}")
+    # its calls have N <= 16, which B4's plan never splits: one launch each
+    check(launched["spec_compose_lanes_tree"] == calls,
+          f"the tree run's {calls} compose calls launched B4 "
+          f"{launched['spec_compose_lanes_tree']} times")
     counts["spec_compose_lanes_tree"] = launched["spec_compose_lanes_tree"]
     print(f"[9] tree compose, shuffle 1: equal; scan_folds {st.scan_folds}, "
-          f"B4 launches {launched['spec_compose_lanes_tree']}")
+          f"compose calls {calls}, B4 launches "
+          f"{launched['spec_compose_lanes_tree']}")
     plans = arrival_plans(np.random.default_rng(41), STREAMS9, SEGS9, 0.25)
     ml9 = Matcher(ps, num_chunks=8, backend="local", device=DEVICE)
     st, launched = ooo_run(ml9, plans, "[9] backend='local', shuffle 0.25:")

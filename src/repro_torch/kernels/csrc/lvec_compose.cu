@@ -39,14 +39,29 @@
 // carry, carry_plan selects compose_carry_wide: the lanes of a run over
 // several CTAs, rows and maps read from global memory.
 //
-// B4, compose_tree: log2(N) levels of pairwise combines in place: at stride
-// st slot i (a multiple of 2*st) becomes combine(slot i, slot i + st) with
-// the right slot's own key, so a combined pair keeps the left key and a
-// miss with no sink falls back to the left operand, as in the Pallas tree.
-// The run sits in shared memory when N*K*S*4 bytes fit, else the levels
-// work in a global scratch copy of the row; __syncthreads() separates the
-// levels.  A slot written at one level is read at that level only by the
-// thread that writes it, so no level needs a second buffer.
+// B4, compose_tree: the same fold as log2(N) levels of pairwise combines in
+// place: at stride st slot i (a multiple of 2 st) becomes combine(slot i,
+// slot i + st) with the right slot's own key, so a combined pair keeps the
+// left key and a miss with no sink falls back to the left operand, as in
+// the Pallas tree (the combine is not associative on pad lanes, so every
+// order below is the tree's own pairing).  A unit is a run, or an aligned
+// power-of-two segment of one; kernels/lvec_compose.py::tree_plan sizes
+// the launch.  A producer warp bulk-copies each unit's maps into shared
+// memory (the aligned 16-byte units that hold them, as in B3) and each
+// distinct key's cand_index row once a CTA (a hash of the CTA's keys; a key
+// past the CTA's row slots is read from global memory, a pad_key element is
+// skipped); every load of a level's dependent chain -- the left lane, its
+// row entry, the right map's lane -- is then a shared-memory load.  A thread
+// carries LPT lanes of a unit over hp pair groups, and a unit's threads meet
+// at their own named barrier after each level (several runs share a CTA in
+// a large batch, so one run never stalls another).  A batch of few long runs
+// splits each run into G segments on a thread-block cluster: each CTA
+// reduces its segment as a subtree, then rank 0 gathers the cluster's
+// partials through distributed shared memory and folds them in the tree's
+// pairing; past MAX_CLUSTER segments a second launch of the same kernel
+// reduces the G / MAX_CLUSTER cluster partials.  A unit that does not fit
+// shared memory (PS00028: K*S = 22,857) takes compose_tree_wide, every
+// level in a global scratch copy of the run.
 //
 // Bound of B3/B4 on an H100 SXM (3.35 TB/s): the real maps and keys read
 // once, the output written once, at most one cand_index entry per
@@ -88,8 +103,9 @@ constexpr int MAX_CONSUMERS = 992;  // consumer threads of a CTA (+1 producer
                                     // warp = 1024)
 constexpr int MAX_CLUSTER = 8;      // portable thread-block cluster size
 constexpr int QPT = 16;             // most states a B7 thread carries
-constexpr int LPT = 4;              // lanes a B3 thread carries in a large
-                                    // batch (one lane in a small one)
+constexpr int LPT = 4;              // lanes a B4 thread carries (a B3
+                                    // one: in a large batch; one lane in a
+                                    // small one)
 constexpr int PAIRS = 32;           // most (run, element) pairs of a B3 tile:
                                     // one per producer lane
 constexpr int WIDE_THREADS = 256;   // threads of a CTA of the instances for
@@ -405,58 +421,331 @@ __global__ void __launch_bounds__(WIDE_THREADS) compose_carry_wide(
 
 // -- B4 ----------------------------------------------------------------------
 
-__device__ __forceinline__ int combine(int a, const int* __restrict__ right,
-                                       int key, const int* __restrict__ cidx,
-                                       int q, int sink) {
-    // right points at pattern k's S lanes of the right map
-    const int lane = __ldg(cidx + (size_t)key * q + a);
-    if (lane < 0) return sink >= 0 ? sink : a;
-    return right[lane];
+struct Tree {
+    const int* lanes;  // [B, N, K*S]
+    const int* keys;   // element i of run b: keys[b * key_row + i * key_step]
+    const int* cidx;   // [rows, Q]
+    const int* sinks;  // [K]
+    int* dst;          // [B, G / cluster, K*S]: out, or the cluster partials
+    int* scratch;      // [B, N, K*S]: the wide instance's levels
+    int B, N, Q, K, S, pad_key, rows;
+    int key_row, key_step;
+    int G;             // segments per run (powers of two: N / G elements each)
+    int cluster;       // CTAs per cluster: min(G, MAX_CLUSTER)
+    int runs;          // runs per CTA (1 where G > 1)
+    int hp;            // pair groups of a unit's threads
+    int slots;         // cand_index row slots of a CTA
+    int hsize;         // entries of the CTA's key hash (a power of two)
+};
+
+// threads of one unit (a run, or a segment of one): LPT lanes a thread, hp
+// pair groups, whole warps (the unit's named barrier counts them)
+__host__ __device__ constexpr int tree_lane_threads(int ks) {
+    return (ks + LPT - 1) / LPT;
+}
+__host__ __device__ constexpr int tree_threads(int ks, int hp) {
+    return (tree_lane_threads(ks) * hp + 31) / 32 * 32;
 }
 
-template <bool IN_SMEM>
-__global__ void compose_tree(const int* __restrict__ lanes,  // [B, N, K*S]
-                             const int* __restrict__ keys,   // [B, N]
-                             const int* __restrict__ cidx,   // [nk, Q]
-                             const int* __restrict__ sinks,  // [K]
-                             int* __restrict__ out,          // [B, K*S]
-                             int* __restrict__ scratch,      // [B, N, K*S]
-                             int N, int Q, int K, int S, int pad_key) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    const int b = blockIdx.x;
-    const int tid = threadIdx.x;
-    const int ks = K * S;
-    const int* lanes_b = lanes + (size_t)b * N * ks;
-    const int* keys_b = keys + (size_t)b * N;
-    int* buf = IN_SMEM ? reinterpret_cast<int*>(smem)
-                       : scratch + (size_t)b * N * ks;
-    if (IN_SMEM) {
-        for (int i = tid; i < N * ks; i += blockDim.x) buf[i] = lanes_b[i];
-        __syncthreads();
+// Shared memory, in bytes: each unit's maps [runs][slot_words(width * K*S)]
+// (width = max(segment, cluster): the cluster fold gathers its peers'
+// partials there), the staged key rows [slots][slot_words(Q)], each unit's
+// element entries [runs][width], the key hash (keys [hsize], entries
+// [hsize]), a copy barrier for each unit.  kernels/lvec_compose.py::
+// tree_smem mirrors it.
+struct TreeLayout {
+    int seg, width;
+    uint32_t us, qs, rows_off, elem_off, hkey_off, hval_off, bar, end;
+    __host__ __device__ TreeLayout(const Tree& p) {
+        seg = p.N / p.G;
+        width = seg > p.cluster ? seg : p.cluster;
+        us = slot_words(width * p.K * p.S);
+        qs = slot_words(p.Q);
+        rows_off = (uint32_t)p.runs * us * 4;
+        elem_off = rows_off + (uint32_t)p.slots * qs * 4;
+        hkey_off = elem_off + (uint32_t)(p.runs * width) * 4;
+        hval_off = hkey_off + (uint32_t)p.hsize * 4;
+        bar = (hval_off + (uint32_t)p.hsize * 4 + 7) & ~7u;
+        end = bar + (uint32_t)p.runs * 8;
     }
-    for (int st = 1; st < N; st *= 2) {
-        // level 0 of the global placement reads the input row and writes
-        // the scratch row; every later level works in buf
-        const int* src = (IN_SMEM || st > 1) ? buf : lanes_b;
-        const int pairs = N / (2 * st);
+};
+
+// An element's entry: 1 for pad_key (the identity: the pair is skipped),
+// key * 4 + 2 for a key whose row is read from global memory (the CTA's
+// row slots ran out), else the shared-memory offset of its staged row.
+//
+// The levels of one unit's n elements, in place: at stride st slot i (a
+// multiple of 2 st) becomes the combine of slot i and slot i + st keyed by
+// element i + st's entry, so a combined pair keeps its left key, as in the
+// Pallas tree.  Thread (g, h) takes lanes g + u * tl of pairs h, h + hp, ...
+// (h = n: none); the unit's bar_n threads meet at barrier `bar` after each
+// level.  A lane index is -1 or one of pattern k's lanes; the word a -1
+// reads (the one before pattern k's lanes of a slot >= 1) lies in the
+// unit's maps and is selected away.
+__device__ __forceinline__ void tree_levels(
+        uint32_t base, uint32_t maps, uint32_t elem, int n, int ks,
+        const int* __restrict__ cidx, int q, int h, int hp,
+        const uint32_t (&lo)[LPT], const uint32_t (&kofs)[LPT],
+        const int (&sink)[LPT], const bool (&ok)[LPT], int bar, int bar_n) {
+    for (int st = 1; st < n; st *= 2) {
+        const int pairs = n / (2 * st);
+        for (int pp = h; pp < pairs; pp += hp) {
+            const int i = 2 * pp * st, j = i + st;
+            const uint32_t e = sm90::lds(elem + (uint32_t)j * 4);
+            if (e & 1) continue;
+            const uint32_t left = maps + (uint32_t)(i * ks) * 4;
+            const uint32_t right = maps + (uint32_t)(j * ks) * 4;
+            int a[LPT], ln[LPT];
+#pragma unroll
+            for (int u = 0; u < LPT; ++u) a[u] = (int)sm90::lds(left + lo[u]);
+            if (e & 2) {
+                const int* row = cidx + (size_t)(e >> 2) * q;
+#pragma unroll
+                for (int u = 0; u < LPT; ++u) ln[u] = __ldg(row + a[u]);
+            } else {
+#pragma unroll
+                for (int u = 0; u < LPT; ++u)
+                    ln[u] = (int)sm90::lds(base + e + (uint32_t)a[u] * 4);
+            }
+#pragma unroll
+            for (int u = 0; u < LPT; ++u) {
+                const int keep = sink[u] >= 0 ? sink[u] : a[u];
+                const int hit = (int)sm90::lds(right + kofs[u]
+                                               + (uint32_t)(ln[u] * 4));
+                if (ok[u]) sm90::sts(left + lo[u], ln[u] < 0 ? keep : hit);
+            }
+        }
+        sm90::bar_sync(bar, bar_n);
+    }
+}
+
+__global__ void __launch_bounds__(1024, 1) compose_tree(const Tree p) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int tid = threadIdx.x, lane = tid & 31;
+    const int ks = p.K * p.S;
+    const int T = tree_threads(ks, p.hp), tl = tree_lane_threads(ks);
+    const int cons = p.runs * T;
+    const TreeLayout lay(p);
+    const uint32_t base = sm90::smem_addr(smem);
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar);
+    int* hkey = reinterpret_cast<int*>(smem + lay.hkey_off);
+    int* hval = reinterpret_cast<int*>(smem + lay.hval_off);
+    int* elems = reinterpret_cast<int*>(smem + lay.elem_off);
+    // unit u: run b0 + u, elements e0 .. e0 + seg - 1 (a CTA of a split run
+    // holds one unit, segment blockIdx.x % G)
+    const bool split = p.G > 1;
+    const int b0 = split ? blockIdx.x / p.G : blockIdx.x * p.runs;
+    const int gseg = split ? blockIdx.x % p.G : 0;
+    const int units = split ? 1 : min(p.runs, p.B - b0);
+    const int* lanes_end = p.lanes + (size_t)p.B * p.N * ks;
+    auto src_of = [&](int u, int g) {
+        return p.lanes + ((size_t)(b0 + u) * p.N + (size_t)g * lay.seg) * ks;
+    };
+    auto span_of = [&](int u, int g) {
+        return span(src_of(u, g), lay.seg * ks, p.lanes, lanes_end);
+    };
+
+    if (tid == 0) {
+        for (int i = 0; i < p.runs; ++i) sm90::mbar_init(&full[i], 32);
+        sm90::mbar_init_fence();
+    }
+    for (int i = tid; i < p.hsize; i += blockDim.x) hkey[i] = -1;
+    __syncthreads();
+
+    // a consumer thread's lanes (the producer's are unused)
+    const int u = tid / T, t = tid - u * T;
+    const int h = t / tl, g = t - h * tl;
+    const bool act = tid < cons && u < units && h < p.hp;
+    uint32_t lo[LPT], kofs[LPT];
+    int sink[LPT];
+    bool ok[LPT];
+#pragma unroll
+    for (int v = 0; v < LPT; ++v) {   // a dead lane combines lane 0, unstored
+        const int o = g + v * tl;
+        ok[v] = act && o < ks;
+        const int k = ok[v] ? o / p.S : 0;
+        lo[v] = ok[v] ? (uint32_t)o * 4 : 0;
+        kofs[v] = (uint32_t)(k * p.S) * 4;
+        sink[v] = ok[v] ? __ldg(p.sinks + k) : -1;
+    }
+    const int uu = u < units ? u : 0;
+    const uint32_t maps = base + (uint32_t)uu * lay.us * 4
+                          + (uint32_t)span_of(uu, gseg).off * 4;
+    const uint32_t elem = base + lay.elem_off + (uint32_t)(uu * lay.width) * 4;
+
+    if (tid >= cons) {
+        // -- producer warp: lane u < units bulk-copies unit u's maps on its
+        // barrier (4-byte copies where the span would leave the operand);
+        // then every key of elements 1 .. seg - 1 is read into the entry
+        // table, and each distinct key's row is copied once into a row
+        // slot, on the barrier of the unit that first holds the key (a key
+        // of an earlier batch is found in the hash); each lane arrives on a
+        // unit's barrier once the unit's keys are done
+        const Span ms = span_of(lane < units ? lane : 0, gseg);
+        if (lane < units && ms.bulk) {
+            sm90::mbar_expect_tx(&full[lane], ms.words * 4);
+            sm90::bulk_load(base + lane * lay.us * 4, ms.src, ms.words * 4,
+                            &full[lane]);
+        }
+        for (uint32_t m = __ballot_sync(~0u, lane < units && !ms.bulk); m;
+             m &= m - 1) {
+            const int q = __ffs(m) - 1;
+            warp_copy(base + q * lay.us * 4, src_of(q, gseg), lay.seg * ks,
+                      lane);
+        }
+        for (int x = lane; x < units * lay.seg; x += 32) {
+            const int v = x / lay.seg, i = x - v * lay.seg;
+            elems[v * lay.width + i] =
+                i ? __ldg(p.keys + (size_t)(b0 + v) * p.key_row
+                          + (size_t)(gseg * lay.seg + i) * p.key_step)
+                  : p.pad_key;
+        }
+        __syncwarp();
+        const int* cidx_end = p.cidx + (size_t)p.rows * p.Q;
+        int used = 0;
+        for (int v = 0; v < units; ++v) {
+            for (int c0 = 1; c0 < lay.seg; c0 += 32) {
+                const int i = c0 + lane;
+                const bool valid = i < lay.seg;
+                int* ent = elems + v * lay.width + i;
+                const int key = valid ? *ent : p.pad_key;
+                const bool need = key != p.pad_key;
+                const int lead =
+                    __ffs(__match_any_sync(~0u, need ? key : -1 - lane)) - 1;
+                int pos = 0;
+                bool fresh = false;
+                if (need && lead == lane) {
+                    pos = (int)(((uint32_t)key * 2654435761u) >> 16)
+                          & (p.hsize - 1);
+                    for (;;) {
+                        const int old = atomicCAS(hkey + pos, -1, key);
+                        if (old == -1 || old == key) {
+                            fresh = old == -1;
+                            break;
+                        }
+                        pos = (pos + 1) & (p.hsize - 1);
+                    }
+                }
+                const uint32_t fb = __ballot_sync(~0u, fresh);
+                const int slot = used + __popc(fb & ((1u << lane) - 1));
+                const bool row = fresh && slot < p.slots;
+                const Span rs = span(p.cidx + (size_t)(row ? key : 0) * p.Q,
+                                     p.Q, p.cidx, cidx_end);
+                const uint32_t dst = lay.rows_off + (uint32_t)slot * lay.qs * 4;
+                int e = 1;
+                if (fresh) {
+                    e = row ? (int)(dst + rs.off * 4) : key * 4 + 2;
+                    hval[pos] = e;
+                }
+                if (row && rs.bulk) {
+                    sm90::mbar_expect_tx(&full[v], rs.words * 4);
+                    sm90::bulk_load(base + dst, rs.src, rs.words * 4,
+                                    &full[v]);
+                }
+                for (uint32_t m = __ballot_sync(~0u, row && !rs.bulk); m;
+                     m &= m - 1) {
+                    const int q = __ffs(m) - 1;
+                    warp_copy(base + __shfl_sync(~0u, dst, q),
+                              p.cidx + (size_t)__shfl_sync(~0u, key, q) * p.Q,
+                              p.Q, lane);
+                }
+                used += __popc(fb);
+                __syncwarp();
+                if (need && lead == lane && !fresh) e = hval[pos];
+                e = __shfl_sync(~0u, e, lead);
+                if (valid) *ent = e;
+            }
+            stage_done(&full[v]);
+        }
+    } else if (u < units) {
+        // -- consumers: unit u's levels on its named barrier, once its
+        // copies and those of the CTA's earlier units (whose rows it may
+        // read) have landed
+        for (int v = 0; v <= u; ++v) sm90::mbar_wait(&full[v], 0);
+        tree_levels(base, maps, elem, lay.seg, ks, p.cidx, p.Q,
+                    act ? h : lay.seg, p.hp, lo, kofs, sink, ok, 1 + u, T);
+        if (!split && h == 0)
+#pragma unroll
+            for (int v = 0; v < LPT; ++v)
+                if (ok[v])
+                    p.dst[(size_t)(b0 + u) * ks + g + v * tl] =
+                        (int)sm90::lds(maps + lo[v]);
+    }
+    if (!split) return;
+
+    // -- a split run: the cluster's partials (each CTA's slot 0) folded in
+    // the tree's own pairing by rank 0, which gathers its peers' partials
+    // into its slots 1 .. cluster - 1 through distributed shared memory and
+    // reads their keys' rows from global memory
+    sm90::cluster_sync();
+    if (sm90::cluster_rank() == 0 && tid < cons) {
+        const int c = p.cluster;
+        if (act)
+            for (int r = 1 + h; r < c; r += p.hp) {
+                const uint32_t peer =
+                    base + (uint32_t)span_of(0, gseg + r).off * 4;
+#pragma unroll
+                for (int v = 0; v < LPT; ++v)
+                    if (ok[v])
+                        sm90::sts(maps + (uint32_t)(r * ks) * 4 + lo[v],
+                                  sm90::ld_cluster(
+                                      sm90::cluster_map(peer + lo[v], r)));
+            }
+        if (t < c - 1) {
+            const int key = __ldg(p.keys + (size_t)b0 * p.key_row
+                                  + (size_t)((gseg + t + 1) * lay.seg)
+                                        * p.key_step);
+            sm90::sts(elem + (uint32_t)(t + 1) * 4,
+                      key == p.pad_key ? 1u : (uint32_t)key * 4 + 2);
+        }
+        sm90::bar_sync(1, T);
+        tree_levels(base, maps, elem, c, ks, p.cidx, p.Q, act ? h : c, p.hp,
+                    lo, kofs, sink, ok, 1, T);
+        if (h == 0)
+#pragma unroll
+            for (int v = 0; v < LPT; ++v)
+                if (ok[v])
+                    p.dst[((size_t)b0 * (p.G / c) + gseg / c) * ks + g
+                          + v * tl] = (int)sm90::lds(maps + lo[v]);
+    }
+    sm90::cluster_sync();   // no CTA leaves while rank 0 reads its partial
+}
+
+// B4 where a unit does not fit shared memory (two elements past it, as
+// PS00028's K*S = 22,857 lanes are, or more lanes than a CTA's threads
+// carry): one CTA a run, every level in the global scratch copy of the run
+// (level 0 reads the input), __syncthreads() between levels, cand_index
+// read through the read-only path.
+__global__ void __launch_bounds__(1024) compose_tree_wide(const Tree p) {
+    const int b = blockIdx.x, tid = threadIdx.x;
+    const int ks = p.K * p.S;
+    const int* lanes_b = p.lanes + (size_t)b * p.N * ks;
+    const int* keys_b = p.keys + (size_t)b * p.key_row;
+    int* buf = p.scratch + (size_t)b * p.N * ks;
+    for (int st = 1; st < p.N; st *= 2) {
+        const int* src = st > 1 ? buf : lanes_b;
+        const int pairs = p.N / (2 * st);
         for (int idx = tid; idx < pairs * ks; idx += blockDim.x) {
-            const int p = idx / ks;
-            const int o = idx - p * ks;
-            const int k = o / S;
-            const size_t left = (size_t)(2 * p) * st;
-            const size_t right = left + st;
+            const int pr = idx / ks;
+            const int o = idx - pr * ks;
+            const int k = o / p.S;
+            const size_t left = (size_t)(2 * pr) * st, right = left + st;
             const int a = src[left * ks + o];
-            const int key = __ldg(keys_b + right);
-            buf[left * ks + o] =
-                key == pad_key ? a
-                               : combine(a, src + right * ks + k * S, key,
-                                         cidx, Q, __ldg(sinks + k));
+            const int key = __ldg(keys_b + right * p.key_step);
+            int v = a;
+            if (key != p.pad_key) {
+                const int ln = __ldg(p.cidx + (size_t)key * p.Q + a);
+                const int sink = __ldg(p.sinks + k);
+                v = ln < 0 ? (sink >= 0 ? sink : a)
+                           : src[right * ks + k * p.S + ln];
+            }
+            buf[left * ks + o] = v;
         }
         __syncthreads();
     }
-    const int* res = (IN_SMEM || N > 1) ? buf : lanes_b;
+    const int* res = p.N > 1 ? buf : lanes_b;
     for (int o = tid; o < ks; o += blockDim.x)
-        out[(size_t)b * ks + o] = res[o];
+        p.dst[(size_t)b * ks + o] = res[o];
 }
 
 int threads_for(int work) {
@@ -464,6 +753,28 @@ int threads_for(int work) {
     if (t > 1024) t = 1024;
     if (t < 32) t = 32;
     return t;
+}
+
+int launch_tree(const Tree& p, void* stream) {
+    const int ks = p.K * p.S;
+    const unsigned blocks = p.G > 1 ? (unsigned)(p.B * p.G)
+                                    : (unsigned)((p.B + p.runs - 1) / p.runs);
+    return launch::launch_ex(compose_tree, p, dim3(blocks),
+                             p.runs * tree_threads(ks, p.hp) + 32,
+                             TreeLayout(p).end, p.G > 1 ? p.cluster : 1,
+                             stream);
+}
+
+bool tree_ok(int B, int N, int ks, int G, int cluster, int runs, int hp,
+             int slots, int hsize) {
+    if (G < 1 || (G & (G - 1)) || N % G || runs < 1 || runs > 15 || hp < 1
+        || slots < 0 || hsize < 32 || (hsize & (hsize - 1)) || ks < 1)
+        return false;
+    if (cluster != (G < MAX_CLUSTER ? G : MAX_CLUSTER) || (G > 1 && runs != 1))
+        return false;
+    const int width = N / G > cluster ? N / G : cluster;
+    return runs * tree_threads(ks, hp) <= MAX_CONSUMERS
+           && hsize > runs * width && B >= 1;
 }
 
 // -- B7 ----------------------------------------------------------------------
@@ -705,28 +1016,44 @@ int spec_compose_lanes_launch(const int* lanes, const int* keys,
                              cons + 32, smem, 1, stream);
 }
 
+// B4: stage 1 reduces each run (or each of its G segments, folded in
+// clusters of `cluster`) with compose_tree; when G > cluster, stage 2 (the
+// same kernel: runs2, hp2, slots2, hsize2) reduces the [B, G / cluster,
+// K*S] cluster partials in `scratch`, keyed by each partial's first
+// element.  `wide` takes compose_tree_wide ([B, N, K*S] levels in `scratch`;
+// the plan's other arguments unread).
 int spec_compose_lanes_tree_launch(const int* lanes, const int* keys,
                                    const int* cidx, const int* sinks,
                                    int* out, int* scratch, int B, int N,
-                                   int Q, int K, int S, int pad_key,
-                                   int in_smem, void* stream) {
-    cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-    const int threads = threads_for((N / 2 > 0 ? N / 2 : 1) * K * S);
-    if (in_smem) {
-        auto kern = compose_tree<true>;
-        const size_t smem = (size_t)N * K * S * sizeof(int);
-        if (smem > 48 * 1024)
-            cudaFuncSetAttribute(kern,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-        kern<<<B, threads, smem, s>>>(lanes, keys, cidx, sinks, out, scratch,
-                                      N, Q, K, S, pad_key);
-    } else {
-        auto kern = compose_tree<false>;
-        kern<<<B, threads, 0, s>>>(lanes, keys, cidx, sinks, out, scratch, N,
-                                   Q, K, S, pad_key);
+                                   int Q, int K, int S, int pad_key, int rows,
+                                   int G, int cluster, int runs, int hp,
+                                   int slots, int hsize, int runs2, int hp2,
+                                   int slots2, int hsize2, int wide,
+                                   void* stream) {
+    const int ks = K * S;
+    if (N < 1 || (N & (N - 1)) || (wide && scratch == nullptr))
+        return (int)cudaErrorInvalidValue;
+    Tree p = {lanes, keys, cidx, sinks, out, scratch, B, N, Q, K, S, pad_key,
+              rows, N, 1, G, cluster, runs, hp, slots, hsize};
+    if (wide) {
+        p.G = p.cluster = p.runs = p.hp = 1;
+        return launch::launch_ex(compose_tree_wide, p, dim3((unsigned)B),
+                                 threads_for((N / 2 > 0 ? N / 2 : 1) * ks), 0,
+                                 1, stream);
     }
-    return (int)cudaGetLastError();
+    const bool fold = G > cluster;
+    if (!tree_ok(B, N, ks, G, cluster, runs, hp, slots, hsize)
+        || (fold && (scratch == nullptr
+                     || !tree_ok(B, G / cluster, ks, 1, 1, runs2, hp2, slots2,
+                                 hsize2))))
+        return (int)cudaErrorInvalidValue;
+    if (fold) p.dst = scratch;
+    int err = launch_tree(p, stream);
+    if (err || !fold) return err;
+    Tree f = {scratch, keys, cidx, sinks, out, nullptr, B, G / cluster, Q, K,
+              S, pad_key, rows, N, cluster * (N / G), 1, 1, runs2, hp2,
+              slots2, hsize2};
+    return launch_tree(f, stream);
 }
 
 // B7: stage 1 composes [B, N, Q] in G segments per composition, clusters

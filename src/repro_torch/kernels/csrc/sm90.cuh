@@ -140,6 +140,10 @@ __device__ __forceinline__ uint32_t lds(uint32_t a) {
     return v;
 }
 
+__device__ __forceinline__ void sts(uint32_t a, uint32_t v) {
+    asm volatile("st.shared.u32 [%0], %1;\n" :: "r"(a), "r"(v));
+}
+
 __device__ __forceinline__ uint4 lds4(uint32_t a) {
     uint4 v;
     asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
@@ -148,6 +152,12 @@ __device__ __forceinline__ uint4 lds4(uint32_t a) {
 }
 
 // -- named barriers -------------------------------------------------------------
+
+// the `n` threads (whole warps) that meet at barrier `id` (1..15; 0 is
+// __syncthreads); orders their shared-memory accesses
+__device__ __forceinline__ void bar_sync(int id, int n) {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
 
 // AND of `pred` over the `n` threads (whole warps) that meet at barrier `id`
 __device__ __forceinline__ bool bar_and(int id, int n, bool pred) {

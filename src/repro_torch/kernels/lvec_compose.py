@@ -8,8 +8,11 @@ Hopper kernels of ``csrc/lvec_compose.cu``.  They replace the Pallas kernels
 ``Matcher.compose_lane_maps``.  B3 streams each element's key row of
 ``cand_index`` and its lane map through a shared-memory ring that a producer
 warp fills, several runs a CTA (``carry_plan``; elements that do not fit
-the ring take a wide instance that reads them from global memory); B4 runs
-one CTA per run.
+the ring take a wide instance that reads them from global memory).  B4
+stages each run's maps and each distinct key's row in shared memory and
+runs the levels of several runs a CTA on their own named barriers; a batch
+of few long runs splits each run into aligned segments on a thread-block
+cluster, folded in the tree's pairing (``tree_plan``).
 Each has its plain PyTorch version beside it (``*_torch``) and a launch
 counter in ``launches`` that only a kernel launch increments.
 
@@ -47,7 +50,7 @@ from .ref import compose_lanes_torch, lvec_compose_ref
 __all__ = ["spec_compose_lanes_cuda", "spec_compose_lanes_tree_cuda",
            "spec_compose_lanes_torch", "spec_compose_lanes_tree_torch",
            "lvec_compose_cuda", "lvec_compose_torch", "launches",
-           "reset_launches", "tree_in_smem", "lvec_plan", "carry_plan"]
+           "reset_launches", "tree_plan", "lvec_plan", "carry_plan"]
 
 # kernel launches per wrapper; incremented only where a kernel launches
 launches = {"spec_compose_lanes": 0, "spec_compose_lanes_tree": 0,
@@ -60,7 +63,8 @@ STAGES = 4              # tiles in each ring
 MAX_CONSUMERS = 992     # consumer threads of a CTA (+ one producer warp)
 MAX_CLUSTER = 8         # portable thread-block cluster size
 QPT = 16                # most states a B7 thread carries
-LPT = 4                 # lanes a B3 thread carries in a large batch
+LPT = 4                 # lanes a B4 thread carries (a B3 one: in a large
+                        # batch)
 PAIRS = 32              # most (run, element) pairs of a B3 tile
 WIDE_THREADS = 256      # threads of a CTA of the instances for operands
                         # that do not fit the rings
@@ -73,23 +77,19 @@ MAP_STAGE_BYTES = 8 * 1024   # a B7 ring tile's target size
 PACK_THREADS = 128      # consumer threads of a B7 CTA of small maps
 CARRY_RING_BYTES = 112 * 1024   # a B3 ring's target size: two CTAs an SM
 MAX_RUNS = 4            # most runs of one B3 CTA
+TREE_SMEM_BYTES = 112 * 1024   # a B4 CTA's target: two CTAs an SM
+TREE_THREADS = 224      # consumer threads a B4 CTA takes at most for its
+                        # pair groups: at 58 registers a thread (64 once
+                        # rounded), threads bound how many CTAs an SM holds
+TREE_RUNS = 2           # runs a B4 CTA takes where a large batch has short
+                        # runs (they share the CTA's staged rows)
+MIN_TREE_SEGMENT = 16   # fewest elements a segment of a split B4 run takes;
+                        # runs this short are the ones a CTA shares
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
-
-
-def tree_in_smem(n: int, k: int, s: int, in_smem: bool | None = None) -> bool:
-    """Whether the tree stages a run of ``n`` [k, s] maps in shared memory;
-    ``in_smem`` forces a placement and raises if a shared one cannot fit."""
-    fits = n * k * s * 4 <= SMEM_BUDGET
-    if in_smem is None:
-        return fits
-    if in_smem and not fits:
-        raise ValueError(f"a run of {n} [{k}, {s}] maps does not fit in "
-                         "shared memory")
-    return bool(in_smem)
 
 
 def _up(x: int, m: int) -> int:
@@ -259,6 +259,102 @@ def carry_plan(b: int, n: int, q: int, k: int, s: int) -> dict:
                 ctas=-(-b // runs))
 
 
+def tree_threads(ks: int, hp: int) -> int:
+    """Threads of one B4 unit (``tree_threads`` in csrc/lvec_compose.cu):
+    LPT lanes a thread, ``hp`` pair groups, whole warps."""
+    return _up(-(-ks // LPT) * hp, 32)
+
+
+def tree_smem(runs: int, seg: int, cluster: int, q: int, ks: int,
+              slots: int, hsize: int) -> int:
+    """Shared memory of one B4 CTA (``TreeLayout`` in csrc/lvec_compose.cu):
+    each unit's maps [runs, slot of width * K*S] (width = max(seg,
+    cluster)), the key rows [slots, slot of Q], the element entries [runs,
+    width], the key hash [2, hsize], a copy barrier for each unit."""
+    width = max(seg, cluster)
+    return _up(4 * (runs * slot_words(width * ks) + slots * slot_words(q)
+                    + runs * width + 2 * hsize), 8) + 8 * runs
+
+
+def _hash_size(runs: int, width: int) -> int:
+    """Entries of a B4 CTA's key hash: a power of two, at least twice the
+    keys it can hold."""
+    return max(32, 1 << (2 * runs * width - 1).bit_length())
+
+
+def tree_plan(b: int, n: int, q: int, k: int, s: int) -> dict:
+    """The B4 launch for B runs of N (a power of two) elements of K*S
+    lanes, keyed rows of Q.
+
+    A unit — a run, or one of its ``segments`` (G) aligned segments of
+    ``seg`` = N / G elements — sits in shared memory with the rows of its
+    keys.  A thread carries LPT lanes over ``hp`` pair groups of one unit
+    (``threads`` a unit, up to TREE_THREADS a CTA: at this kernel's
+    registers, threads bound how many CTAs, and so how many runs' copies,
+    an SM holds).  Where a batch of runs of <= MIN_TREE_SEGMENT elements
+    gives each SM two runs or more, ``runs`` = TREE_RUNS runs share a CTA
+    and its staged rows, if their maps and a row slot for every key fit
+    TREE_SMEM_BYTES.  A batch that does not fill the SMs twice over splits
+    each run into G segments of >= MIN_TREE_SEGMENT elements, and so does
+    a run that does not fit shared memory.  G <= 8 segments fold within
+    one cluster (``cluster`` = min(G, 8)); a larger G leaves ``folds`` =
+    G / 8 cluster partials a run to a second launch (``fold``, its own
+    plan of one segment).  The
+    CTA stages up to ``slots`` distinct keys' rows (the rest read from
+    global memory) in a hash of ``hsize`` keys.  A unit of two elements
+    that does not fit, or more lanes than a CTA's threads carry, takes the
+    ``wide`` instance: one CTA a run, the levels in global memory."""
+    return _tree_plan(b, n, q, k, s, None)
+
+
+@functools.lru_cache(maxsize=256)
+def _tree_plan(b: int, n: int, q: int, k: int, s: int,
+               segments: int | None, wide: bool = False) -> dict:
+    """``tree_plan`` with G forced to ``segments`` where it is not None (a
+    power of two dividing N) and the wide instance forced by ``wide``: the
+    card tests reach placements the plan itself never makes."""
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"the tree compose needs N a power of two, got {n}")
+    ks = k * s
+
+    def smem(runs, seg, cl, slots=0):
+        width = max(seg, cl)
+        return tree_smem(runs, seg, cl, q, ks, slots, _hash_size(runs, width))
+
+    g = 1 if segments is None else int(segments)
+    if g < 1 or g & (g - 1) or n % g:
+        raise ValueError(f"segments={g}: a power of two dividing N={n}")
+    if segments is None:
+        while g < n and smem(1, n // g, min(g, MAX_CLUSTER)) > SMEM_BUDGET:
+            g *= 2
+        while b * g < 2 * SMS and n // (2 * g) >= MIN_TREE_SEGMENT:
+            g *= 2
+    cl = min(g, MAX_CLUSTER)
+    seg, folds = n // g, g // cl
+    fold = _tree_plan(b, folds, q, k, s, 1) if folds > 1 else None
+    if (wide or tree_threads(ks, 1) > MAX_CONSUMERS
+            or smem(1, seg, cl) > SMEM_BUDGET or (fold and fold["wide"])):
+        return dict(wide=True, segments=1, seg=n, cluster=1, folds=1, runs=1,
+                    hp=1, threads=_up(min(max(1, n // 2) * ks, 1024), 32),
+                    slots=0, hsize=0, smem=0, ctas=b, fold=None)
+    runs = 1
+    if (g == 1 and n <= MIN_TREE_SEGMENT and b >= TREE_RUNS * SMS
+            and TREE_RUNS * tree_threads(ks, 1) <= TREE_THREADS
+            and smem(TREE_RUNS, n, 1, TREE_RUNS * (n - 1))
+            <= TREE_SMEM_BYTES):
+        runs = TREE_RUNS
+    width = max(seg, cl)
+    hp = next((h for h in range(max(1, width // 2), 1, -1)
+               if runs * tree_threads(ks, h) <= TREE_THREADS), 1)
+    bare = smem(runs, seg, cl)
+    cap = TREE_SMEM_BYTES if bare <= TREE_SMEM_BYTES else SMEM_BUDGET
+    slots = max(0, min(runs * (seg - 1), (cap - bare) // (4 * slot_words(q))))
+    return dict(wide=False, segments=g, seg=seg, cluster=cl, folds=folds,
+                runs=runs, hp=hp, threads=tree_threads(ks, hp), slots=slots,
+                hsize=_hash_size(runs, width), smem=smem(runs, seg, cl, slots),
+                ctas=b * g if g > 1 else -(-b // runs), fold=fold)
+
+
 _fns: dict[str, object] = {}
 
 
@@ -327,20 +423,36 @@ def spec_compose_lanes_cuda(lanes, keys, cand_index, sinks, *,
 
 
 def spec_compose_lanes_tree_cuda(lanes, keys, cand_index, sinks, *,
-                                 pad_key: int, in_smem: bool | None = None):
+                                 pad_key: int):
     """B4 on the card: the pairwise tree reduce of each run (N a power of
-    two) -> [B, K, S].  ``in_smem`` forces the run into shared memory or
-    into a global scratch copy (``tree_in_smem``)."""
+    two) -> [B, K, S]; ``tree_plan`` picks the launch (two launches where a
+    run splits past one cluster).  Never synchronises."""
     dev, b, n, k, s = _check(lanes, keys, cand_index, sinks)
     if n & (n - 1):
         raise ValueError(f"the tree compose needs N a power of two, got {n}")
-    smem = tree_in_smem(n, k, s, in_smem)
-    out = torch.empty((b, k, s), dtype=torch.int32, device=dev)
-    scratch = None if smem else torch.empty_like(lanes)
+    return _tree_launch(lanes, keys, cand_index, sinks, pad_key,
+                        tree_plan(b, n, cand_index.shape[1], k, s) if b
+                        else None)
+
+
+def _tree_launch(lanes, keys, cand_index, sinks, pad_key, plan):
+    """B4 on operands ``_check`` accepted, as ``plan`` (a ``tree_plan``
+    dict) says."""
+    b, n, k, s = lanes.shape
+    out = torch.empty((b, k, s), dtype=torch.int32, device=lanes.device)
     if b:
-        _launch("spec_compose_lanes_tree", dev,
+        folds, fold = plan["folds"], plan["fold"] or {}
+        scratch = (torch.empty_like(lanes) if plan["wide"] else
+                   torch.empty((b, folds, k, s), dtype=torch.int32,
+                               device=lanes.device) if folds > 1 else None)
+        rows, q = cand_index.shape
+        _launch("spec_compose_lanes_tree", lanes.device,
                 (lanes, keys, cand_index, sinks, out, scratch),
-                (b, n, cand_index.shape[1], k, s, int(pad_key), smem))
+                (b, n, q, k, s, int(pad_key), rows, plan["segments"],
+                 plan["cluster"], plan["runs"], plan["hp"], plan["slots"],
+                 plan["hsize"], fold.get("runs", 0), fold.get("hp", 0),
+                 fold.get("slots", 0), fold.get("hsize", 0), plan["wide"]),
+                kernels=2 if folds > 1 else 1)
     return out
 
 

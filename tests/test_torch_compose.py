@@ -232,11 +232,93 @@ def test_spec_compose_lanes_contract_errors():
     assert lvec_compose.launches == {"spec_compose_lanes": 0,
                                      "spec_compose_lanes_tree": 0,
                                      "lvec_compose": 0}
-    assert lvec_compose.tree_in_smem(32, 14, 15)
-    assert not lvec_compose.tree_in_smem(2048, 14, 15)
-    assert not lvec_compose.tree_in_smem(32, 14, 15, in_smem=False)
-    with pytest.raises(ValueError, match="shared memory"):
-        lvec_compose.tree_in_smem(2048, 14, 15, in_smem=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        lvec_compose.spec_compose_lanes_tree_cuda(
+            maps[:, :2], keys[:, :2], dev.cidx_pad_t, dev.sinks_t,
+            pad_key=dev.pad_key)
+    # the plan places the tree: a run of [1024, 32] in one CTA's shared
+    # memory, [8, 2048] split on clusters, PS00028's lanes on the wide
+    # instance; a placement is forced only through the private _tree_plan
+    assert lvec_compose.tree_plan(1024, 32, 194, 14, 15)["segments"] == 1
+    assert not lvec_compose.tree_plan(1024, 32, 194, 14, 15)["wide"]
+    assert lvec_compose.tree_plan(8, 2048, 194, 14, 15)["segments"] > 1
+    assert lvec_compose.tree_plan(3, 8, 43_125, 1, 22_857)["wide"]
+    assert lvec_compose._tree_plan(1024, 32, 194, 14, 15, 4)["cluster"] == 4
+    with pytest.raises(ValueError, match="power of two"):
+        lvec_compose.tree_plan(2, 3, 194, 14, 15)
+
+
+def _kernel_order(maps, keys, cidx, sinks, pad_key, plan, fold=None):
+    """B4's order under a ``tree_plan``: each of its G segments reduced as a
+    subtree, each cluster's partials folded (by its rank 0), then the
+    cluster partials (by the second launch), both folds by ``fold`` — the
+    tree's own pairing unless given — keyed by each partial's first
+    element."""
+    tree = functools.partial(lvec_compose.spec_compose_lanes_tree_torch,
+                             cand_index=cidx, sinks=sinks, pad_key=pad_key)
+    fold = fold or tree
+    if plan["wide"]:
+        return tree(maps, keys)
+    seg, cl = plan["seg"], plan["cluster"]
+    parts = torch.stack([tree(maps[:, i:i + seg], keys[:, i:i + seg])
+                         for i in range(0, maps.shape[1], seg)], 1)
+    pkeys = keys[:, ::seg]
+    clus = torch.stack([fold(parts[:, j:j + cl], pkeys[:, j:j + cl])
+                        for j in range(0, parts.shape[1], cl)], 1)
+    return fold(clus, pkeys[:, ::cl])
+
+
+@pytest.mark.parametrize("r", [1, 2])
+@pytest.mark.parametrize("segments", [None, 1, 2, 4, 8, 16])
+def test_tree_kernel_order_equals_the_plain_tree(segments, r):
+    """B4's segments reduced as subtrees and their partials folded in the
+    tree's pairing (the kernel's order under each plan, ``None`` the plan's
+    own) equal the plain tree bit for bit, pad lanes included, and the JAX
+    Pallas tree (interpret mode) on real lane-map runs."""
+    rng = np.random.default_rng(60 + r)
+    jm, tm = _jax_matcher(r=r), _port_matcher(r=r)
+    dev = tm.dev
+    maps, keys = _lane_runs(jm, rng, [32, 20, 32, 7, 1], seg_len=8)
+    b, n, k, s = maps.shape
+    plan = lvec_compose._tree_plan(b, n, dev.cidx_pad_t.shape[1], k, s,
+                                   segments)
+    assert plan["segments"] == (segments or 2) and not plan["wide"]
+    args = (_t(maps), _t(keys), dev.cidx_pad_t, dev.sinks_t)
+    got = _kernel_order(*args, dev.pad_key, plan)
+    want = lvec_compose.spec_compose_lanes_tree_torch(*args,
+                                                      pad_key=dev.pad_key)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    pallas = jops.spec_compose_lanes(maps, keys, jm.dev.cidx_pad_j,
+                                     jm.dev.sinks_j, pad_key=jm.dev.pad_key,
+                                     mode="tree")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
+
+
+def test_tree_partials_fold_in_tree_pairing():
+    """The combine is not associative on pad lanes: on these runs (seed 37,
+    found by a search) a left fold of four segments' partials differs from
+    the tree on pad lanes, and the kernel's pairing does not."""
+    rng = np.random.default_rng(37)
+    jm, tm = _jax_matcher(r=1), _port_matcher(r=1)
+    dev = tm.dev
+    maps, keys = _lane_runs(jm, rng, [16, 16, 11, 16, 16, 16, 16, 16],
+                            seg_len=8)
+    b, n, k, s = maps.shape
+    plan = lvec_compose._tree_plan(b, n, dev.cidx_pad_t.shape[1], k, s, 4)
+    assert plan["cluster"] == 4 and plan["folds"] == 1
+    args = (_t(maps), _t(keys), dev.cidx_pad_t, dev.sinks_t)
+    want = lvec_compose.spec_compose_lanes_tree_torch(*args,
+                                                      pad_key=dev.pad_key)
+    np.testing.assert_array_equal(
+        _kernel_order(*args, dev.pad_key, plan).numpy(), want.numpy())
+    left = functools.partial(lvec_compose.spec_compose_lanes_torch,
+                             cand_index=dev.cidx_pad_t, sinks=dev.sinks_t,
+                             pad_key=dev.pad_key)
+    other = _kernel_order(*args, dev.pad_key, plan, fold=left).numpy()
+    assert (other != want.numpy()).any()
+    np.testing.assert_array_equal(
+        _mask_pad_lanes(dev.tables, other, keys[:, 0]),
+        _mask_pad_lanes(dev.tables, want.numpy(), keys[:, 0]))
 
 
 def test_launch_entry_is_resolved_once(monkeypatch):
@@ -259,6 +341,13 @@ def test_launch_entry_is_resolved_once(monkeypatch):
     assert first.argtypes == ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
                               + [ctypes.c_void_p])
     assert first.restype is ctypes.c_int
+    # the tree's entry: six operands, the plan's 18 integers, the stream
+    tree = lvec_compose._entry("spec_compose_lanes_tree_launch", 6, 18)
+    assert lvec_compose._entry("spec_compose_lanes_tree_launch", 6, 18) is tree
+    assert looked == ["spec_compose_lanes_launch",
+                      "spec_compose_lanes_tree_launch"]
+    assert tree.argtypes == ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 18
+                             + [ctypes.c_void_p])
 
 
 # --------------------------------------------------------------------------

@@ -302,11 +302,14 @@ def t_matcher(patterns, r):
 
 def test_compose_kernels_equal_plain_on_card():
     """Needs an NVIDIA card (sm_90a): B3 and B4 against their plain versions
-    on every lane, the tree staged in shared memory and in its global
-    scratch copy, r = 1 and 2, ragged runs; B3 also on a run of N = 2,048,
-    on runs that are all ``pad_key`` after element 0, on random operands
-    with Q % 4 != 0 (unaligned ``cand_index`` rows), patterns with and
-    without sinks, and several runs to a CTA."""
+    on every lane, r = 1 and 2, ragged runs, B4 on its own plan, split into
+    1, 2, 8 and 16 segments (16: past one cluster, a second launch) and on
+    its wide instance; both on a run of N = 2,048, on runs that are all
+    ``pad_key`` after element 0, on random operands with Q % 4 != 0
+    (unaligned ``cand_index`` rows), patterns with and without sinks,
+    several runs to a CTA, operands off 16 bytes, and B4 at phase 9's
+    (B, N), [1024, 32], [8, 2048], with more distinct keys than its row
+    slots, and past shared memory (PS00028's shape: the wide instance)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the compose kernels have no CPU "
                     "mode")
@@ -322,13 +325,7 @@ def test_compose_kernels_equal_plain_on_card():
                 *args, pad_key=dev.pad_key)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (r, lens)
-            want = lvec_compose.spec_compose_lanes_tree_torch(
-                *args, pad_key=dev.pad_key)
-            for in_smem in (True, False):
-                got = lvec_compose.spec_compose_lanes_tree_cuda(
-                    *args, pad_key=dev.pad_key, in_smem=in_smem)
-                torch.cuda.synchronize()
-                assert torch.equal(got, want), (r, lens, in_smem)
+            _tree_on_card(args, dev.pad_key, (r, lens))
     # real runs: one of N = 2,048, and runs that pad after element 0
     dev, maps, keys = _compose_runs(33, 2, [2048, 700])
     keys = np.concatenate([keys, np.full_like(keys[:1], dev.pad_key)])
@@ -341,6 +338,8 @@ def test_compose_kernels_equal_plain_on_card():
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.equal(got[-1], args[0][-1, 0])   # pads after element 0
+    got = _tree_on_card(args, dev.pad_key, "N = 2,048", (1, 2, 8, 16))
+    assert torch.equal(got[-1], args[0][-1, 0])
     # random operands: Q % 4 in {0, 1, 2, 3}, sinks on some patterns only,
     # pad keys scattered, B from one run to several runs per CTA
     rng = np.random.default_rng(34)
@@ -364,12 +363,39 @@ def test_compose_kernels_equal_plain_on_card():
         got = lvec_compose.spec_compose_lanes_cuda(*shifted, pad_key=n_keys)
         torch.cuda.synchronize()
         assert torch.equal(got, want), (b, n, q, k, s, "shifted")
+    # B4 on random operands: phase 9's (B, N), [1024, 32], [8, 2048], Q % 4
+    # in {0, 1, 2, 3}, sinks on some patterns only, more distinct keys than
+    # the CTA's row slots (Q = 4,001), forced splits and operands off 16
+    # bytes
+    for b, n, q, k, s, forced in (
+            (959, 16, 194, 14, 15, ()), (205, 16, 194, 14, 15, ()),
+            (21, 4, 194, 14, 15, ()), (1024, 32, 194, 14, 15, ()),
+            (8, 2048, 194, 14, 15, ()), (1, 8, 17, 3, 4, (2, 8)),
+            (300, 8, 195, 7, 30, (2,)), (3, 64, 10, 2, 3, (1, 16)),
+            (4, 64, 43, 1, 1000, (8,)), (2, 256, 4001, 2, 30, (1, 16))):
+        n_keys = 2 * q + 3
+        cidx = rng.integers(-1, s, size=(n_keys + 1, q))
+        cidx[-1] = -1
+        sinks = np.where(rng.random(k) < 0.5, rng.integers(0, q, size=k), -1)
+        lanes = rng.integers(0, q, size=(b, n, k, s))
+        keys = rng.integers(0, n_keys + 1, size=(b, n))   # n_keys = pad
+        keys[-1, 1:] = n_keys                             # pads after 0
+        args = tuple(torch.from_numpy(np.ascontiguousarray(x, np.int32))
+                     .cuda() for x in (lanes, keys, cidx, sinks))
+        got = _tree_on_card(args, n_keys, (b, n, q, k, s), forced)
+        assert torch.equal(got[-1], args[0][-1, 0])
+        _tree_on_card(tuple(_off16(x) for x in args), n_keys,
+                      (b, n, q, k, s, "shifted"))
+        if q == 4001:   # a CTA holds fewer row slots than its distinct keys
+            plan = lvec_compose.tree_plan(b, n, q, k, s)
+            assert 0 < plan["slots"] < plan["seg"] - 1
     # past the ring (the wide instance): a cand_index row and a lane map
     # past four ring slots (PS00028's Q = 43,125 and S = 22,857; Q = 20,000),
     # more lanes than one CTA's threads carry (K*S = 5,000)
     for b, n, q, k, s in ((3, 9, 43_125, 1, 22_857), (2, 40, 17, 2, 2_500),
                           (5, 33, 20_000, 3, 100)):
         assert lvec_compose.carry_plan(b, n, q, k, s)["wide"]
+        assert lvec_compose.tree_plan(b, 8, q, k, s)["wide"] == (k * s > 3968)
         n_keys = 40
         cidx = rng.integers(-1, s, size=(n_keys + 1, q))
         cidx[-1] = -1
@@ -382,6 +408,37 @@ def test_compose_kernels_equal_plain_on_card():
         got = lvec_compose.spec_compose_lanes_cuda(*args, pad_key=n_keys)
         torch.cuda.synchronize()
         assert torch.equal(got, want), (b, n, q, k, s, "wide")
+        _tree_on_card((args[0][:, :8].contiguous(),
+                       args[1][:, :8].contiguous(), *args[2:]), n_keys,
+                      (b, 8, q, k, s, "wide"))
+
+
+def _tree_on_card(args, pad_key, what, forced=()):
+    """B4 on ``args`` (lanes, keys, cand_index, sinks on the card) through
+    its own plan, each forced segment count in ``forced`` and the forced
+    wide instance, each against the plain tree on every lane; returns the
+    plan's result."""
+    lanes, keys, cidx, _ = args
+    b, n, k, s = lanes.shape
+    want = lvec_compose.spec_compose_lanes_tree_torch(*args, pad_key=pad_key)
+    got = lvec_compose.spec_compose_lanes_tree_cuda(*args, pad_key=pad_key)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (what, "plan")
+    lanes, keys = lanes.contiguous(), keys.contiguous()
+    for g in forced:
+        plan = lvec_compose._tree_plan(b, n, cidx.shape[1], k, s, g)
+        assert plan["segments"] == g and not plan["wide"]
+        other = lvec_compose._tree_launch(lanes, keys, cidx, args[3], pad_key,
+                                          plan)
+        torch.cuda.synchronize()
+        assert torch.equal(other, want), (what, g)
+    if b * n * k * s <= 1 << 24:
+        other = lvec_compose._tree_launch(
+            lanes, keys, cidx, args[3], pad_key,
+            lvec_compose._tree_plan(b, n, cidx.shape[1], k, s, None, True))
+        torch.cuda.synchronize()
+        assert torch.equal(other, want), (what, "wide")
+    return got
 
 
 def test_matcher_compose_lane_maps_past_the_ring_on_card():
@@ -968,6 +1025,116 @@ def test_carry_plan_covers_every_element_once(b, n, q, k, s):
                                                                 q, ks)
     if ring > lvec_compose.CARRY_RING_BYTES and plan["ctas"] > 132:
         assert tile == 1   # two CTAs an SM where it can be
+
+
+TREE_SHAPES = [(959, 16, 194, 14, 15), (205, 16, 194, 14, 15),
+               (21, 4, 194, 14, 15), (1024, 32, 194, 14, 15),
+               (8, 2048, 194, 14, 15), (3, 8, 43_125, 1, 22_857),
+               (1, 2048, 194, 14, 15), (2, 1, 4, 1, 1), (300, 8, 195, 7, 30),
+               (4, 64, 43, 1, 1000), (2, 256, 4001, 2, 30),
+               (2, 8, 17, 2, 2_500), (1, 1 << 16, 194, 14, 15),
+               (5000, 2, 8, 1, 4)]
+
+
+def _tree_cover(b, n, q, k, s, plan):
+    """Checks of one ring plan of B4: its CTAs hold every element of every
+    run exactly once, in aligned power-of-two segments; a unit's threads
+    hold each lane once and each level's pairs once; the limits of the
+    card and of the source hold."""
+    ks = k * s
+    g, seg, cl, runs, hp = (plan[x] for x in ("segments", "seg", "cluster",
+                                              "runs", "hp"))
+    assert seg == n // g and seg & (seg - 1) == 0 and g & (g - 1) == 0
+    assert cl == min(g, lvec_compose.MAX_CLUSTER) and g % cl == 0
+    assert plan["folds"] == g // cl and (g == 1 or runs == 1)
+    assert 1 <= runs <= 15   # named barrier ids 1..runs
+    assert runs == 1 or (g == 1 and seg <= lvec_compose.MIN_TREE_SEGMENT
+                         and b >= runs * lvec_compose.SMS)
+    threads = plan["threads"]
+    assert threads == lvec_compose.tree_threads(ks, hp) and threads % 32 == 0
+    assert runs * threads <= lvec_compose.MAX_CONSUMERS
+    assert runs * threads <= lvec_compose.TREE_THREADS or hp == 1
+    width = max(seg, cl)
+    assert plan["hsize"] & (plan["hsize"] - 1) == 0
+    assert plan["hsize"] > runs * width
+    assert 0 <= plan["slots"] <= runs * max(seg - 1, 0)
+    assert plan["smem"] == lvec_compose.tree_smem(runs, seg, cl, q, ks,
+                                                  plan["slots"],
+                                                  plan["hsize"])
+    assert plan["smem"] <= lvec_compose.SMEM_BUDGET
+    seen = np.zeros((b, n), np.int64)
+    for cta in range(plan["ctas"]):
+        if g > 1:
+            r, lo = cta // g, cta % g * seg
+            assert lo % seg == 0
+            seen[r, lo:lo + seg] += 1
+        else:
+            seen[cta * runs:(cta + 1) * runs] += 1
+    assert (seen == 1).all()
+    tl = -(-ks // lvec_compose.LPT)
+    t = np.arange(threads)
+    h, lane = t // tl, t % tl
+    held = np.zeros(ks, np.int64)
+    for u in range(lvec_compose.LPT):
+        o = lane + u * tl
+        ok = (h < hp) & (o < ks)
+        np.add.at(held, o[ok & (h == 0)], 1)
+    assert (held == 1).all()
+    st = 1
+    while st < width:   # every pair of every level, one pair group each
+        pairs = width // (2 * st)
+        groups = np.zeros(pairs, np.int64)
+        for hh in range(hp):
+            groups[hh::hp] += 1
+        assert (groups == 1).all()
+        st *= 2
+    if plan["folds"] > 1:
+        fold = plan["fold"]
+        assert not fold["wide"] and fold["segments"] == 1
+        _tree_cover(b, plan["folds"], q, k, s, fold)
+
+
+@pytest.mark.parametrize("b,n,q,k,s", TREE_SHAPES)
+def test_tree_plan_covers_every_element_once(b, n, q, k, s):
+    """The B4 launch (``tree_plan``) holds every element of every run once,
+    in aligned power-of-two segments on clusters of <= 8 CTAs (a second
+    launch past one), within one block's shared memory, 992 consumer
+    threads and named barrier ids 1..15; phase 9's calls take one launch
+    each (no split: B4's launch count on the tree run is unchanged); a
+    batch of few long runs fills the 132 SMs; a unit past shared memory
+    or the threads of a CTA (PS00028's K*S = 22,857) takes the wide
+    instance."""
+    plan = lvec_compose.tree_plan(b, n, q, k, s)
+    assert plan["wide"] == (k * s > lvec_compose.LPT
+                            * lvec_compose.MAX_CONSUMERS)
+    if plan["wide"]:
+        assert plan["ctas"] == b and plan["smem"] == 0
+        assert plan["threads"] <= 1024 and plan["fold"] is None
+        return
+    _tree_cover(b, n, q, k, s, plan)
+    if (b, n) in ((959, 16), (205, 16), (21, 4)):
+        assert plan["segments"] == 1
+    if b * n >= lvec_compose.SMS * lvec_compose.MIN_TREE_SEGMENT:
+        assert plan["ctas"] >= lvec_compose.SMS or b >= lvec_compose.SMS
+    if plan["segments"] > 1 and n * 4 * k * s <= lvec_compose.SMEM_BUDGET // 2:
+        assert plan["seg"] >= lvec_compose.MIN_TREE_SEGMENT
+
+
+@pytest.mark.parametrize("g", [1, 2, 8, 16, 64])
+def test_tree_plan_forced_segments(g):
+    """A forced G covers every element once, clusters of min(G, 8), a
+    second launch past 8; G must be a power of two dividing N, and the
+    wide instance can be forced."""
+    for b, n, q, k, s in ((3, 64, 10, 2, 3), (4, 128, 194, 14, 15),
+                          (2, 256, 4001, 2, 30), (1, 64, 17, 3, 4)):
+        plan = lvec_compose._tree_plan(b, n, q, k, s, g)
+        assert plan["segments"] == g and not plan["wide"]
+        _tree_cover(b, n, q, k, s, plan)
+    with pytest.raises(ValueError, match="segments"):
+        lvec_compose._tree_plan(1, 64, 17, 3, 4, 3)
+    with pytest.raises(ValueError, match="segments"):
+        lvec_compose._tree_plan(1, 4, 17, 3, 4, 8)
+    assert lvec_compose._tree_plan(2, 64, 17, 3, 4, None, True)["wide"]
 
 
 @pytest.mark.parametrize("c,s,l", SPEC_SHAPES)
