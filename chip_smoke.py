@@ -56,7 +56,10 @@ Phases (any mismatch raises, so the exit code is non-zero):
      steps, B5 once per step): every row a
      live prefix of the grammar, the tokens equal to a run without the
      kernel and to a run from a chunked ``DecodeStream`` prefill, wall time,
-     tokens/s and the device idle share; then ``launch.serve`` once;
+     tokens/s and the device idle share; then ``swap_grammar`` to a second
+     grammar (a signature-equal one first: a no-op) and ``generate`` again:
+     every row a live prefix of the new grammar, B5 once per step, tokens
+     equal to an engine built fresh with it; then ``launch.serve`` once;
  13. hold kernels B6 (``spec_match``), B7 (``lvec_compose``) and B8
      (``onehot_block_maps``) against their plain versions bit for bit and
      time them: B6 at the holub shape (Q = 256, 16 classes, C = 40,
@@ -91,6 +94,26 @@ Phases (any mismatch raises, so the exit code is non-zero):
      share of one call of (a) and of (d), a warm repeat of (c), and the
      launches of B6, B7 and B8 inside each route's own ``membership`` call
      (each must launch the kernels ``mxu_profitable`` routes it to);
+ 15. hot swap and the pattern-set scale tier over phase 3's corpus: (a)
+     ``Matcher(PCRE-14).swap_patterns`` to an equal set (False, lowerings
+     kept), to PCRE-14 with two patterns replaced (planted in a quarter of
+     the documents), to the 3 large PROSITE search DFAs (table in global
+     memory; the first MiB) and back — each step bit for bit equal to a
+     fresh matcher (the first also to ``backend="local"``), with the swap,
+     the first (re-lowering) call and a warm call timed; (b)
+     ``BlockedMatcher`` over literal patterns, K = 16, 128, 512, 2,048 in
+     blocks of 32, prefilter on and off (bytes/s, gated equal to ungated,
+     the skipped blocks the plants imply), K = 2,048 against
+     ``backend="local"`` and an unblocked K = 32 pack, K = 256 in 8 blocks
+     against one pack, the device idle share of a profiled K = 2,048 call,
+     then block swaps (one pattern of block 5: only it re-lowers; a block
+     appended; the last dropped), each equal to a fresh ``BlockedMatcher``;
+     (c) ``BlockedStreamMatcher`` at K = 256 over 256 streams fed in two
+     halves with block 3 swapped between them (unchanged blocks' cursors
+     bit-identical and equal whole-document matching, block 3 equal to the
+     new set over the second halves), and ``StreamMatcher(lane_ticks=True)``
+     refusing a swap while ``open_at`` sessions live (B2 ticks them) and
+     accepting it after ``close_map``;
   then print the kernels line and the result line.
 
 Only ``repro_torch``, torch and numpy are imported.  Without a CUDA device,
@@ -139,6 +162,7 @@ ARCH12 = "tinyllama-1.1b"
 PREFILL12 = (4, 2048)                # phase 12 api.prefill batch, prompt
 SERVE12 = (8, 512, 32, 64)           # prompts, bytes, new tokens, chunk bytes
 GRAMMAR12 = r"([0-9]{1,6}[.,] )*[0-9]{0,6}"
+GRAMMAR12B = r"[a-z]{1,8}(, [a-z]{1,8})*"   # the grammar phase 12 swaps to
 HOLUB13 = (256, 16, 40, 26_214)      # phase 13 B6/B8: Q, classes, C, L
 LOOK13 = ("PS00010_ASX_HYDROXYL", 4096, 16_384)  # B6 at 14(a)'s shape: C, L
 LOOK13B = ("PS00018_EF_HAND_1", 4096, 16_384)    # B6, 16 classes: C, L
@@ -155,6 +179,15 @@ P14A, P14 = 4096, 40                 # processors of 14(a) and of (b)-(d)
 RANDOM14 = (16, 64, 128, 256)        # 14(d) random DFAs: Q (16 classes)
 PROFILE14A = LOOK13[0]               # 14(a)'s profiled call (the B6 route)
 PROFILE_MARGIN_S = 2.0               # idle seconds around phase 14's profiles
+KW15 = dict(num_chunks=8, batch_tile=64, lookahead_r=1)  # phase 15 matchers
+BIG15 = ("PS00028_ZINC_FINGER_C2H2", "PS00029_LEUCINE_ZIPPER",
+         "PS00027_HOMEOBOX_1")       # 15(a): the 3 large search DFAs
+HEAD15 = 1 << 20                     # 15(a): bytes of the large set's corpus
+SWAP15 = {0: "zz[0-9]+zz", 9: "(qu)+x"}   # 15(a): PCRE-14 patterns replaced
+PLANT15 = (b"zz123zz", b"ququx")     # ... and what they match
+KSWEEP15, KBLK15 = (16, 128, 512, 2048), 32   # 15(b): K sweep, block size
+K15C = 256                           # 15(c): streamed pattern count
+DATE15 = r"[0-9]{4}-[0-9]{2}-[0-9]{2}"    # 15(b)/(c): a swapped-in pattern
 RESIDUES = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
 
 # one planted occurrence of every PCRE-14 pattern (re.search-verified)
@@ -411,6 +444,20 @@ def grammar_prompts(rng, b, t):
                                 size=int(rng.integers(1, 7)))
             sep = rng.choice(np.frombuffer(b".,", np.uint8), size=1)
             s += digits.tobytes() + sep.tobytes() + b" "
+        rows.append(np.frombuffer(s[:t], np.uint8).astype(np.int32))
+    return np.stack(rows)
+
+
+def word_prompts(rng, b, t):
+    """[b, t] byte prompts of ``GRAMMAR12B``'s words, cut at t: every row
+    is a live prefix of that grammar."""
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+    rows = []
+    for _ in range(b):
+        s = b""
+        while len(s) < t:
+            s += (b", " if s else b"") + rng.choice(
+                letters, size=int(rng.integers(1, 9))).tobytes()
         rows.append(np.frombuffer(s[:t], np.uint8).astype(np.int32))
     return np.stack(rows)
 
@@ -719,6 +766,43 @@ def phase12_serving(rng, counts):
     device_busy(lambda: TF.decode_step(params, cfg, cache, tok, width + 9),
                 "[12] decode_step")
     del cache
+    # -- the grammar swap: the same engine, a new grammar, B5 on its table
+    check(gc.swap_grammar(compile_regex(GRAMMAR12)) is False,
+          "swap_grammar to a signature-equal grammar did not return False")
+    dfa_b = compile_regex(GRAMMAR12B)
+    t0 = time.perf_counter()
+    swapped = gc.swap_grammar(dfa_b)
+    swap_wall = time.perf_counter() - t0
+    check(swapped and gc.matcher.planner.table_epoch == 1,
+          "swap_grammar to a new grammar did not swap")
+    # a generator of its own: later phases draw the data they drew before
+    prompts_b = word_prompts(np.random.default_rng(SEED + 12), n, width)
+    token_mask.reset_launches()
+    t0 = time.perf_counter()
+    out_b = eng.generate(prompts_b)
+    wall_b = time.perf_counter() - t0
+    launched_b = token_mask.launches["token_mask"]
+    steps_b = decode_steps(out_b, eng.serve.eos_id)
+    check(steps_b == max_new and launched_b == steps_b, f"generate after "
+          f"the swap launched B5 {launched_b} times over {steps_b} steps")
+    check(all(live_prefix(dfa_b, p, row, eng.serve.eos_id)
+              for p, row in zip(prompts_b, out_b)),
+          "a row generated after the swap leaves the new grammar")
+    fresh = GrammarConstraint(dfa_b, cfg.padded_vocab, eos_id=None,
+                              device=DEVICE)
+    out_fresh = ServingEngine(cfg, params, ServeConfig(
+        max_new_tokens=max_new), constraint=fresh).generate(prompts_b)
+    check(np.array_equal(out_b, out_fresh), "generate after swap_grammar "
+          "differs from an engine built fresh with the new grammar")
+    print(f"[12] swap_grammar to {GRAMMAR12B!r}: {swap_wall * 1e3:.2f} ms "
+          f"(a signature-equal grammar: no-op); generate {n} x {width} "
+          f"bytes, {steps_b} steps in {wall_b:.4f} s, B5 launches "
+          f"{launched_b}; every row a live prefix of the new grammar, tokens "
+          f"equal a fresh engine's")
+    for p, row in list(zip(prompts_b, out_b))[:2]:
+        text = bytes(int(x) for x in row if x < 256).decode(errors="replace")
+        print(f"[12]   ...{bytes(p[-24:].astype(np.uint8)).decode()!r} -> "
+              f"{text!r}")
     del params, eng
     torch.cuda.empty_cache()
     serve.main(["--arch", ARCH12, "--max-new", "8", "--prompts", "12. 34",
@@ -1182,6 +1266,329 @@ def phase14_paper_engine(rng, counts, search):
     print(f"[14d] launches {n}")
     print(f"[14] launches of B6/B7/B8 by the main-path calls of (a)-(d): "
           f"{ {k: counts[k] for k in names} }")
+
+
+def plant(docs, every, lits, rng):
+    """Copies of ``docs`` with one of ``lits`` planted mid-document in every
+    ``every``-th one."""
+    out = list(docs)
+    for i in range(0, len(out), every):
+        lit = lits[int(rng.integers(0, len(lits)))]
+        d, mid = out[i], len(out[i]) // 2
+        out[i] = d[:mid] + lit + d[mid + len(lit):]
+    return out
+
+
+def smem_table(m):
+    """Whether B1 reads matcher ``m``'s table from shared memory (the
+    placement ``dfa_match.merge_plan`` picks from the table's size)."""
+    from repro_torch.kernels import dfa_match
+    dev = m.dev
+    q, n_cls_pad = dev.table_pad_t.shape
+    return dfa_match.merge_plan(m.batch_tile, m.num_chunks,
+                                m.n_patterns * dev.i_max, q, n_cls_pad,
+                                4096, 512)["table_in_smem"]
+
+
+def phase15_swap_and_scale(rng, ps, docs, search):
+    """Hot swap and the pattern-set scale tier on the card: (a) Matcher
+    swaps, (b) BlockedMatcher over K, its prefilter and block swaps, (c)
+    BlockedStreamMatcher across a swap, and StreamMatcher's refusal."""
+    import torch
+    from repro_torch.core import (BlockedMatcher, Matcher, PCRE_PATTERNS,
+                                  PatternSet)
+    from repro_torch.kernels import dfa_match
+    from repro_torch.streaming import (BlockedStreamMatcher, StreamMatcher,
+                                       TickPolicy)
+
+    def same(got, want, what):
+        check(np.array_equal(got.accepted, want.accepted)
+              and np.array_equal(got.final_states, want.final_states),
+              f"{what}: accepted or finals differ")
+
+    def b1_call(m, batch, tag):
+        """One membership_batch with the launch counts read around it;
+        returns (result, wall s)."""
+        dfa_match.reset_launches()
+        t0 = time.perf_counter()
+        res = m.membership_batch(batch)
+        wall = time.perf_counter() - t0
+        n = dfa_match.launches["spec_match_merge"]
+        check(n > 0, f"{tag}: launched no B1 kernel")
+        return res, wall, n
+
+    n_bytes = sum(len(d) for d in docs)
+    # -- (a) Matcher swaps ---------------------------------------------------
+    names = list(PCRE_PATTERNS)
+    ps_mod = PatternSet({**PCRE_PATTERNS, **{names[i]: p for i, p in
+                                             SWAP15.items()}}, k_blk=64)
+    docs_mod = plant(docs, 4, PLANT15, rng)
+    head = []
+    for d in docs:
+        if sum(map(len, head)) + len(d) > HEAD15:
+            break
+        head.append(d)
+    big = [search[k] for k in BIG15]
+    m = Matcher(ps, device=DEVICE, num_chunks=8, batch_tile=64)
+    want_a, _, _ = b1_call(m, docs, "[15a] PCRE-14")
+    lowered, traces = dict(m.perf_report()["lowerings"]), m.trace_count
+    t0 = time.perf_counter()
+    check(m.swap_patterns(ps) is False, "a signature-equal swap returned "
+          "True")
+    noop = time.perf_counter() - t0
+    check(m.perf_report()["lowerings"] == lowered and m.trace_count == traces
+          and m.planner.table_epoch == 0, "a no-op swap touched lowerings")
+    print(f"[15a] Matcher(PCRE-14) on {len(docs)} docs ({n_bytes} bytes); "
+          f"swap to a signature-equal set: False in {noop * 1e3:.3f} ms, "
+          f"lowerings and traces unchanged")
+    steps = (("PCRE-14 with patterns 0, 9 replaced", ps_mod, docs_mod),
+             ("the 3 large PROSITE search DFAs", big, head),
+             ("PCRE-14 again", ps, docs))
+    for epoch, (what, src, batch) in enumerate(steps, start=1):
+        t0 = time.perf_counter()
+        check(m.swap_patterns(src) is True, f"swap to {what} returned False")
+        swap_s = time.perf_counter() - t0
+        check(m.planner.table_epoch == epoch
+              and m.perf_report()["lowerings"] == {},
+              f"swap to {what}: epoch {m.planner.table_epoch}, lowerings "
+              f"kept")
+        got, first, n1 = b1_call(m, batch, f"[15a] {what}")
+        _, warm, _ = b1_call(m, batch, f"[15a] {what}")
+        kinds = set(m.perf_report()["lowerings"].values())
+        check("spec-kernel" in kinds and kinds <= {"spec-kernel",
+                                                   "seq-torch"}
+              and all(k.endswith(f"|{epoch}")
+                      for k in m.perf_report()["lowerings"]),
+              f"swap to {what}: lowerings {m.perf_report()['lowerings']}")
+        fresh = Matcher(src, device=DEVICE, num_chunks=8, batch_tile=64)
+        same(got, fresh.membership_batch(batch), f"[15a] {what} vs fresh")
+        if epoch == 1:
+            same(got, Matcher(src, device=DEVICE, num_chunks=8,
+                              batch_tile=64, backend="local")
+                 .membership_batch(batch), f"[15a] {what} vs local")
+            check(got.accepted[:, list(SWAP15)].any(axis=0).all(),
+                  "the swapped-in patterns matched nothing")
+        if epoch == 3:
+            same(got, want_a, "[15a] back to PCRE-14 vs the first run")
+        nb = sum(len(d) for d in batch)
+        print(f"[15a] swap to {what}: {swap_s * 1e3:.2f} ms (epoch "
+              f"{epoch}, K={m.n_patterns}, Q={m.packed.n_states}, S="
+              f"{m.dev.i_max}, table in "
+              f"{'shared' if smem_table(m) else 'global'} memory); first "
+              f"call {first:.4f} s (re-lowers; B1 launches {n1}), warm "
+              f"{warm:.4f} s, {nb / warm / 1e6:.1f} MB/s over {len(batch)} "
+              f"docs; equal a fresh matcher"
+              + (" and backend='local'" if epoch == 1 else "")
+              + (" and the first run" if epoch == 3 else ""))
+    check(smem_table(m), "PCRE-14's table left shared memory")
+
+    # -- (b) BlockedMatcher over K -------------------------------------------
+    pats = [f"P{i:04x}e" for i in range(max(KSWEEP15))]
+    # literals of block 0 at every K of the sweep
+    firsts = [p.encode() for p in pats[:min(KBLK15, *KSWEEP15)]]
+    docs_b = plant(docs, 4, firsts, rng)
+    n_live = len(range(0, len(docs_b), 4))
+    sets = {k: PatternSet(pats[:k], k_blk=KBLK15) for k in KSWEEP15}
+    kept = {}
+    for k in KSWEEP15:
+        runs = {}
+        for gate in (True, False):
+            bm = BlockedMatcher(sets[k], prefilter=gate, device=DEVICE,
+                                **KW15)
+            res, _, _ = b1_call(bm, docs_b, f"[15b] K={k}")
+            skipped0 = bm.prefilter_skipped_blocks
+            gated0 = bm.prefilter_gated_docs
+            res2, wall, n1 = b1_call(bm, docs_b, f"[15b] K={k}")
+            same(res2, res, f"[15b] K={k} repeat")
+            nblk = bm.n_blocks
+            if gate:
+                check(bm.prefilter_skipped_blocks - skipped0 == nblk - 1
+                      and bm.prefilter_gated_docs - gated0
+                      == (len(docs_b) - n_live) + (nblk - 1) * len(docs_b),
+                      f"[15b] K={k}: skipped "
+                      f"{bm.prefilter_skipped_blocks - skipped0} blocks, "
+                      f"gated {bm.prefilter_gated_docs - gated0} (doc, block)"
+                      " pairs; the plants imply otherwise")
+            runs[gate] = res
+            kept[(k, gate)] = bm
+            print(f"[15b] K={k} ({nblk} blocks of {KBLK15}) prefilter "
+                  f"{'on ' if gate else 'off'}: {wall:.4f} s, "
+                  f"{n_bytes / wall / 1e6:.1f} MB/s; B1 launches {n1}; "
+                  f"skipped blocks per call "
+                  f"{bm.prefilter_skipped_blocks - skipped0 if gate else 0}")
+        check(np.array_equal(runs[True].accepted, runs[False].accepted),
+              f"[15b] K={k}: the prefilter changed a verdict")
+        check(runs[True].accepted.any(), f"[15b] K={k}: no match")
+    k = max(KSWEEP15)
+    on, off = kept[(k, True)], kept[(k, False)]
+    got = on.membership_batch(docs_b)
+    same(got, BlockedMatcher(sets[k], prefilter=True, device=DEVICE,
+                             backend="local", **KW15).membership_batch(docs_b),
+         f"[15b] K={k} vs backend='local'")
+    same_32 = Matcher(PatternSet(pats[:KBLK15], k_blk=1 << 30),
+                      device=DEVICE, **KW15).membership_batch(docs_b)
+    full = off.membership_batch(docs_b)
+    check(np.array_equal(full.accepted[:, :KBLK15], same_32.accepted)
+          and np.array_equal(full.final_states[:, :KBLK15],
+                             same_32.final_states),
+          f"[15b] K={k}: the first {KBLK15} columns differ from an unblocked"
+          f" K={KBLK15} Matcher")
+    k8 = 8 * KBLK15
+    blk8 = BlockedMatcher(PatternSet(pats[:k8], k_blk=KBLK15),
+                          prefilter=False, device=DEVICE, **KW15)
+    one = Matcher(PatternSet(pats[:k8], k_blk=1 << 30), device=DEVICE, **KW15)
+    same(blk8.membership_batch(docs_b), one.membership_batch(docs_b),
+         f"[15b] K={k8}: 8 blocks vs one pack")
+    print(f"[15b] K={k} equals backend='local' on the card (gated) and, on "
+          f"its first {KBLK15} columns, an unblocked K={KBLK15} Matcher; "
+          f"K={k8} in 8 blocks equals one pack of {k8} (Q="
+          f"{one.packed.n_states}, table in "
+          f"{'shared' if smem_table(one) else 'global'} memory)")
+    for bm, tag in ((off, "off"), (on, "on")):
+        device_busy(lambda: bm.membership_batch(docs_b),
+                    f"[15b] K={k} prefilter {tag}")
+    # block swaps on the ungated matcher: every block runs every document
+    traces0 = [mm.executor.traces for mm in off.matchers]
+    idx = 5 * KBLK15 + 3
+    t0 = time.perf_counter()
+    new_ps = off.pattern_set.with_patterns({idx: DATE15})
+    info = off.swap_patterns(new_ps)
+    swap_s = time.perf_counter() - t0
+    check(info == {"reused": [i for i in range(off.n_blocks) if i != 5],
+                   "rebuilt": [5], "dropped": 0}, f"[15b] swap report {info}")
+    got, wall, _ = b1_call(off, docs_b, "[15b] after the block swap")
+    traces1 = [mm.executor.traces for mm in off.matchers]
+    check(all(a == b for i, (a, b) in enumerate(zip(traces0, traces1))
+              if i != 5) and traces1[5] > traces0[5],
+          "[15b] the reused blocks re-lowered or block 5 did not")
+    same(got, BlockedMatcher(new_ps, prefilter=False, device=DEVICE, **KW15)
+         .membership_batch(docs_b), "[15b] after the block swap vs fresh")
+    check(got.accepted[:, idx].any(), "[15b] the swapped-in pattern matched "
+          "nothing")
+    print(f"[15b] swap of pattern {idx} (block 5) to {DATE15!r}: "
+          f"{swap_s:.3f} s (with_patterns recompiles the set), report "
+          f"reused {len(info['reused'])} blocks, rebuilt {info['rebuilt']}; "
+          f"rerun {wall:.4f} s; only block 5 re-lowered; equal a fresh "
+          f"BlockedMatcher")
+    head_b = docs_b[:len(head)]
+    grown = list(off.pattern_set.regexes) + [f"P{i:04x}e" for i in
+                                             range(k, k + KBLK15)]
+    for what, new in (("appends a block", grown),
+                      ("drops the last block", grown[:-KBLK15])):
+        new_ps = PatternSet(new, k_blk=KBLK15)
+        nblk = off.n_blocks
+        info = off.swap_patterns(new_ps)
+        grow = new_ps.n_blocks > nblk
+        want_info = {"reused": list(range(min(nblk, new_ps.n_blocks))),
+                     "rebuilt": [nblk] if grow else [],
+                     "dropped": 0 if grow else nblk - new_ps.n_blocks}
+        check(info == want_info, f"[15b] a swap that {what}: {info}")
+        got, _, _ = b1_call(off, head_b, f"[15b] a swap that {what}")
+        same(got, BlockedMatcher(new_ps, prefilter=False, device=DEVICE,
+                                 **KW15).membership_batch(head_b),
+             f"[15b] a swap that {what} vs fresh")
+        print(f"[15b] a swap that {what}: {off.n_blocks} blocks, rebuilt "
+              f"{info['rebuilt']}, dropped {info['dropped']}; equal a fresh "
+              f"BlockedMatcher on {len(head_b)} docs")
+
+    # -- (c) BlockedStreamMatcher across a swap, K = 256 ---------------------
+    lazy = TickPolicy(max_batch=1 << 30, max_delay=1 << 30)
+    ps_c = PatternSet(pats[:K15C], k_blk=KBLK15)
+    swap_c = 3 * KBLK15
+    ps_c2 = ps_c.with_patterns({swap_c: DATE15})
+    heads = [d[:len(d) // 2] for d in docs_b]
+    tails = [d[len(d) // 2:] for d in docs_b]
+    whole_old = BlockedMatcher(ps_c, prefilter=False, device=DEVICE,
+                               **KW15).membership_batch(docs_b)
+    tail_new = BlockedMatcher(ps_c2, prefilter=False, device=DEVICE,
+                              **KW15).membership_batch(tails)
+    bsm = BlockedStreamMatcher(ps_c, policy=lazy, device=DEVICE, **KW15)
+    sessions = [bsm.open() for _ in docs_b]
+    dfa_match.reset_launches()
+    t0 = time.perf_counter()
+    for sess, h in zip(sessions, heads):
+        sess.feed(h)
+    bsm.flush()
+    first_half = time.perf_counter() - t0
+    keep = [[p.cursor.lane_states.copy() for p in sess.parts]
+            for sess in sessions]
+    t0 = time.perf_counter()
+    info = bsm.swap_patterns(ps_c2)
+    swap_s = time.perf_counter() - t0
+    check(info == {"reused": [i for i in range(ps_c.n_blocks) if i != 3],
+                   "rebuilt": [3], "dropped": 0}, f"[15c] swap report {info}")
+    check(all(np.array_equal(p.cursor.lane_states, kp[bi])
+              for sess, kp in zip(sessions, keep)
+              for bi, p in enumerate(sess.parts) if bi != 3),
+          "[15c] an unchanged block's cursor moved across the swap")
+    t0 = time.perf_counter()
+    for sess, tl in zip(sessions, tails):
+        sess.feed(tl)
+    results = [sess.close() for sess in sessions]
+    second_half = time.perf_counter() - t0
+    n_b1 = dfa_match.launches["spec_match_merge"]
+    check(n_b1 > 0, "[15c] the exact ticks launched no B1 kernel")
+    acc = np.stack([r.accepted for r in results])
+    fin = np.stack([r.final_states for r in results])
+    for bi in range(ps_c.n_blocks):
+        # block-local finals: the swap re-bases the blocks after block 3
+        sl = ps_c.block_slice(bi)
+        want = whole_old if bi != 3 else tail_new
+        base = (ps_c if bi != 3 else ps_c2).state_bases[bi]
+        check(np.array_equal(acc[:, sl], want.accepted[:, sl])
+              and np.array_equal(fin[:, sl] - ps_c2.state_bases[bi],
+                                 want.final_states[:, sl] - base),
+              f"[15c] block {bi} differs from "
+              + ("whole-document matching" if bi != 3 else
+                 "the new set over the second halves"))
+    check(all(r.byte_count == len(d) for r, d in zip(results, docs_b)),
+          "[15c] byte counts")
+    check(acc[:, swap_c].any(), "[15c] the swapped-in pattern matched "
+          "nothing")
+    rate = n_bytes / (first_half + second_half) / 1e6
+    print(f"[15c] BlockedStreamMatcher K={K15C} ({ps_c.n_blocks} blocks), "
+          f"{len(docs_b)} streams in two halves: first halves {first_half:.4f}"
+          f" s, swap of block 3 {swap_s * 1e3:.2f} ms, second halves + close "
+          f"{second_half:.4f} s ({rate:.1f} MB/s); B1 launches {n_b1}; "
+          f"{bsm.stats.ticks} ticks; unchanged"
+          f" blocks' cursors bit-identical across the swap and equal "
+          f"whole-document matching, block 3 equals the new set over the "
+          f"second halves, byte counts whole")
+    # StreamMatcher on PCRE-14: candidate-keyed sessions refuse the swap
+    ml = Matcher(ps, device=DEVICE, num_chunks=8, batch_tile=64)
+    sm = StreamMatcher(ml, policy=lazy, lane_ticks=True)
+    sub = [d for d in docs[:64]]
+    keys = np.array([ml.dev.advance_key(-1, d[:len(d) // 2]) for d in sub],
+                    np.int32)
+    lane_sessions = [sm.open_at(int(kk)) for kk in keys]
+    for sess, d in zip(lane_sessions, sub):
+        sess.feed(d[len(d) // 2:])
+    dfa_match.reset_launches()
+    sm.flush()
+    n_b2 = dfa_match.launches["spec_match_merge_lanes"]
+    check(n_b2 > 0, "[15c] the candidate-keyed ticks launched no B2 kernel")
+    try:
+        sm.swap_patterns(ps_mod)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "candidate-keyed" in refused
+          and ml.planner.table_epoch == 0,
+          "[15c] StreamMatcher swapped with candidate-keyed sessions open")
+    maps = np.stack([sm.close_map(sess).lane_states
+                     for sess in lane_sessions])
+    cands = ml.dev.tables.candidates.astype(np.int32)
+    want = Matcher(ps, device=DEVICE, num_chunks=8, batch_tile=64
+                   ).advance_cursors([d[len(d) // 2:] for d in sub],
+                                     cands[keys], keys).lane_states
+    check(np.array_equal(maps, want), "[15c] close_map differs from "
+          "advance_cursors")
+    check(sm.swap_patterns(ps_mod) is True and ml.planner.table_epoch == 1,
+          "[15c] StreamMatcher refused the swap after close_map")
+    print(f"[15c] StreamMatcher(PCRE-14, lane_ticks=True): {len(sub)} "
+          f"open_at sessions ticked on B2 ({n_b2} launches); swap refused "
+          f"({refused[:40]!r}...); after close_map the swap returns True")
+    torch.cuda.synchronize()
 
 
 def main() -> int:
@@ -1701,6 +2108,11 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s")
     phase13_paper_kernels(rng, kernels, search)
     phase14_paper_engine(rng, counts, search)
+
+    # -- phase 15: hot swap and the pattern-set scale tier --------------------
+    t0 = time.perf_counter()
+    phase15_swap_and_scale(rng, ps, docs, search)
+    print(f"[15] phase 15 in {time.perf_counter() - t0:.1f} s")
     for name in kernels:
         kernels[name]["launches"] = counts[name]
 

@@ -9,8 +9,11 @@
                   ``LocalExecutor``: the torch-eager lowering and the CUDA
                   kernel lowering.
     facade.py     ``Matcher``: ``membership_batch``, ``advance_segments``,
-                  ``advance_cursors``, ``compose_lane_maps``;
-                  ``BatchMatcher`` compat shim.
+                  ``advance_cursors``, ``compose_lane_maps``,
+                  ``swap_patterns``; ``BatchMatcher`` compat shim.
+    blocked.py    ``BlockedMatcher``: a multi-block ``PatternSet`` over one
+                  inner ``Matcher`` per block, gated by the required-literal
+                  prefilter, hot-swapped block by block.
     baselines.py  The paper's per-document engine (Sec. 4.1, Eqs. 2-8,
                   Alg. 2/3 + the Holub-Stekr baseline, ``sequential_state``
                   / ``match_chunks_lanes``) with a pluggable matcher.
@@ -19,6 +22,7 @@
 """
 
 from .baselines import PaperSpecEngine
+from .blocked import BlockedMatcher
 from .executors import LaneExecutor, LocalExecutor, NO_EXIT
 from .facade import (BatchMatcher, BatchResult, CursorBatchResult, Matcher,
                      SegmentBatchResult)
@@ -31,7 +35,8 @@ from .spec import (VPU_LANES, MatcherFn, MatchResult, SpecDFAEngine,
 __all__ = [
     "MatchResult", "BatchResult", "SegmentBatchResult", "CursorBatchResult",
     "SpecDFAEngine", "PaperSpecEngine", "BatchMatcher", "Matcher",
-    "sequential_state", "match_chunks_lanes", "VPU_LANES", "MatcherFn",
+    "BlockedMatcher", "sequential_state", "match_chunks_lanes", "VPU_LANES",
+    "MatcherFn",
     "resolve_device", "Planner", "MatchPlan", "BucketPlan", "ChunkLayout",
     "DeviceTables", "LanePlan", "ENTRY_STARTS", "ENTRY_STATES", "ENTRY_LANES",
     "next_pow2", "LaneExecutor", "LocalExecutor", "NO_EXIT",

@@ -101,6 +101,21 @@ class LaneExecutor:
             return self._eager(self._seq_body, plan)
         raise NotImplementedError("spec plans need a backend lowering")
 
+    def retable(self, tables: DeviceTables) -> None:
+        """Swap the matcher tables underneath the executor (the hot pattern
+        swap, ``Matcher.swap_patterns``).
+
+        The kernel lowering and the compose lowerings close over the *old*
+        ``DeviceTables`` (``t = self.t``), so the whole cache drops and
+        programs re-lower lazily against the new tables; the planner's
+        bumped ``table_epoch`` is part of every later ``LanePlan.key``.
+        ``traces`` keeps counting up, and the per-bucket ``spec_l_blk``
+        choices survive (shapes, not tables).
+        """
+        self.t = tables
+        self._lowered.clear()
+        self.lowering_kinds.clear()
+
     def _eager(self, body, plan: LanePlan):
         """Upload the host operands and run a torch-eager stage body."""
         def fn(bytes_buf, lengths, entry, entry_cls):

@@ -20,7 +20,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..automata import DFA, PackedDFA, pack_dfas
+from ..automata import DFA, PackedDFA, pack_dfas, packed_signature
 from .executors import LocalExecutor
 from .plan import (ENTRY_LANES, ENTRY_STARTS, ENTRY_STATES, DeviceTables,
                    Planner, next_pow2, resolve_device)
@@ -142,6 +142,7 @@ class Matcher:
         self.packed = packed
         self.backend = backend
         self.batch_tile = next_pow2(int(batch_tile))
+        self._lookahead_r = lookahead_r  # swap_patterns rebuilds with it
         self.dev = DeviceTables.build(packed, lookahead_r=lookahead_r,
                                       device=self.device)
         self.pad_cls = self.dev.pad_cls
@@ -156,13 +157,19 @@ class Matcher:
 
     @staticmethod
     def _pack_source(source) -> PackedDFA:
-        """Normalize every accepted pattern source to one ``PackedDFA``."""
+        """Normalize every accepted pattern source to one ``PackedDFA``.
+
+        A multi-block ``PatternSet`` is refused: one Matcher runs exactly
+        one table (``core.engine.BlockedMatcher`` is the multi-block front
+        end).
+        """
         from ..patterns import PatternSet
         if isinstance(source, PatternSet):
             if source.n_blocks != 1:
                 raise ValueError(
                     f"PatternSet has {source.n_blocks} blocks; a Matcher "
-                    "runs exactly one (raise k_blk to cover all patterns)")
+                    "runs exactly one — use core.engine.BlockedMatcher for "
+                    "multi-block sets (or raise k_blk to cover all patterns)")
             return source.blocks[0]
         if isinstance(source, PackedDFA):
             return source
@@ -171,8 +178,31 @@ class Matcher:
         return pack_dfas(list(source))
 
     def swap_patterns(self, source) -> bool:
-        raise NotImplementedError("swap_patterns is not ported yet "
-                                  "(ROADMAP A6 tail)")
+        """Hot-swap the pattern tables in place; True iff anything changed.
+
+        A table of equal content (``automata.packed_signature``) is a no-op
+        and returns False.  On a real change the ``DeviceTables`` rebuild on
+        ``self.device``, the planner keeps its sticky buckets (shapes survive
+        the swap) and bumps ``table_epoch``, and the executor drops every
+        lowering (``LaneExecutor.retable``): programs re-lower on the next
+        dispatch.  ``BlockedMatcher.swap_patterns`` leaves unchanged blocks'
+        matchers untouched; ``StreamMatcher.swap_patterns`` owns the cursor
+        carry rules.
+        """
+        packed = self._pack_source(source)
+        if packed_signature(packed) == packed_signature(self.packed):
+            return False
+        self.packed = packed
+        self.dev = DeviceTables.build(packed, lookahead_r=self._lookahead_r,
+                                      device=self.device)
+        self.pad_cls = self.dev.pad_cls
+        self.planner.table_epoch += 1
+        self.executor.retable(self.dev)
+        return True
+
+    def classes(self, doc: bytes | np.ndarray) -> np.ndarray:
+        """[L] int32 class ids of ``doc`` under the packed table."""
+        return self.packed.classes_of(doc).astype(np.int32)
 
     def compose_lane_maps(self, lane_maps: np.ndarray,
                           entry_keys: np.ndarray) -> np.ndarray:

@@ -113,7 +113,7 @@ class GrammarConstraint:
         self._build_tables()
 
     def _build_tables(self) -> None:
-        """Build the token mask + token->class tables for ``self.dfa``."""
+        """(Re)build the token mask + token->class tables for ``self.dfa``."""
         dfa, vocab_size = self.dfa, self.vocab_size
         q = dfa.n_states
         allowed = np.zeros((q, vocab_size), np.uint8)
@@ -144,8 +144,21 @@ class GrammarConstraint:
         self.table = self.matcher.dev.table_pad_t
 
     def swap_grammar(self, dfa: DFA) -> bool:
-        raise NotImplementedError("swap_grammar rides Matcher.swap_patterns, "
-                                  "which is not ported yet (ROADMAP A6 tail)")
+        """Swap the constraint grammar in place (a new response schema
+        between requests) without rebuilding the engine stack.
+
+        Rides ``Matcher.swap_patterns``: a signature-equal grammar is a
+        no-op (returns False, every lowering kept); otherwise the facade
+        retables under a bumped plan ``table_epoch`` and the token mask /
+        token->class tables rebuild for the new DFA on the constraint's
+        device.  Sequences decoded under the old grammar hold stale states
+        — restart them with ``init_states`` / a fresh ``open_decode``.
+        """
+        if not self.matcher.swap_patterns(dfa):
+            return False
+        self.dfa = dfa
+        self._build_tables()
+        return True
 
     def init_states(self, batch: int) -> torch.Tensor:
         return torch.full((batch,), self.dfa.start, dtype=torch.int32,

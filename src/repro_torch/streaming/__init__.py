@@ -16,6 +16,11 @@ scheduling and the out-of-order ingestion tier.
                   ``StreamSession``.
     faults.py     ``FaultPlan`` — deterministic fault injection for the
                   scheduler's recovery paths.
+    checkpoint.py ``pattern_set_signature``, the full-set identity a
+                  ``BlockedStreamMatcher`` stamps over its children.
+    blocked.py    ``BlockedStreamMatcher``: one child ``StreamMatcher`` per
+                  block of a ``PatternSet`` behind one session handle, hot-
+                  swapped block by block.
     ooo/          ``OooStreamMatcher``: segments arrive in any order, are
                   matched first as candidate-keyed maps and folded into the
                   exact cursor when gaps close (``Matcher.compose_lane_maps``).
@@ -27,16 +32,18 @@ scheduling and the out-of-order ingestion tier.
     s.feed(chunk)            # admits; the scheduler decides when to dispatch
     res = s.close()          # flushes; [K] accept flags + final states
 
-Not ported yet: session checkpoints (``StreamMatcher.snapshot``/``restore``
-and ``OooStreamMatcher``'s, ROADMAP A8), hot pattern swap (the A6 tail) and
-``BlockedStreamMatcher`` (A7).
+Not ported yet: session checkpoints (``StreamMatcher.snapshot``/``restore``,
+``OooStreamMatcher``'s and ``BlockedStreamMatcher``'s, ROADMAP A8).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from ..core.engine.facade import Matcher
+from .checkpoint import pattern_set_signature
 from .cursor import (ENTRY_EXACT, MatchCursor, SegmentResult, counting_merges,
                      merge, merge_calls, open_cursor, open_lane_cursor,
                      reset_merge_calls, segment_result)
@@ -53,7 +60,8 @@ __all__ = ["StreamMatcher", "StreamSession", "StreamResult", "TickPolicy",
            "MatchCursor", "SegmentResult", "ENTRY_EXACT", "open_cursor",
            "open_lane_cursor", "segment_result", "merge", "merge_calls",
            "reset_merge_calls", "counting_merges", "FaultPlan",
-           "InjectedFault",
+           "InjectedFault", "pattern_set_signature",
+           "BlockedStreamMatcher", "BlockedStreamSession",
            "OooStreamMatcher", "OooStream", "OooStats", "OooPolicy",
            "ReorderBufferFull", "SequenceGapError", "OooIntegrityError",
            "segment_fingerprint"]
@@ -110,6 +118,10 @@ class StreamMatcher:
                                              **sched_kwargs)
         self._next_sid = 0
         self._sessions: dict[int, StreamSession] = {}
+        # snapshot identity override: a BlockedStreamMatcher stamps the
+        # full-set pattern_set_signature here (read by the snapshots of
+        # ROADMAP A8)
+        self.snapshot_signature: str | None = None
 
     # -- session lifecycle ---------------------------------------------------
 
@@ -205,11 +217,54 @@ class StreamMatcher:
             byte_count=session.cursor.byte_count,
             segments_fed=session.segments_fed)
 
-    # -- not ported yet ------------------------------------------------------
+    # -- hot pattern swap ----------------------------------------------------
+
+    def _reset_open_cursors(self) -> None:
+        """Re-open every live session's cursor at the new pattern starts.
+
+        The post-swap carry for *changed* tables: old packed state ids mean
+        nothing under the new table, so swapped patterns see only bytes fed
+        after the swap.  ``byte_count`` keeps counting (a stream property);
+        ``segments_fed`` persists on the session; eviction state resets so
+        admission re-evaluates under the new tables
+        (``MicroBatchScheduler.reopen``).
+        """
+        for sess in self._sessions.values():
+            fresh = open_cursor(self.matcher.dev)
+            sess.cursor = dataclasses.replace(
+                fresh, byte_count=sess.cursor.byte_count)
+            self.scheduler.reopen(sess)
 
     def swap_patterns(self, source) -> bool:
-        raise NotImplementedError("StreamMatcher.swap_patterns is not ported "
-                                  "yet (ROADMAP A6 tail)")
+        """Hot-swap the pattern set at a tick boundary; True iff changed.
+
+        * **Identical tables** (same ``packed_signature``): a no-op — returns
+          False and in-flight cursors carry over bit-identically.
+        * **Changed tables**: pending bytes first flush through the *old*
+          tables (the tick boundary), then ``Matcher.swap_patterns`` rebuilds
+          the device tables and every open exact session re-opens at the new
+          starts (``_reset_open_cursors``).
+        * **Candidate-keyed sessions** (``open_at``): refused while any is
+          open — a [K, S] restricted map cannot be re-keyed onto different
+          tables; close them (``close_map``) first.
+
+        ``BlockedStreamMatcher.swap_patterns`` keeps unchanged blocks'
+        cursors mid-stream while sibling blocks swap.
+        """
+        lanes = [s for s in self._sessions.values() if not s.cursor.exact]
+        if lanes:
+            raise ValueError(
+                f"{len(lanes)} candidate-keyed session(s) are open; their "
+                "[K, S] maps cannot be re-keyed onto new tables — close_map "
+                "them before swap_patterns")
+        if self.scheduler.pending_streams:
+            self.scheduler.tick()
+        if not self.matcher.swap_patterns(source):
+            return False
+        self._reset_open_cursors()
+        return True
+
+    # -- not ported yet ------------------------------------------------------
 
     def snapshot(self, directory: str, *, step: int | None = None) -> str:
         raise NotImplementedError("StreamMatcher.snapshot is not ported yet "
@@ -228,3 +283,7 @@ class StreamMatcher:
     @property
     def n_patterns(self) -> int:
         return self.matcher.n_patterns
+
+
+# imported last: blocked.py builds on StreamMatcher above
+from .blocked import BlockedStreamMatcher, BlockedStreamSession  # noqa: E402

@@ -23,6 +23,8 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.core.engine.spec, repro_torch.core.profiling\n"
             "import repro_torch.kernels.onehot_match\n"
             "import repro_torch.streaming, repro_torch.streaming.ooo\n"
+            "import repro_torch.streaming.blocked\n"
+            "import repro_torch.core.prefilter\n"
             "import repro_torch.models, repro_torch.serving\n"
             "import repro_torch.configs, repro_torch.launch.serve\n"
             "import repro_torch.distributed\n"
@@ -105,8 +107,10 @@ def test_matcher_unported_options_raise():
     with pytest.raises(NotImplementedError, match="A10"):
         Matcher(dfa, autotune=True, device="cpu")
     m = Matcher(dfa, device="cpu")
-    with pytest.raises(NotImplementedError):
-        m.swap_patterns(dfa)
+    # the hot swap is ported: an equal table is a no-op, a new one swaps
+    assert m.swap_patterns(dfa) is False
+    assert m.swap_patterns(compile_regex("cd")) is True
+    assert m.planner.table_epoch == 1
 
 
 SHARDED_ONLY = [("calibrate", True), ("capacities", [1.0]), ("spec_m", 2),

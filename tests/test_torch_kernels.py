@@ -472,6 +472,71 @@ def test_matcher_compose_lane_maps_past_the_ring_on_card():
     assert np.array_equal(got, want.cpu().numpy())
 
 
+def _literal_docs(seed, pats, n=12):
+    """Documents of ``f``-``z`` filler, 2-6 KiB, every third with some
+    pattern's literal planted."""
+    rng = np.random.default_rng(seed)
+    docs = []
+    for d in range(n):
+        body = rng.integers(ord("f"), ord("z") + 1,
+                            size=int(rng.integers(2048, 6145)),
+                            dtype=np.uint8).tobytes()
+        if d % 3 == 0:
+            lit = pats[int(rng.integers(0, len(pats)))].encode()
+            body = body[:100] + lit + body[100 + len(lit):]
+        docs.append(body)
+    return docs
+
+
+def test_matcher_swap_moves_the_table_between_placements_on_card():
+    """Needs an NVIDIA card (sm_90a): ``Matcher.swap_patterns`` from 32 to
+    512 literal search patterns (packed table 272 KiB: past shared memory)
+    and back; at each step B1 on the swapped tables equals its plain
+    version, the table lands where its size says, and ``membership_batch``
+    equals a fresh matcher on ``backend="local"``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    from repro_torch.core import Matcher, PatternSet
+    from repro_torch.core.engine import ENTRY_STARTS, LanePlan
+    pats = [f"P{i:04x}e" for i in range(512)]
+    sets = {32: PatternSet(pats[:32], k_blk=1 << 30),
+            512: PatternSet(pats, k_blk=1 << 30)}
+    docs = _literal_docs(36, pats)
+    m = Matcher(sets[32], num_chunks=8, batch_tile=16)
+    for step, k in enumerate((32, 512, 32)):
+        assert m.swap_patterns(sets[k]) is (step > 0)
+        dev = m.dev
+        q, n_cls_pad = dev.table_pad_t.shape
+        plan = dfa_match.merge_plan(16, 8, k * dev.i_max, q, n_cls_pad,
+                                    1024, 512)
+        assert plan["table_in_smem"] is (k == 32), (k, q, n_cls_pad)
+        dfa_match.reset_launches()
+        res = m.membership_batch(docs)
+        assert dfa_match.launches["spec_match_merge"] > 0
+        want = Matcher(sets[k], num_chunks=8, batch_tile=16,
+                       backend="local").membership_batch(docs)
+        assert np.array_equal(res.final_states, want.final_states), k
+        assert res.accepted.any()
+        # B1 itself on the swapped tables, against its plain version
+        width = 8 * 1024
+        buf = np.zeros((len(docs), width), np.uint8)
+        lens = np.array([min(len(d), width) for d in docs], np.int32)
+        for i, d in enumerate(docs):
+            buf[i, :lens[i]] = np.frombuffer(d[:width], np.uint8)
+        body, la, init = m.executor._spec_stages(
+            LanePlan("spec", width, 1024, ENTRY_STARTS, spec_r=dev.spec_r),
+            torch.from_numpy(buf).cuda(), torch.from_numpy(lens).cuda(),
+            None, None)
+        args = (dev.table_pad_t, body, init, la, dev.cidx_pad_t, dev.sinks_t,
+                dev.absorbing_t)
+        got, skip, _ = ops.spec_match_merge(*args, pad_cls=dev.pad_cls,
+                                            pad_key=dev.pad_key, l_blk=512)
+        pwant, pskip = dfa_match.spec_match_merge_torch(
+            *args, pad_key=dev.pad_key, l_blk=512)
+        torch.cuda.synchronize()
+        assert torch.equal(got, pwant) and torch.equal(skip, pskip), k
+
+
 def _off16(x):
     """A contiguous copy of ``x`` whose data starts 4 bytes past a 16-byte
     boundary."""
@@ -611,6 +676,32 @@ def test_token_mask_kernel_equals_plain_on_card():
             got = token_mask.token_mask_cuda(*args)
             torch.cuda.synchronize()
             assert torch.equal(_bits_t(got), _bits_t(want)), (b, q, v, dtype)
+
+
+def test_token_mask_on_a_swapped_grammar_on_card():
+    """Needs an NVIDIA card (sm_90a): after ``GrammarConstraint
+    .swap_grammar`` B5 reads the new grammar's mask table and equals its
+    plain version bit for bit, through ``mask_logits`` too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    from repro_torch.serving import GrammarConstraint
+    gc = GrammarConstraint(t_compile_regex(r"([0-9]{1,6}[.,] )*[0-9]{0,6}"),
+                           32_000, eos_id=None)
+    assert gc.swap_grammar(t_compile_regex(r"[a-z]{1,8}(, [a-z]{1,8})*"))
+    rng = np.random.default_rng(37)
+    states = torch.from_numpy(rng.integers(0, gc.dfa.n_states, size=8,
+                                           dtype=np.int32)).cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        logits = torch.from_numpy(rng.normal(size=(8, 32_000)).astype(
+            np.float32)).to("cuda", dtype)
+        want = token_mask.token_mask_torch(states, gc.allowed, logits)
+        token_mask.reset_launches()
+        got = gc.mask_logits(states, logits)
+        torch.cuda.synchronize()
+        assert token_mask.launches["token_mask"] == 1
+        assert torch.equal(_bits_t(got), _bits_t(want)), dtype
+        ok = gc.allowed[states.long()].bool()
+        assert torch.equal(_bits_t(got)[ok], _bits_t(logits)[ok])
 
 
 def test_flash_attn_kernel_equals_plain_on_card():

@@ -181,9 +181,19 @@ def test_decode_stream_matches_one_shot_and_jax():
 
 
 def test_unported_serving_options_raise():
-    _, tgc = _pair(GRAMMAR, 300)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tgc.swap_grammar(compile_regex("ab"))
+    """``swap_grammar`` is ported (its tables equal JAX's after the swap);
+    serving a family other than the dense one still raises (A15)."""
+    jgc, tgc = _pair(GRAMMAR, 300)
+    assert tgc.swap_grammar(compile_regex(GRAMMAR)) is False
+    assert jgc.swap_grammar(j_compile_regex(GRAMMAR)) is False
+    assert tgc.swap_grammar(compile_regex("ab")) is True
+    assert jgc.swap_grammar(j_compile_regex("ab")) is True
+    np.testing.assert_array_equal(tgc.allowed.numpy(), np.asarray(jgc.allowed))
+    np.testing.assert_array_equal(tgc.tok_cls.numpy(), np.asarray(jgc.tok_cls))
+    np.testing.assert_array_equal(tgc.table.numpy(), np.asarray(jgc.table_j))
+    cfg = tconfigs.get_config("granite-moe-1b-a400m")
+    with pytest.raises(NotImplementedError, match="A15"):
+        ServingEngine(cfg, {}, constraint=tgc)
 
 
 @pytest.fixture(scope="module")

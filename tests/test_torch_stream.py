@@ -266,8 +266,10 @@ def test_session_lifecycle_and_unported_options():
         sm.snapshot("snap")
     with pytest.raises(NotImplementedError, match="A8"):
         sm.restore("snap")
-    with pytest.raises(NotImplementedError, match="A6"):
-        sm.swap_patterns(_dfas())
+    # the hot swap is ported: an equal set is a no-op, a new one swaps
+    assert sm.swap_patterns(_dfas([".*(ab)"])) is False
+    assert sm.swap_patterns(_dfas([".*(cd)"])) is True
+    assert m.planner.table_epoch == 1
 
 
 def test_lane_ticks_close_map_composes():
