@@ -114,6 +114,28 @@ Phases (any mismatch raises, so the exit code is non-zero):
      new set over the second halves), and ``StreamMatcher(lane_ticks=True)``
      refusing a swap while ``open_at`` sessions live (B2 ticks them) and
      accepting it after ``close_map``;
+ 16. stream failover, every comparison bit for bit, each part in a
+     temporary directory it removes: (a) ``StreamMatcher(PCRE-14,
+     lane_ticks=True)`` over phase 3's documents, 192 exact and 64
+     candidate-keyed (``open_at`` after 4 KiB) sessions fed in four ragged
+     parts, snapshot after the second with a third still pending, restored
+     on the card on ``backend="cuda"`` (B1, B2) and ``"local"`` and on the
+     CPU, each equal to the uninterrupted run and to ``membership_batch``
+     (``close``, ``close_map``, byte counts, ``segments_fed``), the first
+     tick after a restore timed beside the uninterrupted run's; a crashed
+     writer's ``.tmp`` step, a foreign set and a colliding session refused;
+     (b) ``OooStreamMatcher`` at phase 9's scale, odd segments first (a
+     quarter with ``prev_tail``: parked maps and raw payloads), snapshot
+     after ``flush``, restored on the carry (B3) and tree (B4) compose, the
+     ``backend="local"`` snapshot against the kernels' key by key and
+     restored too, MB/s beside phase 9's at f = 0.25; (c)
+     ``BlockedStreamMatcher`` at K = 256 fed in halves, snapshot between
+     them, restored fresh; a swapped block 5 and the prefilter off refused;
+     (d) ``CheckpointManager(use_async=True, keep=2)`` of tinyllama's
+     embedding and first two layers on the card in f32 and bf16, updated in
+     place right after ``submit``, restored equal to the values before the
+     update, then ``launch.serve --stream --snapshot-dir`` (B5 a decode
+     step) and a fresh ``open_decode`` restored from its last round;
   then print the kernels line and the result line.
 
 Only ``repro_torch``, torch and numpy are imported.  Without a CUDA device,
@@ -188,6 +210,10 @@ PLANT15 = (b"zz123zz", b"ququx")     # ... and what they match
 KSWEEP15, KBLK15 = (16, 128, 512, 2048), 32   # 15(b): K sweep, block size
 K15C = 256                           # 15(c): streamed pattern count
 DATE15 = r"[0-9]{4}-[0-9]{2}-[0-9]{2}"    # 15(b)/(c): a swapped-in pattern
+KEYED16, HEAD16 = 64, 4096            # 16(a): open_at sessions, bytes before
+CHUNK16 = 4                          # 16(d): serve --chunk-bytes
+PROMPTS16 = ("12. 345, 6789. 1", "7, 891. 2345, 67", "31. 4, 15. 92, 6",
+             "65, 358. 979, 32")     # 16(d): serve --prompts, 16 bytes each
 RESIDUES = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
 
 # one planted occurrence of every PCRE-14 pattern (re.search-verified)
@@ -1591,6 +1617,460 @@ def phase15_swap_and_scale(rng, ps, docs, search):
     torch.cuda.synchronize()
 
 
+def parts4(rng, n):
+    """Cut points of an ``n``-byte body into four ragged parts: each cut
+    within 999 bytes (and an eighth of ``n``) of a quarter."""
+    j = min(999, n // 8)
+    return [0, *(n * q // 4 + int(rng.integers(-j, j + 1))
+                 for q in (1, 2, 3)), n]
+
+
+def npz_bytes(path):
+    """Bytes of every ``arrays.npz`` under ``path``."""
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files
+               if f == "arrays.npz")
+
+
+def refusal(fn):
+    """The ValueError text ``fn`` raises, or None."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def phase16a_sessions(rng, ps, docs, m3, tmp):
+    """In-order sessions: 192 exact + 64 candidate-keyed streams in four
+    ragged parts, snapshot after the second with a third still pending,
+    restored on the card (both backends) and on the CPU."""
+    import torch
+    from repro_torch.core import PatternSet
+    from repro_torch.kernels import dfa_match
+    from repro_torch.streaming import StreamMatcher, TickPolicy
+    from repro_torch.training.checkpoint import latest_step
+
+    lazy = TickPolicy(max_batch=1 << 30, max_delay=1 << 30)
+    kw = dict(num_chunks=8, batch_tile=64, lane_ticks=True, policy=lazy)
+    n_exact = N_DOCS - KEYED16
+    sm = StreamMatcher(ps, device=DEVICE, **kw)
+    keys = [sm.matcher.dev.advance_key(-1, d[:HEAD16])
+            for d in docs[n_exact:]]
+    bodies = docs[:n_exact] + [d[HEAD16:] for d in docs[n_exact:]]
+    pieces = []
+    for body in bodies:
+        c = parts4(rng, len(body))
+        pieces.append([body[c[j]:c[j + 1]] for j in range(4)])
+    late = [i % 3 == 2 for i in range(N_DOCS)]   # part 2 pending at snapshot
+
+    def second_half(m_sm, sessions):
+        """The first tick (the pending parts), parts 3 and 4, close."""
+        t0 = time.perf_counter()
+        m_sm.flush()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for j in (2, 3):
+            for sess, p in zip(sessions, pieces):
+                sess.feed(p[j])
+            m_sm.flush()
+        res = [sess.close() for sess in sessions[:n_exact]]
+        maps = [m_sm.close_map(sess) for sess in sessions[n_exact:]]
+        return first, time.perf_counter() - t0, res, maps, sessions
+
+    sessions = ([sm.open() for _ in range(n_exact)]
+                + [sm.open_at(k) for k in keys])
+    for sess, p in zip(sessions, pieces):
+        sess.feed(p[0])
+    sm.flush()
+    for sess, p, lt in zip(sessions, pieces, late):
+        if not lt:
+            sess.feed(p[1])
+    sm.flush()
+    for sess, p, lt in zip(sessions, pieces, late):
+        if lt:
+            sess.feed(p[1])
+    n_pend = sum(sess.pending_bytes > 0 for sess in sessions)
+    at_snap = [(sess.byte_count, sess.pending_bytes, sess.segments_fed)
+               for sess in sessions]
+    t0 = time.perf_counter()
+    path = sm.snapshot(tmp)
+    snap_s = time.perf_counter() - t0
+    # a writer killed mid-publish leaves step_<N>.tmp: every restore below
+    # must skip it
+    os.makedirs(os.path.join(tmp, "step_00000099.tmp"))
+    with open(os.path.join(tmp, "step_00000099.tmp", "arrays.npz"),
+              "wb") as f:
+        f.write(b"garbage")
+    check(latest_step(tmp) == 0, "[16a] latest_step took the .tmp writer")
+    warm, _, want_res, want_maps, _ = second_half(sm, sessions)
+    whole = m3.membership_batch(docs)
+    fin = np.stack([r.final_states for r in want_res])
+    check(np.array_equal(fin, whole.final_states[:n_exact])
+          and np.array_equal(np.stack([r.accepted for r in want_res]),
+                             whole.accepted[:n_exact]),
+          "[16a] the uninterrupted streams differ from membership_batch")
+    n_bytes = sum(len(d) for d in docs)
+    print(f"[16a] StreamMatcher(PCRE-14, num_chunks=8, batch_tile=64, "
+          f"lane_ticks=True): {n_exact} exact + {KEYED16} candidate-keyed "
+          f"sessions (open_at after {HEAD16} bytes), {n_bytes} bytes in four "
+          f"ragged parts; snapshot after part 2 with {n_pend} sessions "
+          f"pending: {snap_s:.4f} s, arrays.npz {npz_bytes(path)} bytes")
+    for backend, device in (("cuda", DEVICE), ("local", DEVICE),
+                            ("cuda", "cpu")):
+        tag = f"[16a] restored on backend={backend!r} device={device!r}"
+        sm2 = StreamMatcher(ps, backend=backend, device=device, **kw)
+        t0 = time.perf_counter()
+        by_sid = {r.sid: r for r in sm2.restore(tmp)}
+        rest_s = time.perf_counter() - t0
+        got = [by_sid[sess.sid] for sess in sessions]
+        check([(r.byte_count, r.pending_bytes, r.segments_fed)
+               for r in got] == at_snap and sm2.stats.feeds == 0,
+              f"{tag}: byte counts, pending bytes or segments_fed differ "
+              "from the snapshot's")
+        dfa_match.reset_launches()
+        first, rest, res, maps, got = second_half(sm2, got)
+        launched = dict(dfa_match.launches)
+        if backend == "cuda" and device == DEVICE:
+            check(launched["spec_match_merge"] > 0
+                  and launched["spec_match_merge_lanes"] > 0,
+                  f"{tag}: the restored ticks did not launch B1 and B2: "
+                  f"{launched}")
+        else:
+            check(sum(launched.values()) == 0, f"{tag}: launched {launched}")
+        check(all(np.array_equal(a.final_states, b.final_states)
+                  and np.array_equal(a.accepted, b.accepted)
+                  and a.byte_count == b.byte_count == len(d)
+                  and a.segments_fed == b.segments_fed == 4
+                  for a, b, d in zip(res, want_res, docs)),
+              f"{tag}: close() differs from the uninterrupted run")
+        check(all(np.array_equal(a.lane_states, b.lane_states)
+                  and a.entry_class == b.entry_class
+                  and a.n_bytes == b.n_bytes == len(d) - HEAD16
+                  for a, b, d in zip(maps, want_maps, docs[n_exact:])),
+              f"{tag}: close_map() differs from the uninterrupted run")
+        check(all(sess.segments_fed == 4 for sess in got),
+              f"{tag}: segments_fed")
+        print(f"{tag}: restore {rest_s:.4f} s; first tick after restore "
+              f"{first:.4f} s (the uninterrupted run's tick of the same "
+              f"pending bytes: {warm:.4f} s); parts 3-4 + close "
+              f"{rest:.4f} s; launches {launched}; close() and close_map() "
+              "equal the uninterrupted run, byte counts and segments_fed "
+              "carried")
+    foreign = refusal(lambda: StreamMatcher(
+        PatternSet({"zz": "zz[0-9]+"}), device=DEVICE, **kw).restore(tmp))
+    busy = StreamMatcher(ps, device=DEVICE, **kw)
+    busy.open()
+    clash = refusal(lambda: busy.restore(tmp))
+    check(foreign is not None and "different packed pattern set" in foreign,
+          f"[16a] a foreign pattern set restored: {foreign}")
+    check(clash is not None and "already open" in clash,
+          f"[16a] a colliding session id restored: {clash}")
+    print(f"[16a] refused: a foreign set ({foreign[:58]!r}...), a sid "
+          f"collision ({clash[:40]!r}...); the crashed writer's .tmp step "
+          "was skipped by every restore")
+
+
+def phase16b_ooo(rng, ps, docs9, want9, rate9, tmp):
+    """Out of order at phase 9's scale: odd segments first (a quarter with
+    prev_tail hints), snapshot after flush, restored on the carry (B3) and
+    the tree (B4) compose; the local backend's tree against the kernels'."""
+    from repro_torch.core import Matcher
+    from repro_torch.kernels import dfa_match, lvec_compose
+    from repro_torch.streaming import OooPolicy, OooStreamMatcher
+    from repro_torch.streaming.ooo.checkpoint import OOO_TREE_KEYS, ooo_tree
+
+    seg = DOC9 // SEGS9
+    policy = OooPolicy(match_batch=STREAMS9)
+    hints = rng.random((STREAMS9, SEGS9)) < 0.25
+    odd, even = range(1, SEGS9, 2), range(0, SEGS9, 2)
+
+    def deliver(ooo, streams, idxs):
+        for i in idxs:
+            for j, (st, d) in enumerate(zip(streams, docs9)):
+                tail = d[i * seg - 2:i * seg] if i % 2 and hints[j, i] \
+                    else None
+                st.feed(i, d[i * seg:(i + 1) * seg], prev_tail=tail)
+            ooo.flush()
+
+    def closed(streams, tag):
+        res = [st.close() for st in streams]
+        check(np.array_equal(np.stack([r.final_states for r in res]), want9)
+              and all(r.byte_count == DOC9 for r in res),
+              f"{tag}: decisions or byte counts differ")
+        return res
+
+    def first_half(backend, where):
+        m = Matcher(ps, num_chunks=8, backend=backend, device=DEVICE)
+        ooo = OooStreamMatcher(m, policy=policy)
+        streams = [ooo.open() for _ in docs9]
+        deliver(ooo, streams, odd)
+        tree = ooo_tree(ooo)
+        t0 = time.perf_counter()
+        path = ooo.snapshot(where)
+        return ooo, streams, tree, time.perf_counter() - t0, path
+
+    dir_c, dir_l = os.path.join(tmp, "cuda"), os.path.join(tmp, "local")
+    ooo, streams, tree_c, snap_s, path = first_half("cuda", dir_c)
+    n_m = int(tree_c["bs_matched"].sum())
+    n_raw = len(tree_c["bs_matched"]) - n_m
+    print(f"[16b] OooStreamMatcher {STREAMS9} streams x {DOC9} bytes in "
+          f"{SEGS9} segments, odd segments first ({int(hints[:, 1::2].sum())}"
+          f" with prev_tail): snapshot {snap_s:.4f} s, arrays.npz "
+          f"{npz_bytes(path)} bytes; parked bs_* {n_m} matched maps, "
+          f"{n_raw} raw payloads ({int(tree_c['bs_data'].size)} bytes)")
+    check(n_m > 0 and n_raw > 0, "[16b] the parks are not a mix")
+    deliver(ooo, streams, even)
+    closed(streams, "[16b] the uninterrupted run")
+    _, _, tree_l, _, _ = first_half("local", dir_l)
+    differ = [k for k in OOO_TREE_KEYS if k != "bs_lanes"
+              and not np.array_equal(tree_c[k], tree_l[k])]
+    check(not differ, f"[16b] backend='cuda' and 'local' trees differ on "
+          f"{differ}")
+    lanes_c, lanes_l = tree_c["bs_lanes"], tree_l["bs_lanes"]
+    matched = tree_c["bs_matched"]
+    real = np.zeros(lanes_c.shape, bool)
+    real[matched] = real_lane_mask(ooo.matcher.dev.tables,
+                                   tree_c["bs_entry"][matched])
+    diff = lanes_c != lanes_l
+    check(not (diff & real).any(), f"[16b] the trees' matched maps differ "
+          f"on {int((diff & real).sum())} real lanes")
+    print(f"[16b] backend='cuda' and 'local' snapshots: every key equal"
+          + (" but bs_lanes on "f"{int(diff.sum())} pad lanes (no real "
+             "lane)" if diff.any() else ", bs_lanes bit for bit") + f" "
+          f"({int(real.sum())} real lanes)")
+    half = STREAMS9 * DOC9 // 2
+    for mode, where in (("carry", dir_c), ("tree", dir_c),
+                        ("carry", dir_l)):
+        tag = (f"[16b] restored on the {mode} compose"
+               + (" (the local backend's snapshot)" if where == dir_l
+                  else ""))
+        m2 = Matcher(ps, num_chunks=8, device=DEVICE)
+        m2.executor.compose_mode = mode
+        ooo2 = OooStreamMatcher(m2, policy=policy)
+        t0 = time.perf_counter()
+        got = ooo2.restore(where)
+        rest_s = time.perf_counter() - t0
+        dfa_match.reset_launches()
+        lvec_compose.reset_launches()
+        t0 = time.perf_counter()
+        deliver(ooo2, got, even)
+        closed(got, tag)
+        wall = time.perf_counter() - t0
+        launched = {**dfa_match.launches, **lvec_compose.launches}
+        fold = ("spec_compose_lanes" if mode == "carry"
+                else "spec_compose_lanes_tree")
+        other = ("spec_compose_lanes_tree" if mode == "carry"
+                 else "spec_compose_lanes")
+        check(launched[fold] > 0 and launched[other] == 0
+              and launched["spec_match_merge"]
+              + launched["spec_match_merge_lanes"] > 0,
+              f"{tag}: launches {launched}")
+        print(f"{tag}: restore {rest_s:.4f} s; even segments + close "
+              f"{wall:.4f} s ({half / wall / 1e6:.1f} MB/s; phase 9 at "
+              f"f = 0.25: {rate9:.1f} MB/s); decisions equal "
+              f"membership_batch, byte counts {DOC9}; launches {launched}")
+
+
+def phase16c_blocked(rng, docs, tmp):
+    """BlockedStreamMatcher K = 256 (8 blocks) fed in halves, snapshot
+    between them, restored fresh; a swapped block 5 and the prefilter off
+    refuse the snapshot."""
+    from repro_torch.core import PatternSet
+    from repro_torch.kernels import dfa_match
+    from repro_torch.streaming import BlockedStreamMatcher, TickPolicy
+
+    lazy = TickPolicy(max_batch=1 << 30, max_delay=1 << 30)
+    pats = [f"P{i:04x}e" for i in range(K15C)]
+    ps_c = PatternSet(pats, k_blk=KBLK15)
+    docs_b = plant(docs, 4, [p.encode() for p in pats[:KBLK15]], rng)
+    bsm = BlockedStreamMatcher(ps_c, policy=lazy, device=DEVICE, **KW15)
+    sessions = [bsm.open() for _ in docs_b]
+    for sess, d in zip(sessions, docs_b):
+        sess.feed(d[:len(d) // 2])
+    bsm.flush()
+    t0 = time.perf_counter()
+    bsm.snapshot(tmp)
+    snap_s = time.perf_counter() - t0
+    fresh = BlockedStreamMatcher(ps_c, policy=lazy, device=DEVICE, **KW15)
+    t0 = time.perf_counter()
+    by_sid = {r.sid: r for r in fresh.restore(tmp)}
+    rest_s = time.perf_counter() - t0
+    got = [by_sid[sess.sid] for sess in sessions]
+    dfa_match.reset_launches()
+    t0 = time.perf_counter()
+    for sess, d in zip(got, docs_b):
+        sess.feed(d[len(d) // 2:])
+    res2 = [sess.close() for sess in got]
+    wall = time.perf_counter() - t0
+    n_b1 = dfa_match.launches["spec_match_merge"]
+    check(n_b1 > 0, "[16c] the restored ticks launched no B1 kernel")
+    for sess, d in zip(sessions, docs_b):
+        sess.feed(d[len(d) // 2:])
+    res = [sess.close() for sess in sessions]
+    check(all(np.array_equal(a.final_states, b.final_states)
+              and np.array_equal(a.accepted, b.accepted)
+              and a.byte_count == b.byte_count == len(d)
+              for a, b, d in zip(res2, res, docs_b))
+          and np.stack([r.accepted for r in res]).any(),
+          "[16c] the restored streams differ from the uninterrupted run")
+    swapped = refusal(lambda: BlockedStreamMatcher(
+        ps_c.with_patterns({5 * KBLK15 + 3: DATE15}), policy=lazy,
+        device=DEVICE, **KW15).restore(tmp))
+    ungated = refusal(lambda: BlockedStreamMatcher(
+        ps_c, policy=lazy, prefilter=False, device=DEVICE,
+        **KW15).restore(tmp))
+    check(swapped is not None and ungated is not None
+          and "different packed pattern set" in swapped + ungated,
+          f"[16c] refusals: {swapped}, {ungated}")
+    print(f"[16c] BlockedStreamMatcher K={K15C} ({ps_c.n_blocks} blocks), "
+          f"{len(docs_b)} streams in halves: snapshot {snap_s:.4f} s "
+          f"({npz_bytes(tmp)} bytes in {ps_c.n_blocks} trees), restore "
+          f"{rest_s:.4f} s, second halves + close {wall:.4f} s, B1 launches "
+          f"{n_b1}; equal the uninterrupted run; a swapped block 5 and the "
+          "prefilter off refuse the snapshot")
+
+
+def tensors(tree):
+    """The tensors of a nested dict, in key order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tensors(tree[k])]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    """A nested dict with ``fn`` applied to every tensor."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def phase16d_checkpoint_and_serve(tmp):
+    """CheckpointManager(use_async=True, keep=2) on the card: tinyllama's
+    embedding and first two layers in f32 and bf16, updated in place right
+    after submit; then launch.serve --stream --snapshot-dir (B5 a decode
+    step) and a restore of its last round."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import compile_regex
+    from repro_torch.kernels import flash_attn, token_mask
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.serving import GrammarConstraint
+    from repro_torch.training.checkpoint import (CheckpointManager,
+                                                 restore_checkpoint)
+
+    cfg = get_config(ARCH12)
+    params = api.init(cfg, SEED, device=DEVICE)
+    sub = {"embed": params["embed"],
+           "layers": tree_map(lambda w: w[:2].clone(), params["layers"])}
+    del params
+    torch.cuda.empty_cache()
+    bf = tree_map(lambda w: w.bfloat16(), sub)
+    ck = os.path.join(tmp, "ckpt")
+    mgr = CheckpointManager(ck, keep=2, use_async=True)
+    for step, (what, tree) in enumerate((("f32", sub), ("bf16", bf),
+                                         ("f32 again", sub))):
+        leaves = tensors(tree)
+        before = [t.clone() for t in leaves]
+        n_b = sum(t.numel() * t.element_size() for t in leaves)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(tree, step)
+        blocked = time.perf_counter() - t0
+        for t in leaves:
+            t.add_(1)
+        mgr.wait()
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out, got_step = restore_checkpoint(ck, tree, step=step)
+        torch.cuda.synchronize()
+        rest_s = time.perf_counter() - t0
+        back = tensors(out)
+        check(got_step == step and all(
+            r.device == b.device and r.dtype == b.dtype
+            and torch.equal(r, b) for r, b in zip(back, before)),
+            f"[16d] step {step} ({what}): the restore differs from the "
+            "values before the in-place add")
+        print(f"[16d] CheckpointManager step {step} ({what}, {len(leaves)} "
+              f"tensors, {n_b} bytes): submit blocked {blocked:.4f} s, "
+              f"written in {write_s:.4f} s ({n_b / write_s / 1e6:.1f} MB/s),"
+              f" restored onto the card in {rest_s:.4f} s "
+              f"({n_b / rest_s / 1e6:.1f} MB/s); equal the pre-add values "
+              "bit for bit")
+        del out, back, before
+    mgr._gc()
+    kept = sorted(os.listdir(ck))
+    check(kept == ["step_00000001", "step_00000002"], f"[16d] kept {kept}")
+    del sub, bf
+    torch.cuda.empty_cache()
+    snap = os.path.join(tmp, "serve")
+    argv = ["--arch", ARCH12, "--max-new", "8", "--stream", "--chunk-bytes",
+            str(CHUNK16), "--snapshot-dir", snap, "--grammar", GRAMMAR12,
+            "--prompts", *PROMPTS16]
+    buf = io.StringIO()
+    token_mask.reset_launches()
+    flash_attn.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve.main(argv)
+    wall = time.perf_counter() - t0
+    # generate's prefill runs in a cache longer than the prompt, which takes
+    # the blockwise attention path: B9 is counted, not required
+    n5, n9 = token_mask.launches["token_mask"], flash_attn.launches[
+        "flash_attn"]
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"[16d] serve: {line}")
+    width = max(len(p) for p in PROMPTS16)
+    rounds = -(-width // CHUNK16)
+    published = [ln for ln in lines if ln.startswith("[stream] snapshot")]
+    check(len(published) == rounds and sorted(os.listdir(snap)) == [
+        f"step_{c:08d}" for c in range(rounds)] and n5 > 0,
+        f"[16d] serve published {len(published)} steps of {rounds} rounds;"
+        f" B5 {n5}, B9 {n9} launches")
+    gc = GrammarConstraint(compile_regex(GRAMMAR12), cfg.padded_vocab,
+                           device=DEVICE)
+    ds = gc.open_decode(len(PROMPTS16))
+    for sess in ds.sessions:       # their sids are the snapshot's
+        sess.close()
+    ds.sessions = ds.stream.restore(snap)
+    prompts = np.full((len(PROMPTS16), width), 32, np.int32)
+    for i, p in enumerate(PROMPTS16):
+        prompts[i, :len(p)] = np.frombuffer(p.encode(), np.uint8)
+    check(torch.equal(ds.states, gc.advance_tokens(gc.init_states(
+        len(PROMPTS16)), prompts)), "[16d] the restored serving cursors "
+        "differ from the last round's prefill")
+    print(f"[16d] launch.serve --stream --snapshot-dir: {rounds} rounds, "
+          f"{rounds} steps published, {wall:.2f} s (B9 launches {n9}, B5 "
+          f"{n5}); a fresh open_decode restored from the last step holds "
+          "the whole prompts' prefill states")
+
+
+def phase16_failover(rng, ps, docs, m3, docs9, want9, rate9):
+    """Stream failover on the card, each part in a temporary directory of
+    its own that the phase removes."""
+    import shutil
+    import tempfile
+
+    for name, fn in (("a", lambda d: phase16a_sessions(rng, ps, docs, m3,
+                                                       d)),
+                     ("b", lambda d: phase16b_ooo(rng, ps, docs9, want9,
+                                                  rate9, d)),
+                     ("c", lambda d: phase16c_blocked(rng, docs, d)),
+                     ("d", phase16d_checkpoint_and_serve)):
+        tmp = tempfile.mkdtemp(prefix=f"chip_smoke16{name}_")
+        t0 = time.perf_counter()
+        try:
+            fn(tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print(f"[16{name}] in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1980,7 +2460,7 @@ def main() -> int:
     m9 = Matcher(ps, num_chunks=8, device=DEVICE)
     policy = OooPolicy(match_batch=STREAMS9)
     merges = merge_calls()
-    counts = {}
+    counts, rates9 = {}, {}
 
     def ooo_run(matcher, plans, tag, shapes=None):
         """``shapes`` collects the (B, N) of every B3 call."""
@@ -2015,6 +2495,7 @@ def main() -> int:
               f"segments/s, {STREAMS9 * DOC9 / wall / 1e6:.1f} MB/s")
         device_busy(lambda: run_streams(OooStreamMatcher(
             matcher, policy=policy), docs9, plans, seg9), tag)
+        return STREAMS9 * DOC9 / wall / 1e6
 
     for frac in FRACS9:
         tag = f"[9] shuffle {frac:g}:"
@@ -2036,7 +2517,7 @@ def main() -> int:
         else:
             check(launched["spec_compose_lanes"] > 0,
                   f"{tag} launched no B3 kernel")
-        timed_run(m9, plans, tag)
+        rates9[frac] = timed_run(m9, plans, tag)
         if frac == 1.0:
             counts = launched
             check(all(counts[n] > 0 for n in ("spec_match_merge",
@@ -2113,6 +2594,12 @@ def main() -> int:
     t0 = time.perf_counter()
     phase15_swap_and_scale(rng, ps, docs, search)
     print(f"[15] phase 15 in {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 16: stream failover --------------------------------------------
+    t0 = time.perf_counter()
+    phase16_failover(np.random.default_rng(SEED + 16), ps, docs, m, docs9,
+                     want9, rates9[0.25])
+    print(f"[16] phase 16 in {time.perf_counter() - t0:.1f} s")
     for name in kernels:
         kernels[name]["launches"] = counts[name]
 

@@ -14,8 +14,16 @@ Streaming endpoint path (``--stream``): prompts are treated as chunked
 uploads — each request's bytes are fed to the grammar's resumable cursors in
 ``--chunk-bytes`` pieces (``GrammarConstraint.open_decode``), so the DFA
 prefill happens incrementally as chunks arrive.  The pre-fed
-``DecodeStream`` is then handed to ``ServingEngine.generate``.  The weights
-are random, made from ``--seed`` on the device.
+``DecodeStream`` is then handed to ``ServingEngine.generate``.  With
+``--snapshot-dir`` every chunk round atomically publishes the prefill
+cursors (``StreamMatcher.snapshot``, one ``step_<N>`` a round) — the
+failover point a fresh process resumes from with ``StreamMatcher.restore``
+(in this package or the JAX one).  The weights are random, made from
+``--seed`` on the device.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \\
+      --stream --chunk-bytes 2 --snapshot-dir snap --prompts "3.14" \\
+      --grammar "[0-9]{1,6}(\\.[0-9]{1,4})?"
 """
 
 from __future__ import annotations
@@ -46,8 +54,10 @@ def main(argv=None) -> None:
     ap.add_argument("--chunk-bytes", type=int, default=4,
                     help="upload chunk size for --stream")
     ap.add_argument("--snapshot-dir", default=None,
-                    help="with --stream: snapshot the prefill cursors after "
-                         "every chunk round (not ported yet: ROADMAP A8)")
+                    help="with --stream: atomically snapshot the prefill "
+                         "cursors after every chunk round (failover point; "
+                         "StreamMatcher.restore resumes from the latest "
+                         "published step, on either backend or device)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -56,9 +66,6 @@ def main(argv=None) -> None:
     if args.snapshot_dir and not args.stream:
         ap.error("--snapshot-dir requires --stream (it checkpoints the "
                  "streaming prefill cursors)")
-    if args.snapshot_dir:
-        raise NotImplementedError("--snapshot-dir needs the session "
-                                  "checkpoints, not ported yet (ROADMAP A8)")
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -90,6 +97,9 @@ def main(argv=None) -> None:
         for c in range(width_chunks):
             decode_stream.feed_tokens(
                 prompts[:, c * args.chunk_bytes:(c + 1) * args.chunk_bytes])
+            if args.snapshot_dir:
+                path = decode_stream.stream.snapshot(args.snapshot_dir)
+                print(f"[stream] snapshot round {c}: {path}")
         st = decode_stream.stream.stats
         print(f"[stream] prefill: {st.feeds} chunk feeds -> {st.ticks} ticks "
               f"({st.segments} segments, occupancy {st.occupancy:.2f})")

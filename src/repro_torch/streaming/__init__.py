@@ -16,14 +16,19 @@ scheduling and the out-of-order ingestion tier.
                   ``StreamSession``.
     faults.py     ``FaultPlan`` — deterministic fault injection for the
                   scheduler's recovery paths.
-    checkpoint.py ``pattern_set_signature``, the full-set identity a
-                  ``BlockedStreamMatcher`` stamps over its children.
+    checkpoint.py session snapshot/restore on ``training/checkpoint.py``'s
+                  atomic-publish format: because a cursor's [K, S] lane
+                  state is a complete composable summary (Eq. 8), a stream
+                  frozen here resumes anywhere — on the other backend, on
+                  the CPU, or in the JAX package — bit-identically
+                  (``StreamMatcher.snapshot`` / ``restore``).
     blocked.py    ``BlockedStreamMatcher``: one child ``StreamMatcher`` per
                   block of a ``PatternSet`` behind one session handle, hot-
                   swapped block by block.
     ooo/          ``OooStreamMatcher``: segments arrive in any order, are
                   matched first as candidate-keyed maps and folded into the
-                  exact cursor when gaps close (``Matcher.compose_lane_maps``).
+                  exact cursor when gaps close (``Matcher.compose_lane_maps``);
+                  its snapshots also keep the parked segments.
 
 ``StreamMatcher`` below is the in-order facade:
 
@@ -32,8 +37,8 @@ scheduling and the out-of-order ingestion tier.
     s.feed(chunk)            # admits; the scheduler decides when to dispatch
     res = s.close()          # flushes; [K] accept flags + final states
 
-Not ported yet: session checkpoints (``StreamMatcher.snapshot``/``restore``,
-``OooStreamMatcher``'s and ``BlockedStreamMatcher``'s, ROADMAP A8).
+    sm.snapshot(directory)   # failover point: every open stream, atomically
+    StreamMatcher(...).restore(directory)   # resumes them, bit-identically
 """
 
 from __future__ import annotations
@@ -43,7 +48,9 @@ import dataclasses
 import numpy as np
 
 from ..core.engine.facade import Matcher
-from .checkpoint import pattern_set_signature
+from .checkpoint import (load_sessions_tree, pattern_set_signature,
+                         save_sessions_tree, sessions_tree, table_signature,
+                         unpack_cursor)
 from .cursor import (ENTRY_EXACT, MatchCursor, SegmentResult, counting_merges,
                      merge, merge_calls, open_cursor, open_lane_cursor,
                      reset_merge_calls, segment_result)
@@ -60,7 +67,9 @@ __all__ = ["StreamMatcher", "StreamSession", "StreamResult", "TickPolicy",
            "MatchCursor", "SegmentResult", "ENTRY_EXACT", "open_cursor",
            "open_lane_cursor", "segment_result", "merge", "merge_calls",
            "reset_merge_calls", "counting_merges", "FaultPlan",
-           "InjectedFault", "pattern_set_signature",
+           "InjectedFault", "table_signature", "pattern_set_signature",
+           "sessions_tree", "save_sessions_tree", "load_sessions_tree",
+           "unpack_cursor",
            "BlockedStreamMatcher", "BlockedStreamSession",
            "OooStreamMatcher", "OooStream", "OooStats", "OooPolicy",
            "ReorderBufferFull", "SequenceGapError", "OooIntegrityError",
@@ -118,9 +127,11 @@ class StreamMatcher:
                                              **sched_kwargs)
         self._next_sid = 0
         self._sessions: dict[int, StreamSession] = {}
+        self._snapshot_step = 0
         # snapshot identity override: a BlockedStreamMatcher stamps the
-        # full-set pattern_set_signature here (read by the snapshots of
-        # ROADMAP A8)
+        # full-set pattern_set_signature here so each per-block snapshot
+        # refuses restore when *any* sibling block (or the prefilter)
+        # changed, not merely this block's own table
         self.snapshot_signature: str | None = None
 
     # -- session lifecycle ---------------------------------------------------
@@ -264,15 +275,65 @@ class StreamMatcher:
         self._reset_open_cursors()
         return True
 
-    # -- not ported yet ------------------------------------------------------
+    # -- failover ------------------------------------------------------------
 
     def snapshot(self, directory: str, *, step: int | None = None) -> str:
-        raise NotImplementedError("StreamMatcher.snapshot is not ported yet "
-                                  "(ROADMAP A8)")
+        """Atomically publish every open session's state to ``directory``.
 
-    def restore(self, directory: str, *, step: int | None = None):
-        raise NotImplementedError("StreamMatcher.restore is not ported yet "
-                                  "(ROADMAP A8)")
+        The snapshot covers cursor lane states, absorbed flags, byte counts,
+        boundary classes *and* unflushed pending bytes — the complete
+        per-stream state (the Eq. 8 composition makes the cursor a full
+        summary of everything already matched).  Writes go through
+        ``training/checkpoint.py``'s atomic publish (``step_<N>.tmp`` then
+        rename), so a writer killed mid-snapshot leaves only a ``.tmp``
+        directory that restore ignores.  Returns the published path.
+        """
+        sessions = sorted((s for s in self._sessions.values() if not s.closed),
+                          key=lambda s: s.sid)
+        tree = sessions_tree(sessions, self.matcher.packed, self._next_sid,
+                             signature=self.snapshot_signature)
+        if step is None:
+            step = self._snapshot_step
+        self._snapshot_step = step + 1
+        return save_sessions_tree(directory, tree, step)
+
+    def restore(self, directory: str, *,
+                step: int | None = None) -> list[StreamSession]:
+        """Rebuild sessions from the latest (or ``step``-th) snapshot.
+
+        The restoring matcher may run either backend on any device, and the
+        snapshot may come from the JAX package: the tree is host numpy and
+        the cursors' state ids are the packed table's.  Restored sessions
+        with pending bytes are re-admitted to the scheduler (no feed event
+        is counted — their bytes were accounted when originally fed); the
+        next tick matches them on this matcher's own lowerings.  Refuses a
+        snapshot taken against a different packed pattern set, or one whose
+        session ids collide with sessions already open here.
+        """
+        tree, step = load_sessions_tree(
+            directory, self.matcher, step=step,
+            expect_signature=self.snapshot_signature)
+        sids = [int(s) for s in tree["sid"]]
+        clash = [sid for sid in sids if sid in self._sessions]
+        if clash:
+            raise ValueError(
+                f"snapshot session ids {clash[:5]} are already open on this "
+                "StreamMatcher; restore into a fresh matcher (or close the "
+                "colliding sessions first)")
+        off = tree["pending_off"]
+        restored = []
+        for i, sid in enumerate(sids):
+            sess = StreamSession(sid, self, unpack_cursor(tree, i))
+            sess.segments_fed = int(tree["segments_fed"][i])
+            sess._evicted = bool(tree["evicted"][i])
+            sess._pending = bytearray(
+                tree["pending"][int(off[i]):int(off[i + 1])].tobytes())
+            self._sessions[sid] = sess
+            self.scheduler.readmit(sess)
+            restored.append(sess)
+        self._next_sid = max(self._next_sid, int(tree["next_sid"]))
+        self._snapshot_step = max(self._snapshot_step, step + 1)
+        return restored
 
     # -- introspection -------------------------------------------------------
 

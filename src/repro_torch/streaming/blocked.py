@@ -17,14 +17,17 @@ bit-identically), while changed blocks re-open their sessions' cursors at
 the new starts (the ``StreamMatcher.swap_patterns`` carry rules, applied per
 block).
 
-Every child carries the full-set ``pattern_set_signature``
-(``snapshot_signature``), the identity the per-block snapshots of ROADMAP A8
-will stamp over their trees; ``snapshot``/``restore`` are not ported yet.
+Snapshots write one tree per block (``block_<bbb>/``) with the full-set
+``pattern_set_signature`` stamped over every tree, so a restore is refused
+when *any* part of the set changed — a swapped sibling block or a different
+prefilter table, not merely the restored block's own content.  The layout
+is the JAX package's: a snapshot moves between the two packages.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -103,6 +106,7 @@ class BlockedStreamMatcher:
         self._stamp_signature()
         self._sessions: dict[int, BlockedStreamSession] = {}
         self._next_sid = 0
+        self._snapshot_step = 0
 
     def _stamp_signature(self) -> None:
         sig = pattern_set_signature(self.blocked.pattern_set,
@@ -225,16 +229,55 @@ class BlockedStreamMatcher:
             sess.parts.append(part)
         return sm
 
-    # -- not ported yet ------------------------------------------------------
+    # -- failover ------------------------------------------------------------
 
     def snapshot(self, directory: str, *, step: Optional[int] = None) -> str:
-        raise NotImplementedError("BlockedStreamMatcher.snapshot is not "
-                                  "ported yet (ROADMAP A8)")
+        """Publish one tree per block under ``directory/block_<b>/``.
+
+        Every tree carries the full-set ``pattern_set_signature`` (blocking
+        layout + every block's tables + prefilter literals), so restore
+        refuses the whole snapshot when any part of the set changed.
+        """
+        if step is None:
+            step = self._snapshot_step
+        self._snapshot_step = step + 1
+        for bi, sm in enumerate(self._sms):
+            sm.snapshot(os.path.join(directory, f"block_{bi:03d}"), step=step)
+        return directory
 
     def restore(self, directory: str, *, step: Optional[int] = None
                 ) -> list[BlockedStreamSession]:
-        raise NotImplementedError("BlockedStreamMatcher.restore is not "
-                                  "ported yet (ROADMAP A8)")
+        """Rebuild logical sessions from a per-block snapshot.
+
+        Each block's tree re-verifies the full-set signature; a stream must
+        restore on every block (a snapshot with mismatched session sets
+        across blocks is refused as corrupt).
+        """
+        per_block = [sm.restore(os.path.join(directory, f"block_{bi:03d}"),
+                                step=step)
+                     for bi, sm in enumerate(self._sms)]
+        by_sid: dict[int, list[Optional[StreamSession]]] = {}
+        for bi, parts in enumerate(per_block):
+            for p in parts:
+                by_sid.setdefault(p.sid, [None] * self.n_blocks)[bi] = p
+        restored = []
+        for sid in sorted(by_sid):
+            parts = by_sid[sid]
+            if any(p is None for p in parts):
+                missing = [bi for bi, p in enumerate(parts) if p is None]
+                raise ValueError(
+                    f"snapshot is inconsistent: stream {sid} is missing from "
+                    f"block(s) {missing}")
+            sess = BlockedStreamSession(sid, self, parts)  # type: ignore[arg-type]
+            sess.segments_fed = parts[0].segments_fed
+            self._sessions[sid] = sess
+            restored.append(sess)
+        self._next_sid = max(self._next_sid,
+                             max(by_sid, default=-1) + 1)
+        self._snapshot_step = max(self._snapshot_step,
+                                  (step if step is not None
+                                   else self._snapshot_step))
+        return restored
 
     # -- introspection -------------------------------------------------------
 

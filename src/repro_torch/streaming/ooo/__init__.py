@@ -18,10 +18,8 @@ Layers (bottom up):
     ``ReorderBufferFull`` backpressure);
   * ``sequencer``   — frontier tracking + entry-key chain resolution;
   * ``matcher``     — the ``OooStreamMatcher`` front-end driving the engine
-    (``advance_cursors`` / ``advance_segments`` / ``compose_lane_maps``).
-
-Snapshot/restore of cursors and the parked future (``checkpoint``) is not
-ported yet: it rides the in-order tier's checkpoint format (ROADMAP A8).
+    (``advance_cursors`` / ``advance_segments`` / ``compose_lane_maps``);
+  * ``checkpoint``  — snapshot/restore of cursors *and* the parked future.
 """
 
 from .buffer import (BufferedSegment, OooIntegrityError, OooPolicy,

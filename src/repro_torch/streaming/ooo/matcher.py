@@ -178,6 +178,7 @@ class OooStreamMatcher:
             if self.policy.cross_stream_dedup_window else None)
         self._streams: dict[int, Sequencer] = {}
         self._next_sid = 0
+        self._snapshot_step = 0
         self._since_flush = 0   # accepted arrivals since the last flush
 
     # -- lifecycle -----------------------------------------------------------
@@ -277,15 +278,27 @@ class OooStreamMatcher:
     # -- failover ------------------------------------------------------------
 
     def snapshot(self, directory: str, *, step: int | None = None) -> str:
-        """Not ported yet: the OOO checkpoint rides the in-order tier's
-        atomic-publish format (ROADMAP A8/A9)."""
-        raise NotImplementedError("OooStreamMatcher.snapshot is not ported "
-                                  "yet (ROADMAP A8/A9)")
+        """Persist every open stream — exact cursors AND the parked future
+        (buffered payloads, matched maps, key chains, dedup windows) — as
+        one atomically-published checkpoint step."""
+        from .checkpoint import ooo_tree, save_ooo_tree
+
+        if step is None:
+            step = self._snapshot_step
+        self._snapshot_step = step + 1
+        return save_ooo_tree(directory, ooo_tree(self), step)
 
     def restore(self, directory: str, *, step: int | None = None) -> list:
-        """Not ported yet (ROADMAP A8/A9); see ``snapshot``."""
-        raise NotImplementedError("OooStreamMatcher.restore is not ported "
-                                  "yet (ROADMAP A8/A9)")
+        """Re-open the streams of the latest complete snapshot; returns the
+        ``OooStream`` handles in snapshot order.  Device and package
+        agnostic: a snapshot taken on either backend, on the card or the
+        CPU, or by the JAX package restores on any matcher with the same
+        packed tables and resolved lookahead depth."""
+        from .checkpoint import load_ooo_tree, restore_streams
+
+        tree, got_step = load_ooo_tree(directory, self, step=step)
+        self._snapshot_step = max(self._snapshot_step, got_step + 1)
+        return restore_streams(self, tree)
 
     # -- the flush loop ------------------------------------------------------
 

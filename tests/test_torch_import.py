@@ -27,7 +27,9 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.core.prefilter\n"
             "import repro_torch.models, repro_torch.serving\n"
             "import repro_torch.configs, repro_torch.launch.serve\n"
-            "import repro_torch.distributed\n"
+            "import repro_torch.distributed, repro_torch.training\n"
+            "import repro_torch.streaming.ooo.checkpoint\n"
+            "assert 'msgpack' not in sys.modules, 'msgpack was imported'\n"
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'the JAX package was imported'\n"
             "print('ok')\n")
@@ -53,7 +55,8 @@ def _imported_modules(path: pathlib.Path) -> list[str]:
 def test_no_jax_or_reference_imports(path):
     for name in _imported_modules(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
+        assert top not in ("jax", "jaxlib", "repro", "msgpack"), \
+            f"{path}: imports {name}"
 
 
 def test_matcher_without_device_needs_cuda():

@@ -1,7 +1,6 @@
 """The port's out-of-order ingestion tier (``repro_torch.streaming.ooo``).
 
-Counterparts of the non-sharded, non-checkpoint tests of
-``tests/test_ooo.py`` on the port's ``Matcher`` (``device="cpu"``: the
+Counterparts of the non-sharded tests of ``tests/test_ooo.py`` on the port's ``Matcher`` (``device="cpu"``: the
 ``"cuda"`` backend then runs the kernels' plain versions), plus one test
 that feeds the same arrival plan to the JAX and the port
 ``OooStreamMatcher`` and requires equal decisions, byte counts and
@@ -381,13 +380,24 @@ def test_early_accepts_before_sequencing():
     assert res.accepted[PATTERNS.index(".*[0-9]{3}")]
 
 
-def test_snapshot_and_restore_not_ported():
-    ooo = OooStreamMatcher(_matcher("local"))
-    ooo.open().feed(1, b"ab")
-    with pytest.raises(NotImplementedError, match="A8"):
-        ooo.snapshot("unused")
-    with pytest.raises(NotImplementedError, match="A8"):
-        ooo.restore("unused")
+def test_snapshot_and_restore_not_ported(tmp_path):
+    """Ported since: a snapshot taken mid-reorder on ``backend="local"``
+    restores on the "cuda" backend (its plain versions on the CPU), and the
+    stream closes to the whole-document finals."""
+    m = _matcher("local")
+    ooo = OooStreamMatcher(m)
+    s = ooo.open()
+    s.feed(1, b"ab1")
+    s.feed(2, b"89y", prev_tail=b"b1")
+    ooo.snapshot(str(tmp_path))
+    ooo2 = OooStreamMatcher(_matcher("cuda"))
+    (s2,) = ooo2.restore(str(tmp_path))
+    assert (s2.sid, s2.next_seq, s2.buffered_segments) == (0, 0, 2)
+    s2.feed(0, b"xxa")
+    res = s2.close()
+    np.testing.assert_array_equal(res.final_states, _oracle(m, b"xxaab189y"))
+    assert res.byte_count == 9 and res.segments_fed == 3
+    assert ooo2.open().sid == 1
 
 
 # --------------------------------------------------------------------------

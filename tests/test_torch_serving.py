@@ -11,6 +11,7 @@ equality means something.
 """
 
 import io
+import os
 import contextlib
 
 import numpy as np
@@ -341,7 +342,7 @@ def test_generate_kernel_flag_and_stream_agree(model):
     assert ((sampled >= 0) & (sampled < tcfg.vocab_size)).all()
 
 
-def test_launch_serve_on_cpu():
+def test_launch_serve_on_cpu(tmp_path):
     from repro_torch.launch import serve
 
     argv = ["--device", "cpu", "--smoke", "--max-new", "4", "--prompts",
@@ -353,5 +354,25 @@ def test_launch_serve_on_cpu():
     lines = buf.getvalue().splitlines()
     assert lines[0].startswith("'12' -> ") and lines[1].startswith("'7.' -> ")
     assert any(line.startswith("[stream] prefill") for line in lines)
-    with pytest.raises(NotImplementedError, match="A8"):
-        serve.main(argv + ["--stream", "--snapshot-dir", "snap"])
+    # --snapshot-dir publishes one step a chunk round; a fresh decode stream
+    # restored from the last one holds the whole prompts' prefill states
+    snap = str(tmp_path / "snap")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(argv + ["--stream", "--chunk-bytes", "1",
+                           "--snapshot-dir", snap])
+    rounds = [line for line in buf.getvalue().splitlines()
+              if line.startswith("[stream] snapshot round")]
+    assert rounds == [f"[stream] snapshot round {c}: "
+                      f"{os.path.join(snap, f'step_{c:08d}')}"
+                      for c in range(2)]
+    assert sorted(os.listdir(snap)) == ["step_00000000", "step_00000001"]
+    gc = GrammarConstraint(compile_regex(argv[-1]), 512, device="cpu")
+    ds = gc.open_decode(2)
+    for sess in ds.sessions:      # sids 0, 1 are the snapshot's: free them
+        sess.close()
+    ds.sessions = ds.stream.restore(snap)
+    prompts = torch.tensor([list(b"12"), list(b"7.")], dtype=torch.int32)
+    np.testing.assert_array_equal(
+        ds.states.numpy(),
+        gc.advance_tokens(gc.init_states(2), prompts).numpy())

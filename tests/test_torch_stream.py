@@ -247,7 +247,7 @@ def test_ticks_do_no_host_merges():
         s.close()
 
 
-def test_session_lifecycle_and_unported_options():
+def test_session_lifecycle_and_unported_options(tmp_path):
     m = _matcher([".*(ab)"])
     sm, sm2 = StreamMatcher(m), StreamMatcher(_matcher([".*(ab)"]))
     s = sm.open()
@@ -262,10 +262,15 @@ def test_session_lifecycle_and_unported_options():
         StreamMatcher(m, backend="local")
     with pytest.raises(ValueError):
         sm.open_at(0)                    # needs lane_ticks=True
-    with pytest.raises(NotImplementedError, match="A8"):
-        sm.snapshot("snap")
-    with pytest.raises(NotImplementedError, match="A8"):
-        sm.restore("snap")
+    # snapshot/restore is ported: the cursor crosses the failover
+    s = sm.open()
+    s.feed(b"xa")                    # eager policy: matched at once
+    sm.snapshot(str(tmp_path))
+    (s2,) = StreamMatcher(_matcher([".*(ab)"])).restore(str(tmp_path))
+    assert (s2.sid, s2.byte_count, s2.segments_fed) == (1, 2, 1)
+    s2.feed(b"b")
+    assert s2.close().accepted.tolist() == [True]
+    s.close()
     # the hot swap is ported: an equal set is a no-op, a new one swaps
     assert sm.swap_patterns(_dfas([".*(ab)"])) is False
     assert sm.swap_patterns(_dfas([".*(cd)"])) is True

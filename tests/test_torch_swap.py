@@ -377,7 +377,7 @@ def test_blocked_stream_swap_adopts_and_drops_blocks(backend):
     assert got[4:] == want[4:]
 
 
-def test_blocked_stream_matcher_contract():
+def test_blocked_stream_matcher_contract(tmp_path):
     ps = PatternSet({"a": "ab", "b": "cd", "c": "ef"}, k_blk=2, search=True)
     bm_kw = dict(device="cpu", **KW)
     sm = BlockedStreamMatcher(ps, policy=LAZY, **bm_kw)
@@ -398,10 +398,18 @@ def test_blocked_stream_matcher_contract():
         s.feed(b"x")
     with pytest.raises(ValueError):
         s.close()
-    with pytest.raises(NotImplementedError, match="A8"):
-        sm.snapshot("snap")
-    with pytest.raises(NotImplementedError, match="A8"):
-        sm.restore("snap")
+    # snapshot/restore is ported: one tree per block, pending bytes kept
+    s = sm.open()
+    s.feed(b"xa")
+    assert sm.snapshot(str(tmp_path)) == str(tmp_path)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["block_000",
+                                                          "block_001"]
+    (s2,) = BlockedStreamMatcher(ps, policy=LAZY, **bm_kw).restore(
+        str(tmp_path))
+    assert (s2.sid, s2.pending_bytes) == (1, 2)
+    s2.feed(b"bcd")
+    r = s2.close()
+    assert r.accepted.tolist() == [True, True, False] and r.byte_count == 5
 
 
 def test_pattern_set_signature_matches_jax():
