@@ -88,7 +88,8 @@ Phases (any mismatch raises, so the exit code is non-zero):
      PCRE-14 and PROSITE membership DFAs and random DFAs of Q = 16, 64,
      128, 256 (B8 then B7; B6 where Q < 9).  Every route's final state
      equals ``membership_sequential``'s; on the first MiB (64 KiB for (c))
-     also the default torch matcher's and the host oracle ``dfa.run``'s;
+     also the torch gather loop's (``match_chunks_lanes``) and the host
+     oracle ``dfa.run``'s;
      the decision equals ``Matcher.membership_batch``'s; wall time and
      bytes/s per route, ``profile_capacity`` on the card, the device idle
      share of one call of (a) and of (d), a warm repeat of (c), and the
@@ -136,6 +137,24 @@ Phases (any mismatch raises, so the exit code is non-zero):
      place right after ``submit``, restored equal to the values before the
      update, then ``launch.serve --stream --snapshot-dir`` (B5 a decode
      step) and a fresh ``open_decode`` restored from its last round;
+ 17. autotuning and the corpus-filter data path: (a) ``Matcher(PCRE-14,
+     autotune=True)`` with ``$REPRO_AUTOTUNE_CACHE`` in a temporary
+     directory: the cold-start tune's wall time, every candidate's score
+     and the block and B1 ring tile it resolves to, the ``TunedShape``, a
+     second tune read from the in-process cache and a third from disk; then
+     phase 3's documents as observed traffic, ``maybe_retune()`` (the
+     kernel lowerings of the old block dropped), B1 after it, finals equal
+     before and after, an untuned matcher's and ``backend="local"``'s, and
+     the warm call before and after; (b) ``CorpusFilter`` with 7 secret and
+     PII rules over 8,192 generated documents of 2,048 bytes: ``filter()``
+     at batch sizes 64 and 1,024, ``data_stream`` into packed batches,
+     ``scan_stream`` over 256 concurrent downloads in 1,024-byte chunks and
+     ``document_ok`` over 256 documents (B6, or B8 + B7), each keep-mask
+     equal to Python's ``re``, ``backend="local"`` on the card with equal
+     ``FilterStats``, docs/s and MB/s of each, the launches of each and the
+     device idle share of one ``filter()`` pass; (c) the rules and 15(b)'s
+     literals up to K = 512 in blocks of 32, prefilter on and off, over
+     2,048 documents with planted literals, equal to ``re``;
   then print the kernels line and the result line.
 
 Only ``repro_torch``, torch and numpy are imported.  Without a CUDA device,
@@ -214,6 +233,18 @@ KEYED16, HEAD16 = 64, 4096            # 16(a): open_at sessions, bytes before
 CHUNK16 = 4                          # 16(d): serve --chunk-bytes
 PROMPTS16 = ("12. 345, 6789. 1", "7, 891. 2345, 67", "31. 4, 15. 92, 6",
              "65, 358. 979, 32")     # 16(d): serve --prompts, 16 bytes each
+RULES17 = (r"SECRET-[0-9]+", r"key=[A-Za-z0-9]{8}",
+           r"[a-z0-9._]+@[a-z0-9]+\.(com|org|net)",
+           r"[0-9]{3}-[0-9]{2}-[0-9]{4}", r"-----BEGIN [A-Z]+ PRIVATE KEY-----",
+           r"(password|passwd)=[^ ]+",
+           r"[0-9]{4} [0-9]{4} [0-9]{4} [0-9]{4}")   # 17: secret/PII rules
+CORPUS17 = (8192, 2048)              # 17(b): documents, bytes each (16 MiB)
+BATCH17 = (64, 1024)                 # 17(b): filter() batch sizes
+LOADER17 = (8, 2048)                 # 17(b): data_stream batch, seq_len
+STREAM17 = (256, 1024, 64, 8)        # 17(b): open downloads, chunk bytes,
+                                     # max_batch, max_delay
+DOCOK17 = 256                        # 17(b): document_ok documents
+BLOCKED17 = (512, 32, 2048)          # 17(c): K, k_blk, documents
 RESIDUES = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
 
 # one planted occurrence of every PCRE-14 pattern (re.search-verified)
@@ -1096,13 +1127,14 @@ def phase13_paper_kernels(rng, kernels, search):
 
 def phase14_paper_engine(rng, counts, search):
     """The paper engine on the card: routes against each other, the
-    sequential matcher, the default matcher, ``dfa.run`` and ``Matcher``."""
+    sequential matcher, the torch gather loop, ``dfa.run`` and
+    ``Matcher``."""
     import torch
     from repro_torch.core import (Matcher, SpecDFAEngine,
                                   build_lookahead_tables,
-                                  compile_pattern_suite, profile_capacity,
-                                  profile_workers, random_dfa,
-                                  synthetic_capacities)
+                                  compile_pattern_suite, match_chunks_lanes,
+                                  profile_capacity, profile_workers,
+                                  random_dfa, synthetic_capacities)
     from repro_torch.kernels import dfa_match, lvec_compose, onehot_match, ops
 
     cap = profile_capacity(device=DEVICE)
@@ -1159,7 +1191,7 @@ def phase14_paper_engine(rng, counts, search):
 
     def check_dfa(tag, name, dfa, doc, routes, head_bytes, walls):
         """Every route against membership_sequential; the head against the
-        default matcher and dfa.run; the decision against Matcher.  Only
+        torch gather loop and dfa.run; the decision against Matcher.  Only
         the routes' ``membership(doc)`` calls count launches."""
         def add(route, w):
             t, n = walls.get(route, (0.0, 0))
@@ -1177,15 +1209,18 @@ def phase14_paper_engine(rng, counts, search):
                   f"{seq.final_state}")
         head = doc[:head_bytes]
         route0, eng0 = routes[0]
+        # the torch gather loop, the default matcher on the CPU only (on a
+        # card an engine given no matcher runs ops.spec_match)
         default = SpecDFAEngine(dfa, num_chunks=eng0.num_chunks,
                                 mode=eng0.mode, partition=eng0.partition,
                                 weights=eng0.weights,
-                                lookahead_r=eng0.lookahead_r, device=DEVICE)
+                                lookahead_r=eng0.lookahead_r,
+                                matcher=match_chunks_lanes, device=DEVICE)
         oracle = dfa.run(head)
         got = (eng0.membership(head).final_state,
                default.membership(head).final_state)
         check(got == (oracle, oracle), f"{tag} {name}: on the first "
-              f"{head_bytes} bytes {route0} / the default matcher {got} != "
+              f"{head_bytes} bytes {route0} / the torch gather loop {got} != "
               f"dfa.run {oracle}")
         doc_m = doc if tag != "[14c]" else head
         acc = bool(Matcher(dfa, device=DEVICE).membership_batch(
@@ -1195,7 +1230,7 @@ def phase14_paper_engine(rng, counts, search):
         print(f"{tag} {name}: Q={dfa.n_states} classes={dfa.n_classes} "
               f"I_max={eng0.i_max} final {seq.final_state} "
               f"accepted {seq.accepted}; routes {sorted(finals)} equal "
-              f"sequential, the default matcher, dfa.run and Matcher")
+              f"sequential, the torch gather loop, dfa.run and Matcher")
 
     def report(tag, walls):
         for route, (w, n_bytes) in walls.items():
@@ -2071,6 +2106,365 @@ def phase16_failover(rng, ps, docs, m3, docs9, want9, rate9):
         print(f"[16{name}] in {time.perf_counter() - t0:.1f} s")
 
 
+def kernel_launches():
+    """Launches so far of the match and compose kernels (B1, B2, B6, B3,
+    B4, B7, B8), by wrapper name."""
+    from repro_torch.kernels import dfa_match, lvec_compose, onehot_match
+    return {**dfa_match.launches, **lvec_compose.launches,
+            **onehot_match.launches}
+
+
+def reset_kernel_launches():
+    from repro_torch.kernels import dfa_match, lvec_compose, onehot_match
+    for mod in (dfa_match, lvec_compose, onehot_match):
+        mod.reset_launches()
+
+
+def launched(counts):
+    """The nonzero launch counts, as text."""
+    return ", ".join(f"{k} {v}" for k, v in counts.items() if v) or "none"
+
+
+def synced(fn):
+    """``fn()`` and its wall time, the device drained before and after."""
+    import torch
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase17a_autotune(ps, docs, want3, tmp):
+    """The shape autotuner on the card: a cold-start tune with every
+    candidate's score and resolved block and tile, the in-process and disk
+    caches, and the retune over phase 3's traffic."""
+    from repro_torch.core import Matcher, profiling
+    from repro_torch.core.engine.plan import next_pow2
+    from repro_torch.kernels import dfa_match
+
+    scores = []
+    measure = profiling._measure_config
+
+    def recording(packed, probe, **kw):
+        us = measure(packed, probe, **kw)
+        scores.append((kw["num_chunks"], kw["l_blk"], kw["batch_tile"],
+                       [len(p) for p in probe], us))
+        return us
+
+    def show(tag, m):
+        """Each measured candidate: its score and, per chunk length of its
+        probe, the block and B1 ring tile it resolves to."""
+        q, n_cls_pad = m.dev.table_pad_t.shape
+        ks = m.n_patterns * m.dev.i_max
+        for nc, lb, bt, lens, us in scores:
+            bt = next_pow2(bt or max(8, len(lens)))   # the Matcher's tile
+            cls = sorted({next_pow2(-(-n // nc)) for n in lens
+                          if n >= 4 * nc})
+            how = []
+            for cl in cls:
+                blk = min(cl, lb)
+                tile = dfa_match.merge_plan(bt, nc, ks, q, n_cls_pad, cl,
+                                            blk)["tile"]
+                how.append(f"chunk {cl}: block {blk}, tile {tile}")
+            print(f"{tag} candidate num_chunks={nc} l_blk={lb}: {us:.1f} "
+                  f"us per call ({len(lens)} probe docs, batch_tile {bt}); "
+                  + "; ".join(how))
+        scores.clear()
+
+    def warm5(m):
+        walls = [synced(lambda: m.membership_batch(docs))[1]
+                 for _ in range(5)]
+        return float(np.median(walls))
+
+    os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(tmp, "autotune.json")
+    profiling.clear_autotune_cache()
+    profiling._measure_config = recording
+    try:
+        m, cold = synced(lambda: Matcher(ps, autotune=True, device=DEVICE))
+        tuned = m.perf_report()["autotune"]
+        check(tuned["source"] == "measured", f"[17a] cold start: {tuned}")
+        print(f"[17a] cold-start tune (PCRE-14, K={m.n_patterns}, S="
+              f"{m.dev.i_max}): Matcher(autotune=True) in {cold:.3f} s, "
+              f"{len(scores)} candidates measured; TunedShape {tuned}")
+        show("[17a]", m)
+        for want, clear in (("cache", False), ("disk", True)):
+            if clear:
+                profiling.clear_autotune_cache()
+            again, wall = synced(lambda: Matcher(ps, autotune=True,
+                                                 device=DEVICE))
+            got = again.perf_report()["autotune"]
+            check(got["source"] == want and not scores
+                  and {k: v for k, v in got.items() if k != "source"}
+                  == {k: v for k, v in tuned.items() if k != "source"},
+                  f"[17a] the {want} read gave {got}, measured {scores}")
+            print(f"[17a] another tune reads source={want!r} in "
+                  f"{wall:.4f} s")
+
+        # observed traffic: phase 3's corpus, then the retune
+        lengths = np.array([len(d) for d in docs])
+        res0 = m.membership_batch(docs)
+        while m.traffic.n_docs < 64:
+            m.membership_batch(docs)
+        traffic = m.perf_report()["traffic"]
+        spread = (DOC_BYTES[1] - DOC_BYTES[0]) / 7
+        check(abs(traffic["median_len"] - float(np.median(lengths)))
+              <= spread, f"[17a] traffic {traffic} against phase 3's median "
+              f"length {np.median(lengths)}")
+        drift = m._tuned_traffic.drift(m.traffic_profile())
+        before = warm5(m)
+        blk0 = m.executor.spec_l_blk.get(0, 512)
+        stale = [k for k, kind in m.executor.lowering_kinds.items()
+                 if kind.startswith("spec-kernel")]
+        ran, retune = synced(m.maybe_retune)
+        check(ran, f"[17a] maybe_retune did not run at drift {drift:.2f}")
+        check(not any(k in m.executor._lowered
+                      or k in m.executor.lowering_kinds for k in stale),
+              "[17a] the lowerings of the old block survived the retune")
+        blk1 = m.executor.spec_l_blk[0]
+        print(f"[17a] traffic {traffic}, drift {drift:.2f} doublings from "
+              f"the synthetic probe; maybe_retune() ran in {retune:.3f} s: "
+              f"l_blk {blk0} -> {blk1}, TunedShape "
+              f"{m.perf_report()['autotune']}; {len(stale)} kernel "
+              "lowerings dropped")
+        show("[17a] retune", m)
+        reset_kernel_launches()
+        res1 = m.membership_batch(docs)
+        n1 = kernel_launches()
+        check(n1["spec_match_merge"] > 0, "[17a] no B1 launch after the "
+              "retune")
+        check(np.array_equal(res1.final_states, res0.final_states)
+              and np.array_equal(res1.accepted, res0.accepted)
+              and np.array_equal(res1.final_states, want3),
+              "[17a] finals after the retune differ from those before it, "
+              "from an untuned Matcher and from backend='local'")
+        after = warm5(m)
+        print(f"[17] 17(a) launches after the retune: {launched(n1)}")
+        print(f"[17a] warm membership_batch over phase 3's {len(docs)} docs "
+              f"(median of 5): before the retune {before:.4f} s, after "
+              f"{after:.4f} s ({lengths.sum() / after / 1e6:.1f} MB/s); "
+              "finals equal before and after, an untuned Matcher and "
+              "backend='local'")
+    finally:
+        profiling._measure_config = measure
+        os.environ.pop("REPRO_AUTOTUNE_CACHE", None)
+        profiling.clear_autotune_cache()
+
+
+def stream_events(docs, n_open, chunk):
+    """(key, chunk) events of ``docs`` downloaded ``n_open`` at a time:
+    within a wave, every document's next chunk in turn, then each one's
+    end (``None``)."""
+    events = []
+    for lo in range(0, len(docs), n_open):
+        wave = range(lo, min(lo + n_open, len(docs)))
+        longest = max(len(docs[i]) for i in wave)
+        for off in range(0, longest, chunk):
+            events += [(i, docs[i][off:off + chunk]) for i in wave
+                       if off < len(docs[i])]
+        events += [(i, None) for i in wave]
+    return events
+
+
+def phase17b_filter(docs, keep):
+    """The corpus filter over the generated shard: the batched path at two
+    batch sizes, the loader, the streamed downloads and the per-document
+    engines, each keep-mask against ``re``, and backend='local' on the card
+    against the kernels' stats."""
+    import dataclasses
+    from repro_torch.data import (ByteTokenizer, CorpusFilter, FilterStats,
+                                  LoaderConfig, data_stream)
+
+    n_bytes = sum(len(d) for d in docs)
+    n_drop = int((~keep).sum())
+
+    def rate(n, wall, nb):
+        return (f"{wall:.3f} s: {n / wall:.1f} docs/s, "
+                f"{nb / wall / 1e6:.1f} MB/s")
+
+    kept_want = [d for d, k in zip(docs, keep) if k]
+    f = CorpusFilter(RULES17, device=DEVICE)
+    check(f.batch.backend == "cuda", "[17b] the filter left the kernels")
+    list(f.filter(docs[:BATCH17[-1]], batch_size=BATCH17[-1]))  # lowerings
+    stats = {}
+    for bs in BATCH17:
+        f.stats = FilterStats()
+        reset_kernel_launches()
+        kept, wall = synced(lambda: list(f.filter(docs, batch_size=bs)))
+        n = kernel_launches()
+        check(kept == kept_want, f"[17b] filter(batch_size={bs}) keeps "
+              f"{len(kept)} docs, re keeps {len(kept_want)}")
+        check(n["spec_match_merge"] > 0, f"[17b] filter({bs}) launched no "
+              "B1")
+        stats[bs] = f.stats
+        print(f"[17b] filter(batch_size={bs}): {rate(len(docs), wall, n_bytes)}"
+              f"; kept {len(kept)}, dropped {f.stats.dropped}, "
+              f"{f.stats.batch_calls} tiles")
+        print(f"[17] 17(b) filter({bs}) launches: {launched(n)}")
+    check(stats[BATCH17[0]].dropped == n_drop,
+          f"[17b] dropped {stats[BATCH17[0]].dropped}, re finds {n_drop} "
+          "contaminated docs")
+    fl = CorpusFilter(RULES17, backend="local", device=DEVICE)
+    bs = BATCH17[-1]
+    kept_l, wall = synced(lambda: list(fl.filter(docs, batch_size=bs)))
+    check(kept_l == kept_want, "[17b] backend='local' keeps other docs")
+    got_s = {k: v for k, v in dataclasses.asdict(fl.stats).items()
+             if k != "early_exits"}
+    want_s = {k: v for k, v in dataclasses.asdict(stats[bs]).items()
+              if k != "early_exits"}
+    check(got_s == want_s, f"[17b] backend='local' stats {fl.stats} != the "
+          f"kernels' {stats[bs]}")
+    print(f"[17b] backend='local' on the card, filter(batch_size={bs}): "
+          f"{rate(len(docs), wall, n_bytes)}; masks and FilterStats equal "
+          f"(early_exits local {fl.stats.early_exits}, kernels "
+          f"{stats[bs].early_exits})")
+    device_busy(lambda: list(f.filter(docs, batch_size=bs)),
+                f"[17b] filter(batch_size={bs})")
+
+    # the loader: filtered, tokenized, packed
+    cfg = LoaderConfig(batch_size=LOADER17[0], seq_len=LOADER17[1])
+    f2 = CorpusFilter(RULES17, device=DEVICE)
+    reset_kernel_launches()
+    batches, wall = synced(lambda: list(data_stream(docs, cfg,
+                                                    corpus_filter=f2)))
+    n = kernel_launches()
+    need = cfg.batch_size * (cfg.seq_len + 1)
+    n_tokens = sum(len(d) + 2 for d in kept_want)
+    check(len(batches) == n_tokens // need and n["spec_match_merge"] > 0,
+          f"[17b] data_stream gave {len(batches)} batches, expected "
+          f"{n_tokens // need}; launches {n}")
+    check(all(b["tokens"].shape == (cfg.batch_size, cfg.seq_len)
+              and np.array_equal(b["tokens"][:, 1:], b["labels"][:, :-1])
+              for b in batches), "[17b] a packed batch's labels are not its "
+          "tokens shifted")
+    toks, n_tok = [], 0
+    for d in kept_want:
+        toks.append(ByteTokenizer().encode(d))
+        n_tok += len(toks[-1])
+        if n_tok >= need:
+            break
+    head = np.concatenate(toks)[:need]
+    first = np.concatenate([batches[0]["tokens"], batches[0]["labels"][:, -1:]],
+                           axis=1).reshape(-1)
+    check(np.array_equal(first, head), "[17b] the first packed batch is not "
+          "the kept documents' tokens")
+    print(f"[17b] data_stream(LoaderConfig(batch_size={cfg.batch_size}, "
+          f"seq_len={cfg.seq_len})): {len(batches)} packed batches in "
+          f"{wall:.3f} s: {len(batches) / wall:.1f} batches/s, "
+          f"{n_bytes / wall / 1e6:.1f} MB/s of raw documents")
+    print(f"[17] 17(b) data_stream launches: {launched(n)}")
+
+    # streamed downloads
+    n_open, chunk, max_batch, max_delay = STREAM17
+    events = stream_events(docs, n_open, chunk)
+    f3 = CorpusFilter(RULES17, device=DEVICE)
+    reset_kernel_launches()
+    got, wall = synced(lambda: dict(f3.scan_stream(
+        iter(events), max_batch=max_batch, max_delay=max_delay)))
+    n = kernel_launches()
+    check(got == {i: bool(k) for i, k in enumerate(keep)},
+          "[17b] scan_stream decisions differ from re")
+    check(n["spec_match_merge"] > 0, "[17b] scan_stream launched no B1")
+    check(f3.stats.bytes_scanned == n_bytes and f3.stats.dropped == n_drop,
+          f"[17b] scan_stream stats {f3.stats}")
+    print(f"[17b] scan_stream: {len(docs)} docs as {n_open} concurrent "
+          f"downloads in {chunk}-byte chunks ({len(events)} events, "
+          f"max_batch={max_batch}, max_delay={max_delay}): "
+          f"{rate(len(docs), wall, n_bytes)}; {f3.stats.batch_calls} tiles,"
+          f" {f3.stats.early_exits} absorbed skips")
+    print(f"[17] 17(b) scan_stream launches: {launched(n)} (B2 only where a "
+          "tick takes the lane path)")
+
+    # the per-document engines: B6, or B8 + B7 where mxu_profitable
+    from repro_torch.kernels import ops
+    sub = docs[:DOCOK17]
+    f4 = CorpusFilter(RULES17, device=DEVICE)
+    reset_kernel_launches()
+    oks, wall = synced(lambda: [f4.document_ok(d) for d in sub])
+    n = kernel_launches()
+    check(oks == [bool(k) for k in keep[:DOCOK17]],
+          "[17b] document_ok differs from re")
+    product = [ops.mxu_profitable(e.dfa.n_states, e.i_max)
+               for e in f4.engines]
+    check(n["spec_match"] > 0 and n["spec_match_merge"] == 0,
+          f"[17b] document_ok did not ride B6: {n}")
+    check(not any(product) or (n["onehot_block_maps"] > 0
+                               and n["lvec_compose"] > 0),
+          f"[17b] the route rule picks the product route for "
+          f"{sum(product)} rules, but B8 + B7 did not launch: {n}")
+    print(f"[17b] document_ok over the first {len(sub)} docs: "
+          f"{rate(len(sub), wall, sum(len(d) for d in sub))}; "
+          f"{f4.stats.patterns_scanned} engines run, {f4.stats.early_exits} "
+          f"early exits; product route for {sum(product)} of "
+          f"{len(product)} rules (Q, I_max: "
+          f"{[(e.dfa.n_states, e.i_max) for e in f4.engines]})")
+    print(f"[17] 17(b) document_ok launches: {launched(n)}")
+
+
+def phase17c_blocked(rng, docs, keep):
+    """The blocked filter: the rules and 15(b)'s literals up to K in blocks,
+    the prefilter on and off, against the unblocked rules and ``re``."""
+    import re
+    from repro_torch.data import CorpusFilter
+
+    k, k_blk, n_docs = BLOCKED17
+    lits = [f"P{i:04x}e" for i in range(k - len(RULES17))]
+    pats = list(RULES17) + lits
+    # literals of block 0 planted in every fourth document
+    firsts = [p.encode() for p in lits[:k_blk - len(RULES17)]]
+    sub = plant(docs[:n_docs], 4, firsts, rng)
+    lit_re = re.compile("|".join(lits).encode())
+    want = keep[:n_docs] & np.array([lit_re.search(d) is None for d in sub])
+    n_bytes = sum(len(d) for d in sub)
+    for gate in (True, False):
+        f = CorpusFilter(pats, k_blk=k_blk, prefilter=gate, device=DEVICE)
+        f.scan_batch(sub[:64])    # each block's lowerings
+        skipped0 = f.batch.prefilter_skipped_blocks
+        reset_kernel_launches()
+        got, wall = synced(lambda: np.array(f.scan_batch(sub)))
+        n = kernel_launches()
+        check(np.array_equal(got, want), f"[17c] prefilter {gate}: masks "
+              "differ from the 7 rules and the planted literals through re")
+        print(f"[17c] K={k} in {f.batch.n_blocks} blocks of {k_blk}, "
+              f"prefilter {'on ' if gate else 'off'}: {len(sub)} docs in "
+              f"{wall:.3f} s, {n_bytes / wall / 1e6:.1f} MB/s; skipped "
+              f"blocks {f.batch.prefilter_skipped_blocks - skipped0}; "
+              f"dropped {int((~got).sum())}; launches: {launched(n)}")
+
+
+def phase17_autotune_and_filter(rng, ps, docs, want3):
+    """Autotuning (a) and the corpus-filter data path (b, c) on the card."""
+    import re
+    import shutil
+    import tempfile
+    from repro_torch.data import CorpusConfig, generate_documents
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke17_")
+    try:
+        phase17a_autotune(ps, docs, want3, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n_docs, doc_len = CORPUS17
+    corpus, wall = synced(lambda: list(generate_documents(CorpusConfig(
+        n_documents=n_docs, doc_len=doc_len, contaminant=b"SECRET-123",
+        contaminant_rate=0.1, seed=SEED))))
+    n_bytes = sum(len(d) for d in corpus)
+    rules = [re.compile(r.encode()) for r in RULES17]
+    hits, re_wall = synced(lambda: np.array(
+        [[r.search(d) is not None for r in rules] for d in corpus]))
+    keep = ~hits.any(axis=1)
+    planted = np.array([b"SECRET-123" in d for d in corpus])
+    print(f"[17b] generate_documents: {n_docs} x {doc_len} bytes "
+          f"({n_bytes} bytes) in {wall:.2f} s on the host; re.search of "
+          f"the {len(rules)} rules in {re_wall:.2f} s: hits per rule "
+          f"{hits.sum(axis=0).tolist()}, {int((~keep).sum())} docs to drop "
+          f"({int(planted.sum())} hold the planted SECRET-123)")
+    phase17b_filter(corpus, keep)
+    phase17c_blocked(rng, corpus, keep)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2223,6 +2617,7 @@ def main() -> int:
           f"unexpected lowerings {kinds}")
     print(f"[3] equal to backend='local' and to the sequential oracle; "
           f"lowerings {sorted(kinds)}")
+    want3 = res.final_states
     profile_main_path(m, docs, n_bytes)
 
     # -- phase 4: advance_segments ---------------------------------------------
@@ -2600,6 +2995,12 @@ def main() -> int:
     phase16_failover(np.random.default_rng(SEED + 16), ps, docs, m, docs9,
                      want9, rates9[0.25])
     print(f"[16] phase 16 in {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 17: autotuning and the corpus-filter data path -----------------
+    t0 = time.perf_counter()
+    phase17_autotune_and_filter(np.random.default_rng(SEED + 17), ps, docs,
+                                want3)
+    print(f"[17] phase 17 in {time.perf_counter() - t0:.1f} s")
     for name in kernels:
         kernels[name]["launches"] = counts[name]
 

@@ -26,12 +26,13 @@ Modes:
   * ``holub``      - Holub-Stekr [19] baseline: full [Q]->[Q] maps per chunk,
                      merged associatively; O(n|Q|/|P|) work.
 
-The matcher callable is pluggable: the default ``match_chunks_lanes`` is a
-torch gather loop; ``matcher=kernels.ops.spec_match`` runs the CUDA kernels
-(B6 gather, or B8 one-hot products + B7 composition where
-``mxu_profitable``).  On the card ``sequential_state`` is kernel B6 with
-one chunk and one lane.  The work-model fields of ``MatchResult`` are host
-arithmetic and equal the JAX package's.
+The matcher callable is pluggable.  By default (``default_matcher``) it is
+``kernels.ops.spec_match`` on a card, which runs the CUDA kernels (B6
+gather, or B8 one-hot products + B7 composition where ``mxu_profitable``),
+and ``match_chunks_lanes``, a torch gather loop, on the CPU.  On the card
+``sequential_state`` is kernel B6 with one chunk and one lane.  The
+work-model fields of ``MatchResult`` are host arithmetic and equal the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ from ..lvector import merge_scan_torch
 from .plan import resolve_device
 
 __all__ = ["MatchResult", "PaperSpecEngine", "sequential_state",
-           "match_chunks_lanes", "VPU_LANES", "MatcherFn"]
+           "match_chunks_lanes", "default_matcher", "VPU_LANES", "MatcherFn"]
 
 VPU_LANES = 1024  # the JAX package's lane constant: 8 x 128 int32 on a TPU core
 
@@ -142,6 +143,13 @@ def _merge_full(start: int, lvecs: np.ndarray) -> int:
 MatcherFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
+def default_matcher(device: torch.device) -> MatcherFn:
+    """The chunk matcher an engine on ``device`` uses when given none: the
+    CUDA kernels (``kernels.ops.spec_match``) on a card, the torch gather
+    loop ``match_chunks_lanes`` elsewhere.  Both give the same states."""
+    return kops.spec_match if device.type == "cuda" else match_chunks_lanes
+
+
 class PaperSpecEngine:
     """End-to-end speculative membership test for one DFA (paper reference).
 
@@ -152,8 +160,10 @@ class PaperSpecEngine:
     mode         : "lookahead" | "basic" | "holub".
     partition    : "balanced" (paper Eqs. 2-7) | "uniform" (SPMD lanes).
     weights      : optional per-processor capacity weights (Eq. 1).
-    matcher      : optional replacement for the chunk matcher
-                   (``kernels.ops.spec_match`` runs the CUDA kernels).
+    matcher      : optional replacement for the chunk matcher; by default
+                   the CUDA kernels (``kernels.ops.spec_match``) on a card
+                   and ``match_chunks_lanes`` on the CPU
+                   (``default_matcher``).
     lookahead_r  : runtime lookahead depth, 1 or 2 (lookahead mode).
     device       : where the tables live and matching runs: the card
                    unless the caller names another (raises without one).
@@ -181,7 +191,7 @@ class PaperSpecEngine:
             raise ValueError("weights must have one entry per chunk")
         self.tables: LookaheadTables = build_lookahead_tables(
             dfa, r=self.lookahead_r)
-        self.matcher: MatcherFn = matcher or match_chunks_lanes
+        self.matcher: MatcherFn = matcher or default_matcher(self.device)
 
         put = lambda x: torch.as_tensor(np.asarray(x, np.int32),
                                         device=self.device)

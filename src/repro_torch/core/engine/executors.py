@@ -101,6 +101,22 @@ class LaneExecutor:
             return self._eager(self._seq_body, plan)
         raise NotImplementedError("spec plans need a backend lowering")
 
+    def invalidate_block_sizes(self) -> None:
+        """Drop the programs that baked a ``spec_l_blk`` choice.
+
+        The observed-traffic retune (``Matcher.maybe_retune``) updates
+        ``spec_l_blk`` after construction; only the kernel lowerings read it
+        (when a plan is lowered), so only entries whose kind starts with
+        ``spec-kernel`` drop.  Seq scans, the eager spec stages and the
+        compose lowerings keep their programs, and the new block takes
+        effect on the next dispatch of each shape.
+        """
+        stale = [key for key, kind in self.lowering_kinds.items()
+                 if kind.startswith("spec-kernel")]
+        for key in stale:
+            self._lowered.pop(key, None)
+            self.lowering_kinds.pop(key, None)
+
     def retable(self, tables: DeviceTables) -> None:
         """Swap the matcher tables underneath the executor (the hot pattern
         swap, ``Matcher.swap_patterns``).

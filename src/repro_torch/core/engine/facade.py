@@ -97,6 +97,14 @@ class Matcher:
                    backend's layout keywords; ``backend="sharded"`` is not
                    ported, and the single-device backends refuse them with
                    the reference's ``ValueError``.
+    autotune     : opt-in shape autotuner (``core.profiling
+                   .autotune_spec_shapes``): times candidate ``(num_chunks,
+                   l_blk)`` configurations on a synthetic probe workload on
+                   ``device`` at construction and applies the winner
+                   (``l_blk`` on the cuda backend only).  Results cache per
+                   (dfa, candidates, device, backend) key, on disk when
+                   ``$REPRO_AUTOTUNE_CACHE`` points at a JSON path;
+                   ``maybe_retune`` re-tunes on observed traffic.
     device       : where the tensors live; ``None`` is the CUDA card and
                    raises ``RuntimeError`` when there is none.
     """
@@ -117,9 +125,6 @@ class Matcher:
         if backend == "sharded":
             raise NotImplementedError("backend='sharded' is not ported yet "
                                       "(ROADMAP A14)")
-        if autotune:
-            raise NotImplementedError("autotune is not ported yet "
-                                      "(ROADMAP A10)")
         # the sharded-only keywords, refused as the reference refuses them
         if capacities is not None:
             raise ValueError("capacities only apply to the sharded backend")
@@ -146,6 +151,15 @@ class Matcher:
         self.dev = DeviceTables.build(packed, lookahead_r=lookahead_r,
                                       device=self.device)
         self.pad_cls = self.dev.pad_cls
+        self.autotune = bool(autotune)
+        self._tuned = None
+        if self.autotune:
+            from ..profiling import autotune_spec_shapes
+            self._tuned = autotune_spec_shapes(
+                packed, backend=backend,
+                num_chunks_candidates=sorted({4, 8, int(num_chunks)}),
+                lookahead_r=lookahead_r, device=self.device)
+            num_chunks = self._tuned.num_chunks
         self.planner = Planner(num_chunks=num_chunks, max_buckets=max_buckets)
         self.executor = LocalExecutor(
             self.dev, num_chunks=self.planner.num_chunks,
@@ -153,7 +167,18 @@ class Matcher:
             early_exit_segments=early_exit_segments)
         self.n_devices = 1
         self.num_chunks = self.planner.num_chunks
+        if self._tuned is not None and self._tuned.l_blk:
+            self.executor.spec_l_blk[0] = int(self._tuned.l_blk)  # default key
         self.compose_calls = 0  # compose_lane_maps dispatches
+        # observed-traffic accounting: every dispatched tile feeds a bounded
+        # (fill, length) reservoir; maybe_retune re-runs the autotuner on a
+        # probe shaped like this traffic once it drifts from what the
+        # current shapes were tuned on (the synthetic probe at cold start)
+        from ..profiling import TrafficProfile, synthetic_traffic
+        self.traffic = TrafficProfile()
+        self._tuned_traffic = (synthetic_traffic()
+                               if self._tuned is not None else None)
+        self.retunes = 0
 
     @staticmethod
     def _pack_source(source) -> PackedDFA:
@@ -198,6 +223,61 @@ class Matcher:
         self.pad_cls = self.dev.pad_cls
         self.planner.table_epoch += 1
         self.executor.retable(self.dev)
+        return True
+
+    # -- observed-traffic autotuning -----------------------------------------
+
+    def traffic_profile(self):
+        """Signature of the traffic dispatched so far (``ObservedTraffic``),
+        or None before any dispatch."""
+        return self.traffic.snapshot()
+
+    def maybe_retune(self, *, drift_threshold: float = 1.0,
+                     min_docs: int = 64, force: bool = False,
+                     time_fn=None) -> bool:
+        """Re-run the shape autotuner on the *observed* traffic when it has
+        drifted from what the current shapes were tuned on.
+
+        The construction-time tune measured a synthetic probe (8 x 2048-byte
+        documents); once real dispatches have accumulated ``min_docs``
+        documents and their ``ObservedTraffic`` signature has drifted
+        ``drift_threshold`` doublings or more (median length or tile fill,
+        ``ObservedTraffic.drift``) from the last-tuned traffic, the tuner
+        re-times candidates on a probe corpus shaped like the real traffic
+        and applies the winning ``l_blk``: the one shape axis that can move
+        after construction (``num_chunks`` is baked into the planner and
+        executor; the tuned value still lands in
+        ``perf_report()["autotune"]`` for the next cold start, and the disk
+        cache remembers it).  The kernel lowerings that read the old block
+        drop (``LaneExecutor.invalidate_block_sizes``).  Returns True iff a
+        retune ran.  ``force`` skips the drift gate (not the traffic
+        requirement); ``time_fn`` is the autotuner's deterministic
+        measurement override for tests.  Requires ``autotune=True`` at
+        construction; call it between batches, never mid-dispatch.
+
+        Decisions and final states stay bit-identical across a retune; the
+        kernel lowering's early-exit counters are block-granular, so
+        ``early_exits`` and ``kernel_skipped_steps`` may move.
+        """
+        if not self.autotune:
+            raise ValueError("maybe_retune requires Matcher(autotune=True)")
+        obs = self.traffic.snapshot()
+        if obs is None or self.traffic.n_docs < int(min_docs):
+            return False
+        if not force and self._tuned_traffic is not None \
+                and self._tuned_traffic.drift(obs) < float(drift_threshold):
+            return False
+        from ..profiling import autotune_spec_shapes
+        self._tuned = autotune_spec_shapes(
+            self.packed, backend=self.backend,
+            num_chunks_candidates=sorted({4, 8, int(self.num_chunks)}),
+            lookahead_r=self._lookahead_r, observed=obs, time_fn=time_fn,
+            device=self.device)
+        self._tuned_traffic = obs
+        self.retunes += 1
+        if self._tuned.l_blk:
+            self.executor.spec_l_blk[0] = int(self._tuned.l_blk)
+            self.executor.invalidate_block_sizes()
         return True
 
     def classes(self, doc: bytes | np.ndarray) -> np.ndarray:
@@ -331,6 +411,7 @@ class Matcher:
                     lens[r] = lengths[i]
                 if tile_hook is not None:
                     tile_hook(bucket, layout, sel, lens)
+                self.traffic.record(n, lengths[sel])
                 ent = ecls = None
                 if entry_mode == ENTRY_STATES:
                     # pad rows scan from the pattern starts (ignored)
@@ -476,8 +557,8 @@ class Matcher:
         """The lowering chosen per plan (compose lowerings included), the
         in-kernel early-exit skip count, the compose dispatch count, the
         resolved boundary-key depth and lane width (``None`` until the
-        lookahead analysis has run).  Keys of features not ported yet keep
-        ``None`` or 0."""
+        lookahead analysis has run), the autotuner's choice, the retune
+        count and the observed traffic (``None`` before any dispatch)."""
         rep: dict = {
             "backend": self.backend,
             "spec_r": None,
@@ -488,7 +569,8 @@ class Matcher:
             "kernel_skipped_steps": self.executor.kernel_skipped_steps(),
             "table_epoch": self.planner.table_epoch,
             "prefilter_skipped_blocks": None,
-            "autotune": None,
+            "autotune": dataclasses.asdict(self._tuned)
+                        if self._tuned is not None else None,
             # which lowering compose_lane_maps (the OOO gap-close bulk path)
             # rode: "compose-kernel-{carry,tree}" on the cuda backend,
             # "compose-scan" on local; None until the first compose dispatch
@@ -496,9 +578,17 @@ class Matcher:
                 (kind for kind in self.executor.lowering_kinds.values()
                  if kind.startswith("compose")), None),
             "compose_calls": self.compose_calls,
-            "retunes": 0,
+            "retunes": self.retunes,
             "traffic": None,
         }
+        obs = self.traffic.snapshot()
+        if obs is not None:
+            rep["traffic"] = {
+                "n_tiles": self.traffic.n_tiles,
+                "n_docs": self.traffic.n_docs,
+                "batch": obs.batch,
+                "median_len": int(np.median(obs.lengths)),
+            }
         if "tables" in self.dev.__dict__:  # lookahead analysis already ran
             rep["spec_r"] = self.dev.spec_r
             rep["lane_width"] = self.dev.i_max

@@ -29,6 +29,9 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.configs, repro_torch.launch.serve\n"
             "import repro_torch.distributed, repro_torch.training\n"
             "import repro_torch.streaming.ooo.checkpoint\n"
+            "import repro_torch.data, repro_torch.data.corpus\n"
+            "import repro_torch.data.filter, repro_torch.data.loader\n"
+            "import repro_torch.data.tokenizer\n"
             "assert 'msgpack' not in sys.modules, 'msgpack was imported'\n"
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'the JAX package was imported'\n"
@@ -107,8 +110,13 @@ def test_matcher_unported_options_raise():
         Matcher(dfa, backend="pallas", device="cpu")
     with pytest.raises(NotImplementedError, match="A14"):
         Matcher(dfa, backend="sharded", device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        Matcher(dfa, autotune=True, device="cpu")
+    # the autotuner is ported: a tune on the CPU, reported as the JAX
+    # package reports it
+    tuned = Matcher(dfa, autotune=True, device="cpu").perf_report()[
+        "autotune"]
+    assert set(tuned) == {"num_chunks", "mesh_shape", "l_blk",
+                          "us_per_call", "source"}
+    assert tuned["source"] in ("measured", "cache")
     m = Matcher(dfa, device="cpu")
     # the hot swap is ported: an equal table is a no-op, a new one swaps
     assert m.swap_patterns(dfa) is False
