@@ -155,6 +155,23 @@ Phases (any mismatch raises, so the exit code is non-zero):
      device idle share of one ``filter()`` pass; (c) the rules and 15(b)'s
      literals up to K = 512 in blocks of 32, prefilter on and off, over
      2,048 documents with planted literals, equal to ``re``;
+ 18. the sharded backend (``Matcher(backend="sharded")``, B6 scans, B3
+     folds) over phase 3's corpus: (a) mesh (1, 1), a world of one on NCCL
+     in this process: finals equal ``backend="cuda"``'s, B6 and B3 launched
+     inside the call and held bit for bit against their plain versions at
+     one tile's operands (CUDA-event and device ms, bound, share), warm
+     calls in turns against ``backend="cuda"``, the device idle share; (b)
+     mesh (2, 2) as four processes sharing the card over gloo (``python3
+     chip_smoke.py --phase18-child ...``, each under a time limit; the
+     kernels built here are only loaded there): uniform, then
+     ``capacities=synthetic_capacities(4, ratio=1.41)``, then
+     ``rebalance`` to a permuted profile, each first and warm call timed,
+     finals equal ``backend="cuda"``'s, per rank the device work against
+     the Eq. 1 weights and the bytes and ms of the lane-state gathers over
+     "chunk" and the row collections over "doc"; (c) phase 16(a)'s 256
+     sessions on the (2, 2) matcher snapshot mid-stream (one rank writes)
+     and restored on (a)'s (1, 1) matcher and on ``backend="cuda"``, closed
+     results equal the whole documents';
   then print the kernels line and the result line.
 
 Only ``repro_torch``, torch and numpy are imported.  Without a CUDA device,
@@ -245,6 +262,9 @@ STREAM17 = (256, 1024, 64, 8)        # 17(b): open downloads, chunk bytes,
                                      # max_batch, max_delay
 DOCOK17 = 256                        # 17(b): document_ok documents
 BLOCKED17 = (512, 32, 2048)          # 17(c): K, k_blk, documents
+MESH18 = (2, 2)                      # 18(b): the spawned world's mesh
+RATIO18 = 1.41                       # 18(b): the fast half's capacity
+CHILD18_S = 240                      # 18(b): each rank's time limit, s
 RESIDUES = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
 
 # one planted occurrence of every PCRE-14 pattern (re.search-verified)
@@ -416,18 +436,22 @@ def run_streams(ooo, docs, plans, seg_len):
     return [s.close() for s in streams]
 
 
-def kernel_device_ms(fn, name, iters):
+def kernel_device_ms(fn, name, iters, margin=0.0):
     """Mean device time of one launch of the kernels whose name contains
     ``name``, over ``iters`` calls of ``fn`` under torch.profiler (None if
-    the profiler recorded none)."""
+    the profiler recorded none); ``margin`` idle seconds inside the
+    profile before and after, as ``device_busy`` takes them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(margin)
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+        time.sleep(margin)
     us, n = 0.0, 0
     for ev in prof.key_averages():
         if name in ev.key and ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -2465,6 +2489,404 @@ def phase17_autotune_and_filter(rng, ps, docs, want3):
     phase17c_blocked(rng, corpus, keep)
 
 
+def stream_pieces(rng, docs):
+    """Phase 16(a)'s sessions over ``docs`` (the last ``KEYED16`` keyed
+    after ``HEAD16`` bytes): each body's cut points into four ragged parts
+    ([N, 5]) and which sessions keep part 2 pending at the snapshot."""
+    n_exact = len(docs) - KEYED16
+    bodies = docs[:n_exact] + [d[HEAD16:] for d in docs[n_exact:]]
+    cuts = np.array([parts4(rng, len(b)) for b in bodies], np.int64)
+    late = np.array([i % 3 == 2 for i in range(len(docs))])
+    return cuts, late
+
+
+def sessions_first_half(sm, docs, cuts, late):
+    """Open phase 16(a)'s sessions on ``sm``, feed parts 1 and 2 with
+    part 2 of every third session still pending; returns the sessions."""
+    n_exact = len(docs) - KEYED16
+    keys = [sm.matcher.dev.advance_key(-1, d[:HEAD16])
+            for d in docs[n_exact:]]
+    bodies = docs[:n_exact] + [d[HEAD16:] for d in docs[n_exact:]]
+    sessions = ([sm.open() for _ in range(n_exact)]
+                + [sm.open_at(k) for k in keys])
+    for sess, b, c in zip(sessions, bodies, cuts):
+        sess.feed(b[c[0]:c[1]])
+    sm.flush()
+    for sess, b, c, lt in zip(sessions, bodies, cuts, late):
+        if not lt:
+            sess.feed(b[c[1]:c[2]])
+    sm.flush()
+    for sess, b, c, lt in zip(sessions, bodies, cuts, late):
+        if lt:
+            sess.feed(b[c[1]:c[2]])
+    return sessions
+
+
+def phase18_child(argv):
+    """One rank of phase 18(b)'s (2, 2) world (``python3 chip_smoke.py
+    --phase18-child rank world store data out snapshot_dir``): four
+    processes share the card over gloo.  Writes its measurements as JSON."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import PCRE_PATTERNS, Matcher, PatternSet
+    from repro_torch.core.profiling import (profile_workers,
+                                            synthetic_capacities)
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.streaming import StreamMatcher, TickPolicy
+
+    rank, world = int(argv[0]), int(argv[1])
+    store, data_path, out_path, snap_dir = argv[2:6]
+    os.environ["LOCAL_RANK"] = str(rank)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(
+                                seconds=CHILD18_S))
+    try:
+        _build.build_all()   # the parent's build: loaded, not compiled
+        z = np.load(data_path)
+        off = z["off"]
+        docs = [bytes(z["docs"][a:b]) for a, b in zip(off[:-1], off[1:])]
+        want = z["want"]
+        ps = PatternSet(PCRE_PATTERNS, k_blk=64)
+        dev = None if DEVICE == "cuda" else DEVICE   # None: LOCAL_RANK's card
+        mesh = lmesh.make_matcher_mesh(shape=MESH18, device=dev)
+        gathers = {}
+        plain_gather = lmesh.all_gather_rows
+
+        def timed_gather(mesh_, x, axis=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = plain_gather(mesh_, x, axis)
+            torch.cuda.synchronize()
+            g = gathers.setdefault(axis or "mesh", [0, 0, 0.0])
+            g[0] += 1
+            g[1] += x.numel() * x.element_size()
+            g[2] += time.perf_counter() - t0
+            return y
+
+        def call(m, tag, out):
+            res, wall = synced(lambda: m.membership_batch(docs))
+            check(np.array_equal(res.final_states, want),
+                  f"[18b] rank {rank} {tag}: finals differ from "
+                  "backend='cuda'")
+            out[tag] = wall
+            return res
+
+        def measured(m, caps):
+            """First call, warm call, then a call with timed gathers and
+            counted launches."""
+            out = {}
+            call(m, "first_s", out)
+            call(m, "warm_s", out)
+            gathers.clear()
+            reset_kernel_launches()
+            lmesh.all_gather_rows = timed_gather
+            try:
+                res = call(m, "timed_s", out)
+            finally:
+                lmesh.all_gather_rows = plain_gather
+            out["launches"] = {k: v for k, v in kernel_launches().items()
+                               if v}
+            out["gathers"] = {k: list(v) for k, v in gathers.items()}
+            out["tiles"] = res.bucket_calls
+            out["device_work"] = res.device_work.tolist()
+            out["weights"] = (profile_workers(caps).tolist()
+                              if caps is not None else [1.0] * world)
+            return out
+
+        rep = {"rank": rank}
+        kw = dict(backend="sharded", mesh=mesh, num_chunks=8, batch_tile=64,
+                  device=dev)
+        m = Matcher(ps, **kw)
+        rep["mesh"] = m.perf_report()["mesh"]
+        rep["uniform"] = measured(m, None)
+        caps = synthetic_capacities(world, ratio=RATIO18)
+        mw = Matcher(ps, capacities=caps, **kw)
+        rep["weighted"] = measured(mw, caps)
+        caps2 = np.roll(caps, 1)
+        mw.rebalance(caps2)
+        rep["rebalanced"] = measured(mw, caps2)
+        # (c): phase 16(a)'s sessions, snapshot mid-stream, one writer
+        sm = StreamMatcher(Matcher(ps, **kw), lane_ticks=True,
+                           policy=TickPolicy(max_batch=1 << 30,
+                                             max_delay=1 << 30))
+        sessions = sessions_first_half(sm, docs, z["cuts"], z["late"])
+        path, rep["snapshot_s"] = synced(lambda: sm.snapshot(snap_dir))
+        rep["sids"] = [s.sid for s in sessions]
+        rep["snapshot_seen"] = os.path.isdir(path)
+        with open(out_path, "w") as fh:
+            json.dump(rep, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase18a_mesh11(ps, docs, want3, m3):
+    """(a) The sharded backend on a (1, 1) mesh: a world of one on NCCL in
+    this process.  B6 and B3 launch inside the call and equal their plain
+    versions at one tile's operands."""
+    import torch
+    from repro_torch.core import Matcher
+    from repro_torch.kernels import dfa_match, lvec_compose
+
+    n_bytes = sum(len(d) for d in docs)
+    # device None: the card, and a world of one on NCCL
+    ms = Matcher(ps, backend="sharded", num_chunks=8, batch_tile=64,
+                 device=None if DEVICE == "cuda" else DEVICE)
+    mesh = ms.perf_report()["mesh"]
+    check(mesh["transport"] == ("nccl" if DEVICE == "cuda" else "gloo")
+          and mesh["shape"] == [1, 1], f"[18a] mesh {mesh}")
+    res, first = synced(lambda: ms.membership_batch(docs))
+    check(np.array_equal(res.final_states, want3),
+          "[18a] finals differ from backend='cuda'")
+    # the counted call, recording the first tile's B6 and B3 operands
+    seen = {}
+    b6, b3 = dfa_match.spec_match_cuda, lvec_compose.spec_compose_lanes_cuda
+
+    def rec6(*a, **kw):
+        seen.setdefault("b6", tuple(x.clone() for x in a))
+        return b6(*a, **kw)
+
+    def rec3(*a, **kw):
+        seen.setdefault("b3", (tuple(x.clone() for x in a), kw))
+        return b3(*a, **kw)
+
+    dfa_match.spec_match_cuda = rec6
+    lvec_compose.spec_compose_lanes_cuda = rec3
+    reset_kernel_launches()
+    try:
+        res, wall = synced(lambda: ms.membership_batch(docs))
+    finally:
+        dfa_match.spec_match_cuda = b6
+        lvec_compose.spec_compose_lanes_cuda = b3
+    counts = kernel_launches()
+    check(np.array_equal(res.final_states, want3),
+          "[18a] finals differ from backend='cuda'")
+    check(counts["spec_match"] > 0 and counts["spec_compose_lanes"] > 0
+          and counts["onehot_block_maps"] == 0
+          and counts["spec_match_merge"] == 0,
+          f"[18a] the sharded path did not ride B6 and B3 alone: {counts}")
+    kinds = sorted(set(ms.perf_report()["lowerings"].values()))
+    print(f"[18a] Matcher(PCRE-14, backend='sharded') on mesh (1, 1), "
+          f"transport {mesh['transport']}, device {mesh['device']}: first "
+          f"call {first:.4f} s, counted call {wall:.4f} s, {res.bucket_calls}"
+          f" tiles; launches: {launched(counts)}; lowerings {kinds}; "
+          f"collectives {ms.perf_report()['mesh']['collectives']}; finals "
+          f"equal backend='cuda'")
+    # warm calls, in turns: cuda, sharded, sharded, cuda
+    times = {"cuda": [], "sharded": []}
+    for name, m in (("cuda", m3), ("sharded", ms), ("sharded", ms),
+                    ("cuda", m3)):
+        _, t = synced(lambda: m.membership_batch(docs))
+        times[name].append(t)
+    tc, ts = min(times["cuda"]), min(times["sharded"])
+    print(f"[18a] warm calls (cuda, sharded, sharded, cuda): "
+          f"{times['cuda'][0]:.4f}, {times['sharded'][0]:.4f}, "
+          f"{times['sharded'][1]:.4f}, {times['cuda'][1]:.4f} s; sharded "
+          f"{len(docs) / ts:.1f} docs/s, {n_bytes / ts / 1e6:.1f} MB/s "
+          f"against cuda {n_bytes / tc / 1e6:.1f} MB/s: ratio "
+          f"{ts / tc:.2f}")
+    device_busy(lambda: ms.membership_batch(docs), "[18a]",
+                margin=PROFILE_MARGIN_S)
+    # B6 and B3 against their plain versions at the tile's operands
+    table, chunks, init = seen["b6"]
+    want = dfa_match.spec_match_torch(table, chunks, init)
+    got = b6(table, chunks, init)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "[18a] B6 differs from its plain version")
+    ms6 = cuda_ms(lambda: b6(table, chunks, init), 20)
+    plain6 = cuda_ms(lambda: dfa_match.spec_match_torch(table, chunks, init),
+                     1)
+    # late in a long process the profiler drops records without margins
+    dev6 = kernel_device_ms(lambda: b6(table, chunks, init), "spec_scan", 20,
+                            margin=PROFILE_MARGIN_S)
+    (c, l), s = chunks.shape, init.shape[1]
+    bound6, by6, steps = spec_bound(c, s, l, *table.shape)
+    print(f"[18a] B6 spec_match at the tile's operands, C = {c} rows (8 "
+          f"chunks x 64 docs) x S = {s} lanes x L = {l}: kernel "
+          f"{ms6:.4f} ms ({device_share(dev6, bound6)}), plain "
+          f"{plain6:.2f} ms, bound {bound6:.5f} ms ({by6}; {steps} "
+          f"lane-steps), CUDA-event share {bound6 / ms6:.3f}; equal")
+    (lanes, keys, cidx, sinks), kw = seen["b3"]
+    want = lvec_compose.spec_compose_lanes_torch(lanes, keys, cidx, sinks,
+                                                 **kw)
+    got = b3(lanes, keys, cidx, sinks, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "[18a] B3 differs from its plain version")
+    ms3 = cuda_ms(lambda: b3(lanes, keys, cidx, sinks, **kw), 20)
+    plain3 = cuda_ms(lambda: lvec_compose.spec_compose_lanes_torch(
+        lanes, keys, cidx, sinks, **kw), 1)
+    dev3 = kernel_device_ms(lambda: b3(lanes, keys, cidx, sinks, **kw),
+                            "compose_carry", 20, margin=PROFILE_MARGIN_S)
+    nb, nn, k, s = lanes.shape
+    real = int((keys[:, 1:] != kw["pad_key"]).sum())
+    combines = real * k * s
+    t_bytes = 4 * ((nb + real) * k * s + keys.numel() + nb * k * s
+                   + min(cidx.numel(), combines)) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * combines / SMEM_LOADS_PER_S * 1e3
+    bound3 = max(t_bytes, t_ops)
+    print(f"[18a] B3 spec_compose_lanes at the tile's operands, B = {nb} "
+          f"x N = {nn} x K = {k} x S = {s} ({real} real combines): kernel "
+          f"{ms3:.4f} ms ({device_share(dev3, bound3)}), plain "
+          f"{plain3:.3f} ms, bound {bound3:.5f} ms "
+          f"({'bytes' if t_bytes >= t_ops else 'operations'}), CUDA-event "
+          f"share {bound3 / ms3:.3f}; equal")
+    return ms
+
+
+def phase18b_mesh22(ps, docs, want3, tmp):
+    """(b) Mesh (2, 2): four processes share the card over gloo; (c)'s
+    snapshot is taken in the same spawn."""
+    n = MESH18[0] * MESH18[1]
+    data = os.path.join(tmp, "want.npz")
+    off = np.concatenate([[0], np.cumsum([len(d) for d in docs])])
+    cuts, late = stream_pieces(np.random.default_rng(SEED + 18), docs)
+    np.savez(data, docs=np.frombuffer(b"".join(docs), np.uint8), off=off,
+             want=want3, cuts=cuts, late=late)
+    env = {**os.environ, "PYTHONUNBUFFERED": "1"}
+    snap = os.path.join(tmp, "snapshot")
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(n)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phase18-child",
+         str(r), str(n), os.path.join(tmp, "store"), data,
+         os.path.join(tmp, f"rank{r}.json"), snap], env=env, cwd=ROOT,
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(n)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(CHILD18_S - (time.perf_counter() - t0), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    spawn_s = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        check(p.returncode == 0, f"[18b] rank {r} exited {p.returncode}:\n"
+              + text[-4000:])
+    reps = []
+    for r in range(n):
+        with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+            reps.append(json.load(fh))
+    print(f"[18b] mesh {MESH18}: {n} processes sharing the card over gloo "
+          f"(lane states staged through host memory), spawn to exit "
+          f"{spawn_s:.1f} s; every call's finals equal backend='cuda'")
+    for rep in reps:
+        mesh = rep["mesh"]
+        check(mesh["transport"] == "gloo" and mesh["shape"] == list(MESH18),
+              f"[18b] mesh {mesh}")
+        for tag in ("uniform", "weighted", "rebalanced"):
+            c = rep[tag]
+            r = rep["rank"]
+            work = np.asarray(c["device_work"], np.float64)
+            w = np.asarray(c["weights"])
+            check(c["launches"].get("spec_match", 0) > 0
+                  and c["launches"].get("spec_compose_lanes", 0) > 0
+                  and "onehot_block_maps" not in c["launches"],
+                  f"[18b] rank {r} {tag}: launches {c['launches']}")
+            g = c["gathers"]
+            check(set(g) == {"chunk", "doc"} and g["chunk"][0] == c["tiles"]
+                  and g["doc"][0] == c["tiles"],
+                  f"[18b] rank {r} {tag}: collectives {g}")
+            print(f"[18b] rank {r} at {mesh['coordinate']} {tag}: first "
+                  f"{c['first_s']:.4f} s, warm {c['warm_s']:.4f} s; device "
+                  f"work share {work[r] / work.sum():.4f} against Eq. 1 "
+                  f"weight share {w[r] / w.sum():.4f}; lane-state gathers "
+                  f"{g['chunk'][0]} x {g['chunk'][1] // g['chunk'][0]} B, "
+                  f"{g['chunk'][2] / g['chunk'][0] * 1e3:.3f} ms a tile; row "
+                  f"collections {g['doc'][0]} x "
+                  f"{g['doc'][1] // g['doc'][0]} B, "
+                  f"{g['doc'][2] / g['doc'][0] * 1e3:.3f} ms; launches "
+                  f"{c['launches']}")
+    check(all(rep["snapshot_seen"] and rep["sids"] == reps[0]["sids"]
+              for rep in reps), "[18c] the snapshot was not seen by every "
+          "rank")
+    check(os.listdir(snap) == ["step_00000000"],
+          f"[18c] snapshot directory {os.listdir(snap)}")
+    print(f"[18c] (2, 2) snapshot of {len(reps[0]['sids'])} sessions "
+          f"published by rank 0 in {reps[0]['snapshot_s']:.4f} s")
+    return snap, reps[0]["sids"], cuts, late
+
+
+def phase18c_failover(ps, docs, want3, m3, ms11, snap, sids, cuts):
+    """(c) The (2, 2) world's snapshot restored on (a)'s (1, 1) mesh and on
+    ``backend="cuda"``; closed results equal the whole documents'."""
+    from repro_torch.core import Matcher
+    from repro_torch.streaming import StreamMatcher, TickPolicy
+
+    n_exact = len(docs) - KEYED16
+    lazy = TickPolicy(max_batch=1 << 30, max_delay=1 << 30)
+    bodies = docs[:n_exact] + [d[HEAD16:] for d in docs[n_exact:]]
+    keys = [m3.dev.advance_key(-1, d[:HEAD16]) for d in docs[n_exact:]]
+    heads = m3.advance_segments(
+        [d[:HEAD16] for d in docs[n_exact:]],
+        np.tile(m3.packed.starts, (KEYED16, 1))).final_states
+    cidx = m3.dev.cidx_pad_t.cpu().numpy()
+    maps_by = {}
+    for label, matcher in (("(1, 1) sharded", ms11),
+                           ("backend='cuda'", Matcher(
+                               ps, num_chunks=8, batch_tile=64,
+                               device=DEVICE))):
+        sm = StreamMatcher(matcher, lane_ticks=True, policy=lazy)
+        by_sid, rest_s = synced(lambda: {s.sid: s for s in
+                                         sm.restore(snap)})
+        got = [by_sid[i] for i in sids]
+        reset_kernel_launches()
+        _, first = synced(sm.flush)
+        for j in (2, 3):
+            for sess, b, c in zip(got, bodies, cuts):
+                sess.feed(b[c[j]:c[j + 1]])
+            sm.flush()
+        counts = kernel_launches()
+        fin = np.stack([s.close().final_states for s in got[:n_exact]])
+        maps = np.stack([sm.close_map(s).lane_states for s in got[n_exact:]])
+        check(np.array_equal(fin, want3[:n_exact]),
+              f"[18c] {label}: closed sessions differ from membership_batch")
+        # each keyed map, read at the head's true states, is the document's
+        lane = cidx[np.asarray(keys)[:, None], heads]
+        check((lane >= 0).all() and np.array_equal(
+            np.take_along_axis(maps, lane[:, :, None], axis=2)[:, :, 0],
+            want3[n_exact:]), f"[18c] {label}: close_map differs")
+        maps_by[label] = maps
+        print(f"[18c] restored on {label}: restore {rest_s:.4f} s, first "
+              f"tick {first:.4f} s; launches {launched(counts)}; closed "
+              "results equal the whole documents'")
+    a, b = maps_by.values()
+    check(np.array_equal(a, b), "[18c] close_map differs between meshes")
+
+
+def phase18_sharded(ps, docs, want3, m3):
+    """The sharded backend on the card: (a) mesh (1, 1) on NCCL here, (b)
+    mesh (2, 2) as four processes over gloo, (c) failover across them."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    ms11 = phase18a_mesh11(ps, docs, want3, m3)
+    print(f"[18a] in {time.perf_counter() - t0:.1f} s")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke18_")
+    try:
+        t0 = time.perf_counter()
+        snap, sids, cuts, _ = phase18b_mesh22(ps, docs, want3, tmp)
+        print(f"[18b] in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase18c_failover(ps, docs, want3, m3, ms11, snap, sids, cuts)
+        print(f"[18c] in {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if dist.is_initialized():   # (a)'s world of one
+            dist.destroy_process_group()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3001,6 +3423,11 @@ def main() -> int:
     phase17_autotune_and_filter(np.random.default_rng(SEED + 17), ps, docs,
                                 want3)
     print(f"[17] phase 17 in {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 18: the sharded backend ----------------------------------------
+    t0 = time.perf_counter()
+    phase18_sharded(ps, docs, want3, m)
+    print(f"[18] phase 18 in {time.perf_counter() - t0:.1f} s")
     for name in kernels:
         kernels[name]["launches"] = counts[name]
 
@@ -3013,4 +3440,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase18-child"]:
+        sys.exit(phase18_child(sys.argv[2:]))
     sys.exit(main())

@@ -6,8 +6,9 @@ from .automata import (DFA, NFA, PackedDFA, make_search_dfa, pack_dfas,
 from .determinize import compile_prosite, compile_regex, minimize, nfa_to_dfa
 from .engine import (BatchMatcher, BatchResult, BlockedMatcher, ChunkLayout,
                      CursorBatchResult, DeviceTables, Matcher, MatchPlan,
-                     MatchResult, Planner, SegmentBatchResult, SpecDFAEngine,
-                     match_chunks_lanes, sequential_state)
+                     MatchResult, MeshLayout, Planner, SegmentBatchResult,
+                     ShardedExecutor, SpecDFAEngine, match_chunks_lanes,
+                     sequential_state)
 from .lookahead import (LookaheadTables, PackedLookaheadTables,
                         build_lookahead_tables, build_packed_lookahead_tables,
                         i_max_r, i_sigma_sets)
@@ -25,7 +26,8 @@ __all__ = [
     "compile_regex", "compile_prosite", "minimize", "nfa_to_dfa",
     "MatchResult", "BatchResult", "SegmentBatchResult", "CursorBatchResult",
     "SpecDFAEngine", "BatchMatcher", "Matcher", "BlockedMatcher",
-    "MatchPlan", "Planner", "ChunkLayout", "DeviceTables",
+    "MatchPlan", "Planner", "ChunkLayout", "MeshLayout", "DeviceTables",
+    "ShardedExecutor",
     "match_chunks_lanes", "sequential_state", "merge_scan_torch",
     "LookaheadTables", "PackedLookaheadTables", "build_lookahead_tables",
     "build_packed_lookahead_tables", "i_max_r", "i_sigma_sets",

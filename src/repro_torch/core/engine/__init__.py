@@ -1,13 +1,17 @@
 """Layered plan/executor matching runtime on PyTorch.
 
     plan.py       Planner layer: spec-vs-seq split, sticky shape buckets,
-                  uniform chunk layouts, ``DeviceTables`` and the
-                  ``LanePlan`` every lowering runs.  Pure numpy apart from
-                  the device tables.
-    executors.py  ``LaneExecutor`` stages (classify, entry seed, segmented
-                  early-exit scan, cursor merge, bulk compose) and
-                  ``LocalExecutor``: the torch-eager lowering and the CUDA
-                  kernel lowering.
+                  chunk layouts (uniform or capacity-weighted by Eqs. 1-7;
+                  ``MeshLayout`` per doc row-block), ``DeviceTables`` and
+                  the ``LanePlan`` every lowering runs.  Pure numpy apart
+                  from the device tables.
+    executors.py  ``Executor`` protocol, ``LaneExecutor`` stages (classify,
+                  entry seed, segmented early-exit scan, cursor merge, bulk
+                  compose) and ``LocalExecutor``: the torch-eager lowering
+                  and the CUDA kernel lowering.
+    sharded.py    ``ShardedExecutor``: the ("doc", "chunk") mesh lowering,
+                  one SPMD program per rank (B6 scans each rank's chunks,
+                  lane states all-gathered over "chunk", B3 folds).
     facade.py     ``Matcher``: ``membership_batch``, ``advance_segments``,
                   ``advance_cursors``, ``compose_lane_maps``,
                   ``swap_patterns``; ``BatchMatcher`` compat shim.
@@ -23,12 +27,14 @@
 
 from .baselines import PaperSpecEngine
 from .blocked import BlockedMatcher
-from .executors import LaneExecutor, LocalExecutor, NO_EXIT
+from .executors import Executor, LaneExecutor, LocalExecutor, NO_EXIT
 from .facade import (BatchMatcher, BatchResult, CursorBatchResult, Matcher,
                      SegmentBatchResult)
 from .plan import (ENTRY_LANES, ENTRY_STARTS, ENTRY_STATES, BucketPlan,
-                   ChunkLayout, DeviceTables, LanePlan, MatchPlan, Planner,
-                   next_pow2, resolve_device)
+                   ChunkLayout, DeviceTables, LanePlan, MatchPlan,
+                   MeshLayout, Planner, expand_device_weights,
+                   layout_device_work, next_pow2, resolve_device)
+from .sharded import ShardedExecutor
 from .spec import (VPU_LANES, MatcherFn, MatchResult, SpecDFAEngine,
                    match_chunks_lanes, sequential_state)
 
@@ -40,4 +46,6 @@ __all__ = [
     "resolve_device", "Planner", "MatchPlan", "BucketPlan", "ChunkLayout",
     "DeviceTables", "LanePlan", "ENTRY_STARTS", "ENTRY_STATES", "ENTRY_LANES",
     "next_pow2", "LaneExecutor", "LocalExecutor", "NO_EXIT",
+    "MeshLayout", "expand_device_weights", "layout_device_work",
+    "Executor", "ShardedExecutor",
 ]

@@ -4,8 +4,8 @@ The planner describes the matching loop once as a ``LanePlan`` (classify ->
 entry-seed -> chunk-scan -> merge); an executor lowers that plan to a
 program on its ``DeviceTables`` device and runs it:
 
-    run(plan, bytes_buf, lengths, *, entry=None, entry_classes=None)
-        -> (out, absorbed_pos)
+    run(plan, bytes_buf, lengths, *, layout=None, entry=None,
+        entry_classes=None) -> (out, absorbed_pos)
 
 Operands arrive as host numpy (``bytes_buf [B, W] uint8`` zero-padded,
 ``lengths [B]``, ``entry`` per ``plan.entry``: absent, exact ``[B, K]``
@@ -25,6 +25,8 @@ lane of a document was absorbing, or ``NO_EXIT``.
     kernels' plain versions.
 
 Seq plans (documents shorter than ``4 * C``) are torch-eager in both.
+``engine.sharded.ShardedExecutor`` is the ("doc", "chunk") mesh lowering
+(own module); it alone reads ``layout``.
 
 ``compose_lane_maps`` (the out-of-order gap-close fold) runs the log-depth
 torch scan ``core.lvector.merge_scan_lanes_torch`` in the eager lowering and
@@ -34,7 +36,7 @@ the compose kernels (``kernels.ops.spec_compose_lanes``, mode
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Protocol
 
 import numpy as np
 import torch
@@ -44,9 +46,23 @@ from ...kernels import ref as kref
 from ..lvector import merge_scan_lanes_torch
 from .plan import ENTRY_LANES, ENTRY_STARTS, ENTRY_STATES, DeviceTables, LanePlan
 
-__all__ = ["LaneExecutor", "LocalExecutor", "NO_EXIT"]
+__all__ = ["Executor", "LaneExecutor", "LocalExecutor", "NO_EXIT"]
 
 NO_EXIT = np.int32(2 ** 30)  # absorbed_pos sentinel: never fully absorbed
+
+
+class Executor(Protocol):
+    """The one-method backend protocol: lower and run a ``LanePlan``."""
+
+    traces: int
+
+    def run(self, plan: LanePlan, bytes_buf: np.ndarray,
+            lengths: np.ndarray, *, layout=None,
+            entry: Optional[np.ndarray] = None,
+            entry_classes: Optional[np.ndarray] = None
+            ) -> tuple[torch.Tensor, torch.Tensor]: ...
+
+    def steps_for(self, layout) -> int: ...
 
 
 def _prev_pow2(n: int) -> int:
@@ -54,7 +70,11 @@ def _prev_pow2(n: int) -> int:
 
 
 class LaneExecutor:
-    """Shared lane-program stages plus the lowering cache."""
+    """Shared lane-program stages plus the lowering cache.
+
+    Subclasses override ``_lower`` (and ``_plan_key`` where a program
+    depends on more than the plan, as the sharded backend's do).
+    """
 
     def __init__(self, tables: DeviceTables, *, num_chunks: int,
                  early_exit_segments: int = 4):
@@ -69,6 +89,9 @@ class LaneExecutor:
         # per-bucket kernel block sizes keyed by chunk_len (0 = default);
         # 512 when unset
         self.spec_l_blk: dict[int, int] = {}
+        # bumped by invalidate_layouts() when chunk boundaries move (a
+        # capacity rebalance); only lowerings that bake boundaries key on it
+        self.layout_epoch = 0
 
     @property
     def device(self) -> torch.device:
@@ -81,21 +104,34 @@ class LaneExecutor:
     # -- the one entry point ------------------------------------------------
 
     def run(self, plan: LanePlan, bytes_buf: np.ndarray, lengths: np.ndarray,
-            *, entry: Optional[np.ndarray] = None,
+            *, layout=None, entry: Optional[np.ndarray] = None,
             entry_classes: Optional[np.ndarray] = None):
-        fn = self.lower(plan)
+        fn = self.lower(plan, layout=layout, batch=int(bytes_buf.shape[0]))
         return fn(bytes_buf, lengths, entry, entry_classes)
 
-    def lower(self, plan: LanePlan):
+    def lower(self, plan: LanePlan, *, layout=None, batch: int = 0):
         """The program of one plan (cached; lowering happens once)."""
-        fn = self._lowered.get(plan.key)
+        key = self._plan_key(plan, batch)
+        fn = self._lowered.get(key)
         if fn is None:
-            fn = self._lower(plan)
-            self._lowered[plan.key] = fn
+            fn = self._lower(plan, layout, batch)
+            self._lowered[key] = fn
             self.traces += 1
         return fn
 
-    def _lower(self, plan: LanePlan):
+    def _plan_key(self, plan: LanePlan, batch: int) -> tuple:
+        return plan.key
+
+    def invalidate_layouts(self) -> None:
+        """Signal that chunk boundaries moved (a capacity rebalance).
+
+        Bumps ``layout_epoch`` instead of clearing the cache: lowerings
+        that bake boundaries (the sharded spec lowering) key on the epoch
+        and re-lower lazily; every other program survives.
+        """
+        self.layout_epoch += 1
+
+    def _lower(self, plan: LanePlan, layout, batch: int):
         if plan.kind == "seq":
             self.lowering_kinds[plan.key] = "seq-torch"
             return self._eager(self._seq_body, plan)
@@ -378,9 +414,9 @@ class LocalExecutor(LaneExecutor):
         return self._compose(("compose_kernel", int(lane_maps.shape[1])),
                              lower, lane_maps, entry_keys)
 
-    def _lower(self, plan: LanePlan):
+    def _lower(self, plan: LanePlan, layout, batch: int):
         if plan.kind == "seq":
-            return super()._lower(plan)
+            return super()._lower(plan, layout, batch)
         if self.use_kernel:
             self.lowering_kinds[plan.key] = (
                 "spec-kernel-lanes" if plan.entry == ENTRY_LANES

@@ -2,13 +2,17 @@
 
     Matcher(dfas)                    # fused CUDA kernels on the card
     Matcher(dfas, backend="local")   # torch-eager stages
-    Matcher(dfas, device="cpu")      # either backend on CPU tensors (the
-                                     # kernel lowering then runs the
+    Matcher(dfas, device="cpu")      # any backend on CPU tensors (the
+                                     # kernel lowerings then run the
                                      # kernels' plain versions)
+    Matcher(dfas, backend="sharded", mesh_shape=(2, 2),
+            capacities=[...])        # one SPMD program per rank of a
+                                     # torch.distributed world
 
 Decisions are bit-identical to per-document sequential matching on every
-backend.  The facade packs the patterns, owns a sticky-bucket ``Planner``
-and a ``LocalExecutor``, packs bucket tiles on the host and scatters the
+backend, mesh shape and capacity profile.  The facade packs the patterns,
+owns a sticky-bucket ``Planner`` and an executor (``LocalExecutor``, or the
+mesh's ``ShardedExecutor``), packs bucket tiles on the host and scatters the
 results back.
 """
 
@@ -21,9 +25,11 @@ import numpy as np
 import torch
 
 from ..automata import DFA, PackedDFA, pack_dfas, packed_signature
+from ..partition import capacity_weights
 from .executors import LocalExecutor
 from .plan import (ENTRY_LANES, ENTRY_STARTS, ENTRY_STATES, DeviceTables,
-                   Planner, next_pow2, resolve_device)
+                   MeshLayout, Planner, layout_device_work, next_pow2,
+                   resolve_device)
 
 __all__ = ["BatchResult", "SegmentBatchResult", "CursorBatchResult",
            "Matcher", "BatchMatcher"]
@@ -84,19 +90,36 @@ class Matcher:
     Parameters
     ----------
     source       : DFA | PackedDFA | sequence of DFA | one-block PatternSet.
-    num_chunks   : uniform chunk count C per document.
+    num_chunks   : chunk count C per document (rounded up to a multiple of
+                   the mesh chunk extent on the sharded backend).
     max_buckets  : lifetime compiled-shape budget for the speculative path.
     batch_tile   : fixed row count of every device call (rounded up to a
-                   power of two).
+                   power of two; a multiple of the mesh doc extent on the
+                   sharded backend).
     backend      : "cuda" (the fused kernels, default) | "local" (torch-eager
-                   stages).
+                   stages) | "sharded" (the ("doc", "chunk") mesh lowering,
+                   ``engine.sharded``: B6 scans, B3 folds).
+    mesh         : sharded only: a ``DeviceMesh`` from
+                   ``launch.mesh.make_matcher_mesh``.
+    mesh_shape   : sharded only, instead of ``mesh``: ``None`` (1, D),
+                   ``"auto"`` (near-square) or ``(doc, chunk)``.
+    devices      : sharded only, with ``mesh_shape``: how many ranks the
+                   mesh uses (default: the world).
+    capacities   : sharded only: measured per-device capacities, one per
+                   mesh device in row-major (doc, chunk) order, normalised to
+                   Eq. 1 weights per doc row (and per row's sum on the doc
+                   axis: the ragged document placement).  ``None`` =
+                   uniform.
+    spec_m       : sharded only: weighted-layout work model (1 = chunk sizes
+                   proportional to capacity; ``i_max`` the paper's
+                   scalar-worker Eqs. 2–7).
+    calibrate    : sharded only: with no ``capacities``, measure each rank's
+                   device at construction (``core.profiling
+                   .calibrated_capacities``; the vector is gathered over the
+                   mesh so every rank lays out the same chunks).
     early_exit_segments : absorbing-state early-exit granularity of the
                    eager scans (1 disables; pow2).
     lookahead_r  : boundary-key depth: 1 (Eq. 11), 2 (Eq. 13) or "auto".
-    mesh, mesh_shape, devices, capacities, spec_m, calibrate : the sharded
-                   backend's layout keywords; ``backend="sharded"`` is not
-                   ported, and the single-device backends refuse them with
-                   the reference's ``ValueError``.
     autotune     : opt-in shape autotuner (``core.profiling
                    .autotune_spec_shapes``): times candidate ``(num_chunks,
                    l_blk)`` configurations on a synthetic probe workload on
@@ -106,7 +129,19 @@ class Matcher:
                    ``$REPRO_AUTOTUNE_CACHE`` points at a JSON path;
                    ``maybe_retune`` re-tunes on observed traffic.
     device       : where the tensors live; ``None`` is the CUDA card and
-                   raises ``RuntimeError`` when there is none.
+                   raises ``RuntimeError`` when there is none (on the sharded
+                   backend: card ``LOCAL_RANK % device_count``,
+                   ``launch.mesh.rank_device``).
+
+    **The sharded calling convention (SPMD).**  ``backend="sharded"`` runs
+    one program per rank of an initialised ``torch.distributed`` world (or
+    a world of one that the mesh starts itself): every rank constructs the
+    same ``Matcher`` and calls each method with the same arguments in the
+    same order, and each rank returns the whole result.  Every host-side
+    decision that shapes a collective (plan, buckets, layouts, capacities,
+    rebalance triggers, the autotune winner) is therefore identical on all
+    ranks; rank-local measurements are gathered before anyone decides on
+    them.
     """
 
     def __init__(self, source, *, num_chunks: int = 8, max_buckets: int = 2,
@@ -122,27 +157,35 @@ class Matcher:
                              "the fused CUDA kernels are backend='cuda'")
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; pick from {BACKENDS}")
-        if backend == "sharded":
-            raise NotImplementedError("backend='sharded' is not ported yet "
-                                      "(ROADMAP A14)")
-        # the sharded-only keywords, refused as the reference refuses them
-        if capacities is not None:
-            raise ValueError("capacities only apply to the sharded backend")
-        if mesh is not None or mesh_shape is not None or devices is not None:
-            raise ValueError("mesh/mesh_shape/devices only apply to the "
-                             "sharded backend")
-        if spec_m != 1:
-            raise ValueError("spec_m only applies to the sharded backend")
-        if calibrate:
-            raise ValueError("calibrate only applies to the sharded "
-                             "backend (single-device layouts are uniform)")
         if num_chunks < 1:
             raise ValueError("num_chunks must be >= 1")
         if max_buckets < 1:
             raise ValueError("max_buckets must be >= 1")
         if batch_tile < 1:
             raise ValueError("batch_tile must be >= 1")
-        self.device = resolve_device(device)
+        if backend != "sharded":
+            # the sharded-only keywords, refused as the reference refuses them
+            if capacities is not None:
+                raise ValueError("capacities only apply to the sharded "
+                                 "backend")
+            if (mesh is not None or mesh_shape is not None
+                    or devices is not None):
+                raise ValueError("mesh/mesh_shape/devices only apply to the "
+                                 "sharded backend")
+            if spec_m != 1:
+                raise ValueError("spec_m only applies to the sharded backend")
+            if calibrate:
+                raise ValueError("calibrate only applies to the sharded "
+                                 "backend (single-device layouts are "
+                                 "uniform)")
+            self.device = resolve_device(device)
+        else:
+            if mesh is not None and (mesh_shape is not None
+                                     or devices is not None):
+                raise ValueError("pass either mesh= or mesh_shape=/devices=, "
+                                 "not both")
+            from ...launch.mesh import rank_device
+            self.device = rank_device(device)
         packed = self._pack_source(source)
         self.packed = packed
         self.backend = backend
@@ -158,14 +201,58 @@ class Matcher:
             self._tuned = autotune_spec_shapes(
                 packed, backend=backend,
                 num_chunks_candidates=sorted({4, 8, int(num_chunks)}),
+                mesh_shape=mesh_shape, devices=devices,
                 lookahead_r=lookahead_r, device=self.device)
             num_chunks = self._tuned.num_chunks
-        self.planner = Planner(num_chunks=num_chunks, max_buckets=max_buckets)
-        self.executor = LocalExecutor(
-            self.dev, num_chunks=self.planner.num_chunks,
-            use_kernel=(backend == "cuda"),
-            early_exit_segments=early_exit_segments)
-        self.n_devices = 1
+            if backend == "sharded" and mesh is None and mesh_shape == "auto":
+                mesh_shape = self._tuned.mesh_shape
+        if backend == "sharded":
+            from ...launch.mesh import make_matcher_mesh, matcher_mesh_extents
+            if mesh is None:
+                mesh = make_matcher_mesh(devices, shape=mesh_shape,
+                                         device=self.device)
+            doc_shards, chunk_shards = matcher_mesh_extents(mesh)
+            n_dev = doc_shards * chunk_shards
+            if self.batch_tile % doc_shards:
+                raise ValueError(
+                    f"batch_tile={self.batch_tile} must be a multiple of the "
+                    f"mesh doc extent {doc_shards}")
+            self._doc_shards, self._chunk_shards = doc_shards, chunk_shards
+            self.n_devices = n_dev
+            if calibrate and capacities is None:
+                # cached per (mesh, benchmark): repeated construction over
+                # the same mesh measures once; recalibrate() refreshes
+                from ..profiling import calibrated_capacities
+                capacities = calibrated_capacities(
+                    [self.device], n_symbols=20_000, repeats=3, mesh=mesh)
+            if capacities is None:
+                self.capacities = weights = row_weights = None
+            else:
+                caps = np.asarray(capacities, np.float64)
+                if caps.size != n_dev:
+                    raise ValueError(f"need {n_dev} capacities (one per mesh "
+                                     f"device), got {caps.size}")
+                self.capacities = caps
+                weights = self._row_weights(caps)
+                row_weights = self._doc_row_weights(caps)
+            self.planner = Planner(num_chunks=num_chunks,
+                                   max_buckets=max_buckets,
+                                   devices=chunk_shards, weights=weights,
+                                   spec_m=spec_m, doc_shards=doc_shards,
+                                   row_weights=row_weights)
+            from .sharded import ShardedExecutor
+            self.executor = ShardedExecutor(
+                self.dev, num_chunks=self.planner.num_chunks, mesh=mesh,
+                early_exit_segments=early_exit_segments)
+        else:
+            self.capacities = None
+            self.planner = Planner(num_chunks=num_chunks,
+                                   max_buckets=max_buckets)
+            self.executor = LocalExecutor(
+                self.dev, num_chunks=self.planner.num_chunks,
+                use_kernel=(backend == "cuda"),
+                early_exit_segments=early_exit_segments)
+            self.n_devices = 1
         self.num_chunks = self.planner.num_chunks
         if self._tuned is not None and self._tuned.l_blk:
             self.executor.spec_l_blk[0] = int(self._tuned.l_blk)  # default key
@@ -225,6 +312,63 @@ class Matcher:
         self.executor.retable(self.dev)
         return True
 
+    # -- capacity rebalancing (sharded backend) ------------------------------
+
+    def _row_weights(self, caps: np.ndarray) -> np.ndarray:
+        # Eq. 1 weights per doc row-block: each mesh row balances its own
+        # chunk axis; rows split documents, not symbols
+        caps2 = caps.reshape(self._doc_shards, self._chunk_shards)
+        return np.stack([capacity_weights(caps2[r])
+                         for r in range(self._doc_shards)])
+
+    def _doc_row_weights(self, caps: np.ndarray) -> Optional[np.ndarray]:
+        # Eq. 1 on the doc axis: a mesh row's aggregate capacity sets how
+        # many documents it hosts per tile (the ragged placement weights)
+        if self._doc_shards <= 1:
+            return None
+        caps2 = caps.reshape(self._doc_shards, self._chunk_shards)
+        return capacity_weights(caps2.sum(axis=1))
+
+    def rebalance(self, capacities: Sequence[float]) -> None:
+        """Re-derive the capacity-weighted layouts from new capacities
+        (sharded backend only; call it on every rank with the same vector,
+        between calls).
+
+        The straggler hook (paper Eq. 5): the planner's weights update and
+        its cached layouts drop; the executor's layout epoch bumps, so the
+        spec lowerings (which bake chunk boundaries and gather maps)
+        re-lower on their next dispatch while seq programs survive.
+        Decisions stay bit-identical across any rebalance.
+        """
+        if self.backend != "sharded":
+            raise ValueError("rebalance applies to the sharded backend only "
+                             "(single-device layouts are uniform)")
+        caps = np.asarray(capacities, np.float64).reshape(-1)
+        if caps.size != self.n_devices:
+            raise ValueError(f"need {self.n_devices} capacities (one per "
+                             f"mesh device), got {caps.size}")
+        if not np.all(np.isfinite(caps)) or (caps <= 0).any():
+            raise ValueError("capacities must be finite and > 0")
+        self.capacities = caps
+        self.planner.set_weights(self._row_weights(caps),
+                                 row_weights=self._doc_row_weights(caps))
+        self.executor.invalidate_layouts()
+
+    def recalibrate(self, *, n_symbols: int = 20_000,
+                    repeats: int = 3) -> np.ndarray:
+        """Re-measure every rank's device (gathered over the mesh, replacing
+        the calibration cache entry) and rebalance onto the result.
+        Returns the fresh [D] capacities."""
+        if self.backend != "sharded":
+            raise ValueError("recalibrate applies to the sharded backend "
+                             "only (single-device layouts are uniform)")
+        from ..profiling import calibrated_capacities
+        caps = calibrated_capacities([self.device], n_symbols=n_symbols,
+                                     repeats=repeats, refresh=True,
+                                     mesh=self.executor.mesh)
+        self.rebalance(caps)
+        return caps
+
     # -- observed-traffic autotuning -----------------------------------------
 
     def traffic_profile(self):
@@ -268,9 +412,13 @@ class Matcher:
                 and self._tuned_traffic.drift(obs) < float(drift_threshold):
             return False
         from ..profiling import autotune_spec_shapes
+        sharded = self.backend == "sharded"
         self._tuned = autotune_spec_shapes(
             self.packed, backend=self.backend,
             num_chunks_candidates=sorted({4, 8, int(self.num_chunks)}),
+            mesh_shape=((self._doc_shards, self._chunk_shards) if sharded
+                        else None),
+            devices=self.n_devices if sharded else None,
             lookahead_r=self._lookahead_r, observed=obs, time_fn=time_fn,
             device=self.device)
         self._tuned_traffic = obs
@@ -401,14 +549,22 @@ class Matcher:
                       else 1)
             lane = self.planner.lane_plan(bucket, entry=entry_mode,
                                           spec_r=spec_r)
+            ragged = (spec and isinstance(layout, MeshLayout)
+                      and layout.is_ragged)
             for lo in range(0, bucket.doc_idx.size, self.batch_tile):
                 sel = bucket.doc_idx[lo:lo + self.batch_tile]
                 n = sel.size
+                # ragged doc tiling: capacity-weighted mesh layouts place
+                # documents into row-blocks by Eq. 7 on the doc axis; rowpos
+                # is each document's tile row, and results come back through
+                # the same placement
+                rowpos = (layout.tile_rows(n, self.batch_tile) if ragged
+                          else np.arange(n))
                 buf = np.zeros((self.batch_tile, bucket.width), np.uint8)
                 lens = np.zeros(self.batch_tile, np.int32)
                 for r, i in enumerate(sel):
-                    buf[r, :lengths[i]] = arrs[i]
-                    lens[r] = lengths[i]
+                    buf[rowpos[r], :lengths[i]] = arrs[i]
+                    lens[rowpos[r]] = lengths[i]
                 if tile_hook is not None:
                     tile_hook(bucket, layout, sel, lens)
                 self.traffic.record(n, lengths[sel])
@@ -417,7 +573,7 @@ class Matcher:
                     # pad rows scan from the pattern starts (ignored)
                     ent = np.tile(self.packed.starts,
                                   (self.batch_tile, 1)).astype(np.int32)
-                    ent[:n] = entry[sel]
+                    ent[rowpos] = entry[sel]
                 elif entry_mode == ENTRY_LANES:
                     # pad rows carry in-range lanes and the pad boundary key,
                     # which the merge composes as the identity
@@ -425,14 +581,14 @@ class Matcher:
                     ent = np.broadcast_to(
                         self.packed.starts.astype(np.int32)[None, :, None],
                         (self.batch_tile, k, s)).copy()
-                    ent[:n] = entry[sel]
+                    ent[rowpos] = entry[sel]
                     ecls = np.full(self.batch_tile, self.dev.pad_key,
                                    np.int32)
-                    ecls[:n] = entry_cls[sel]
-                res, pos = self.executor.run(lane, buf, lens, entry=ent,
-                                             entry_classes=ecls)
-                out[sel] = res.cpu().numpy()[:n]
-                pos = pos.cpu().numpy()[:n]
+                    ecls[rowpos] = entry_cls[sel]
+                res, pos = self.executor.run(lane, buf, lens, layout=layout,
+                                             entry=ent, entry_classes=ecls)
+                out[sel] = res.cpu().numpy()[rowpos]
+                pos = pos.cpu().numpy()[rowpos]
                 # a doc "exited early" if all its lanes hit absorbing states
                 # before its real symbols ran out (spec positions are
                 # chunk-local, so compare against the per-chunk fill)
@@ -459,10 +615,26 @@ class Matcher:
         plan = self.planner.plan(lengths)
         finals = np.tile(self.packed.starts, (b, 1)).astype(np.int32)
         steps = np.where(plan.spec_mask, 0, lengths)
+        device_work = (np.zeros(self.n_devices, np.int64)
+                       if self.backend == "sharded" else None)
+        seen_buckets: set[int] = set()
 
         def account(bucket, layout, sel, lens):
-            if bucket.kind == "spec":
+            # steps per bucket; device work per bucket (one mesh row) or per
+            # tile (2-D layouts assign work positionally: tile row-block ->
+            # mesh row; pad rows carry 0 symbols)
+            nonlocal device_work
+            if bucket.kind != "spec":
+                return
+            if id(bucket) not in seen_buckets:
+                seen_buckets.add(id(bucket))
                 steps[bucket.doc_idx] = self.executor.steps_for(layout)
+                if device_work is not None and not isinstance(layout,
+                                                              MeshLayout):
+                    device_work += layout_device_work(
+                        layout, lengths[bucket.doc_idx])
+            if device_work is not None and isinstance(layout, MeshLayout):
+                device_work += layout.device_work(lens.astype(np.int64))
 
         calls, _, early = self._dispatch(plan, arrs, lengths, finals,
                                          entry_mode=ENTRY_STARTS,
@@ -472,7 +644,7 @@ class Matcher:
         lanes = k * self.tables.i_max if plan.spec_mask.any() else k
         work_par = np.where(plan.spec_mask, steps * lanes, lengths * k)
         return BatchResult(accepted, finals, work_par, lengths * k, steps,
-                           calls, early_exits=early)
+                           calls, early_exits=early, device_work=device_work)
 
     def accepts_batch(self, docs: Sequence[bytes | np.ndarray]) -> np.ndarray:
         """[B, K] bool accept matrix (``membership_batch`` convenience)."""
@@ -555,7 +727,9 @@ class Matcher:
 
     def perf_report(self) -> dict:
         """The lowering chosen per plan (compose lowerings included), the
-        in-kernel early-exit skip count, the compose dispatch count, the
+        in-kernel early-exit skip count (None on the sharded backend), the
+        mesh (a "mesh" key on the sharded backend only), the compose
+        dispatch count, the
         resolved boundary-key depth and lane width (``None`` until the
         lookahead analysis has run), the autotuner's choice, the retune
         count and the observed traffic (``None`` before any dispatch)."""
@@ -566,7 +740,9 @@ class Matcher:
             "lowerings": {"|".join(map(str, key)): kind
                           for key, kind in
                           self.executor.lowering_kinds.items()},
-            "kernel_skipped_steps": self.executor.kernel_skipped_steps(),
+            "kernel_skipped_steps": (
+                self.executor.kernel_skipped_steps()
+                if hasattr(self.executor, "kernel_skipped_steps") else None),
             "table_epoch": self.planner.table_epoch,
             "prefilter_skipped_blocks": None,
             "autotune": dataclasses.asdict(self._tuned)
@@ -581,6 +757,10 @@ class Matcher:
             "retunes": self.retunes,
             "traffic": None,
         }
+        if self.backend == "sharded":
+            # extents, transport, this rank's coordinate, rank and device,
+            # and the collectives issued so far
+            rep["mesh"] = self.executor.mesh_report()
         obs = self.traffic.snapshot()
         if obs is not None:
             rep["traffic"] = {

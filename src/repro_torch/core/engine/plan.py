@@ -7,7 +7,12 @@
     calls and fresh keys merge upward until the lifetime ``max_buckets``
     budget is respected (bucket keys decide the kernel's block size, and so
     its skipped-block counts);
-  * **chunk partitioning** — a uniform ``ChunkLayout`` per bucket width;
+  * **chunk partitioning / capacity weighting** — a ``ChunkLayout`` maps the
+    padded symbol width of a bucket onto per-device chunk boundaries, uniform
+    or capacity-weighted by the paper's Eqs. 1–7
+    (``core.partition.weighted_partition``); on a ("doc", "chunk") mesh a
+    ``MeshLayout`` holds one such layout per doc row-block and places
+    documents raggedly over the rows;
   * **lookahead-table selection** — the packed Eq. 11/13 candidate tables
     plus the identity-pad device tensors, bundled once in ``DeviceTables``.
 
@@ -24,11 +29,12 @@ import torch
 
 from ..automata import PackedDFA
 from ..lookahead import PackedLookaheadTables, build_packed_lookahead_tables
-from ..partition import Partition, uniform_partition
+from ..partition import Partition, uniform_partition, weighted_partition
 
-__all__ = ["next_pow2", "resolve_device", "DeviceTables", "ChunkLayout", "BucketPlan",
-           "MatchPlan", "LanePlan", "Planner",
-           "ENTRY_STARTS", "ENTRY_STATES", "ENTRY_LANES"]
+__all__ = ["next_pow2", "resolve_device", "DeviceTables", "ChunkLayout",
+           "MeshLayout", "BucketPlan", "MatchPlan", "LanePlan", "Planner",
+           "ENTRY_STARTS", "ENTRY_STATES", "ENTRY_LANES",
+           "expand_device_weights", "layout_device_work"]
 
 # Entry-seed stage modes of a LanePlan (how chunk 0 / the scan rows start):
 ENTRY_STARTS = "starts"  # the packed pattern start states (whole documents)
@@ -176,27 +182,54 @@ class DeviceTables:
              np.full((1, self.packed.n_states), -1, np.int32)]))
 
 
+def expand_device_weights(weights: np.ndarray,
+                          chunks_per_device: int) -> np.ndarray:
+    """Per-chunk weights from per-device weights (device d owns a contiguous
+    run of ``chunks_per_device`` chunks)."""
+    w = np.asarray(weights, dtype=np.float64)
+    return np.repeat(w, chunks_per_device)
+
+
 @dataclasses.dataclass
 class ChunkLayout:
-    """Static chunk boundaries of one bucket width.
+    """Static chunk boundaries of one bucket width, assigned to devices.
 
     ``starts``/``ends`` partition ``[0, width)`` into ``C`` contiguous
-    chunks; ``exact[i]`` marks chunks that start at stream position 0;
-    ``lmax`` is the padded per-chunk buffer length.
+    chunks; chunk ``i`` lives on device ``device_of[i]`` (a contiguous run of
+    ``C / D`` chunks a device).  ``exact[i]`` marks chunks that start at
+    stream position 0 (chunk 0, and any chunk behind zero-length leading
+    chunks); ``lmax`` is the padded per-chunk buffer length.
     """
 
     width: int
     starts: np.ndarray     # [C] int64
     ends: np.ndarray       # [C] int64
+    device_of: np.ndarray  # [C] int64
     exact: np.ndarray      # [C] bool
     lmax: int
+
+    @property
+    def num_chunks(self) -> int:
+        return int(self.starts.shape[0])
+
+    @property
+    def num_devices(self) -> int:
+        return int(self.device_of.max()) + 1 if self.starts.size else 1
+
+    @property
+    def sizes(self) -> np.ndarray:
+        return self.ends - self.starts
 
     # interior chunk boundaries keep >= 2 preceding symbols so r=2 boundary
     # keys always exist
     MIN_CUT = 2
 
     @classmethod
-    def from_partition(cls, part: Partition, width: int) -> "ChunkLayout":
+    def from_partition(cls, part: Partition, width: int,
+                       devices: int) -> "ChunkLayout":
+        c = part.start.shape[0]
+        if c % devices != 0:
+            raise ValueError(f"{c} chunks do not divide over {devices} devices")
         starts, ends = part.start.copy(), part.end.copy()
         if (starts[1:] == ends[:-1]).all():  # contiguous: clamp cut points
             cuts = np.where((starts > 0) & (starts < cls.MIN_CUT),
@@ -206,12 +239,134 @@ class ChunkLayout:
             ends = np.append(cuts[1:], ends[-1])
         sizes = ends - starts
         return cls(width=width, starts=starts, ends=ends,
+                   device_of=np.repeat(np.arange(devices), c // devices),
                    exact=(starts == 0), lmax=int(max(sizes.max(), 1)))
 
     @classmethod
-    def uniform(cls, width: int, num_chunks: int) -> "ChunkLayout":
+    def uniform(cls, width: int, num_chunks: int,
+                devices: int = 1) -> "ChunkLayout":
         return cls.from_partition(uniform_partition(width, num_chunks, 1),
-                                  width)
+                                  width, devices)
+
+    @classmethod
+    def weighted(cls, width: int, num_chunks: int, devices: int,
+                 weights: np.ndarray, m: int = 1) -> "ChunkLayout":
+        """Capacity-weighted boundaries (paper Eqs. 2–7 over the bucket
+        width).  ``m = 1`` sizes chunks in proportion to capacity (equal
+        capacities give ``uniform``); ``m = I_max`` is the paper's
+        scalar-worker model, where the exact chunk 0 is ``m`` times longer.
+        """
+        w_chunks = expand_device_weights(weights, num_chunks // devices)
+        return cls.from_partition(weighted_partition(width, w_chunks, m),
+                                  width, devices)
+
+
+@dataclasses.dataclass
+class MeshLayout:
+    """Per-doc-shard chunk layouts of one bucket width on a 2-D mesh.
+
+    Doc row-block ``r`` (tile rows ``[r * B/Dd, (r+1) * B/Dd)``) belongs to
+    mesh row ``r``, and ``rows[r]`` is that row's own ``ChunkLayout``,
+    weighted by that row's chunk-axis devices.  All rows share ``width``;
+    ``lmax`` is the largest padded chunk buffer over the rows.
+
+    **Ragged doc rows.**  ``row_weights`` (the Eq. 1 weights of each mesh
+    row's aggregate capacity) makes the document axis capacity-weighted
+    too: ``doc_counts`` applies Eq. 7 to the document count of a tile and
+    ``tile_rows`` packs real documents into the fixed row-blocks raggedly
+    (a slow row gets more zero-length pad rows).  Only the doc -> tile-row
+    placement moves, so results equal the uniform layout's.  ``None`` is
+    the uniform placement.
+    """
+
+    width: int
+    rows: tuple[ChunkLayout, ...]
+    row_weights: tuple[float, ...] | None = None
+
+    @property
+    def doc_shards(self) -> int:
+        return len(self.rows)
+
+    @property
+    def is_ragged(self) -> bool:
+        return self.row_weights is not None
+
+    def doc_counts(self, n: int) -> np.ndarray:
+        """Eq. 7 on the doc axis: documents per mesh row, summing to ``n``."""
+        if self.row_weights is None:
+            d = self.doc_shards
+            return np.diff(np.linspace(0, n, d + 1).astype(np.int64))
+        part = weighted_partition(n, np.asarray(self.row_weights), 1)
+        return (part.end - part.start).astype(np.int64)
+
+    def tile_rows(self, m: int, tile: int) -> np.ndarray:
+        """Physical tile row of each of ``m`` real documents ([m] int64).
+
+        The tile keeps ``tile // doc_shards`` rows per mesh row; documents
+        pack into the row-blocks per ``doc_counts``, clipped to the block
+        size, with the overflow waterfilled into the fastest rows that
+        still have room.  Uniform layouts return ``arange(m)``.
+        """
+        d = self.doc_shards
+        if tile % d:
+            raise ValueError(f"tile of {tile} rows does not split over "
+                             f"{d} doc shards")
+        if m > tile:
+            raise ValueError(f"{m} documents exceed the {tile}-row tile")
+        if self.row_weights is None:
+            return np.arange(m, dtype=np.int64)
+        rps = tile // d
+        counts = np.minimum(self.doc_counts(m), rps)
+        short = int(m - counts.sum())
+        order = np.argsort(-np.asarray(self.row_weights, np.float64),
+                           kind="stable")
+        while short > 0:
+            for r in order:
+                if short and counts[r] < rps:
+                    counts[r] += 1
+                    short -= 1
+        return np.concatenate(
+            [r * rps + np.arange(counts[r], dtype=np.int64)
+             for r in range(d)]) if m else np.zeros(0, np.int64)
+
+    @property
+    def num_chunks(self) -> int:
+        return self.rows[0].num_chunks
+
+    @property
+    def lmax(self) -> int:
+        return max(r.lmax for r in self.rows)
+
+    @property
+    def num_devices(self) -> int:
+        return self.doc_shards * self.rows[0].num_devices
+
+    def device_work(self, lengths: np.ndarray) -> np.ndarray:
+        """Real symbols per device for one full tile of document lengths
+        (pad rows as zeros): ``[Dd * Dc]`` in mesh row-major order."""
+        lengths = np.asarray(lengths, dtype=np.int64)
+        if lengths.shape[0] % self.doc_shards:
+            raise ValueError(f"tile of {lengths.shape[0]} rows does not "
+                             f"split over {self.doc_shards} doc shards")
+        rps = lengths.shape[0] // self.doc_shards
+        return np.concatenate(
+            [layout_device_work(row, lengths[r * rps:(r + 1) * rps])
+             for r, row in enumerate(self.rows)])
+
+
+def layout_device_work(layout: ChunkLayout,
+                       lengths: np.ndarray) -> np.ndarray:
+    """Real symbols matched per device for documents of the given lengths:
+    a chunk's work on a document of length ``n`` is the overlap of its
+    ``[start, end)`` with ``[0, n)``.  Returns ``[D]`` summed over the
+    documents."""
+    lengths = np.asarray(lengths, dtype=np.int64)
+    overlap = (np.minimum(layout.ends[None, :], lengths[:, None])
+               - np.minimum(layout.starts[None, :], lengths[:, None]))
+    per_chunk = overlap.sum(axis=0)
+    work = np.zeros(layout.num_devices, dtype=np.int64)
+    np.add.at(work, layout.device_of, per_chunk)
+    return work
 
 
 @dataclasses.dataclass
@@ -274,30 +429,104 @@ class MatchPlan:
 
 
 class Planner:
-    """Sticky-bucket batch planner for one device.
+    """Sticky-bucket batch planner.
 
     ``max_buckets`` is the lifetime compiled-shape budget of the
     speculative path; the short-document sequential width is fixed at
     ``next_pow2(4C - 1)`` (it grows only when ``num_chunks <= 1``).
+
+    ``devices`` is the chunk-axis extent and ``doc_shards`` the doc-axis
+    extent of a ("doc", "chunk") matcher mesh (1 and 1 on a single device);
+    ``num_chunks`` rounds up to a ``devices`` multiple.  ``weights`` holds
+    per-device capacity weights, flat ``[doc_shards * devices]`` in mesh
+    row-major order or ``[doc_shards, devices]``; with ``doc_shards > 1``
+    ``layout_for`` returns a ``MeshLayout`` whose row ``r`` applies Eqs. 1–7
+    with mesh row ``r``'s weights only.
     """
 
-    def __init__(self, *, num_chunks: int = 8, max_buckets: int = 2):
+    def __init__(self, *, num_chunks: int = 8, max_buckets: int = 2,
+                 devices: int = 1, weights: np.ndarray | None = None,
+                 spec_m: int = 1, doc_shards: int = 1,
+                 row_weights: np.ndarray | None = None):
         if num_chunks < 1:
             raise ValueError("num_chunks must be >= 1")
         if max_buckets < 1:
             raise ValueError("max_buckets must be >= 1")
-        self.num_chunks = int(num_chunks)
+        if devices < 1:
+            raise ValueError("devices must be >= 1")
+        if doc_shards < 1:
+            raise ValueError("doc_shards must be >= 1")
+        self.num_chunks = -(-int(num_chunks) // int(devices)) * int(devices)
         self.max_buckets = int(max_buckets)
+        self.devices = int(devices)
+        self.doc_shards = int(doc_shards)
+        self.spec_m = int(spec_m)
         self.table_epoch = 0
+        self.weights: np.ndarray | None = None
+        self.row_weights: np.ndarray | None = None
         self.spec_keys: list[int] = []
         self.seq_width = next_pow2(max(4 * self.num_chunks - 1, 1))
-        self._layouts: dict[int, ChunkLayout] = {}
+        self._layouts: dict[int, ChunkLayout | MeshLayout] = {}
+        if weights is not None or row_weights is not None:
+            self.set_weights(weights, row_weights=row_weights)
 
-    def layout_for(self, chunk_len: int) -> ChunkLayout:
-        """Uniform chunk boundaries of one spec bucket width (cached)."""
+    def set_weights(self, weights: np.ndarray | None, *,
+                    row_weights: np.ndarray | None = None) -> None:
+        """Replace the per-device capacity weights and drop the cached
+        layouts (sticky bucket keys and the seq width survive: only chunk
+        boundaries move).  ``row_weights`` ([doc_shards] Eq. 1 weights of
+        each mesh row's aggregate capacity) make the doc axis of every
+        ``MeshLayout`` ragged; ``None`` keeps the uniform doc split."""
+        if row_weights is None:
+            self.row_weights = None
+        else:
+            rw = np.asarray(row_weights, np.float64).reshape(-1)
+            if rw.shape != (self.doc_shards,):
+                raise ValueError(f"need one row weight per doc shard: "
+                                 f"expected {self.doc_shards}, got {rw.size}")
+            if not np.all(np.isfinite(rw)) or (rw <= 0).any():
+                raise ValueError("row weights must be finite and > 0")
+            self.row_weights = rw
+        if weights is None:
+            self.weights = None
+        else:
+            w = np.asarray(weights, np.float64)
+            if w.ndim == 1:
+                w = w.reshape(self.doc_shards, -1)
+            if w.shape != (self.doc_shards, self.devices):
+                raise ValueError("need one capacity weight per (doc, chunk) "
+                                 f"device: expected {self.doc_shards}x"
+                                 f"{self.devices}, got {w.shape}")
+            if not np.all(np.isfinite(w)) or (w <= 0).any():
+                raise ValueError("capacity weights must be finite and > 0")
+            self.weights = w
+        self._layouts.clear()
+
+    def layout_for(self, chunk_len: int) -> ChunkLayout | MeshLayout:
+        """Chunk boundaries of one spec bucket width (cached): a
+        ``ChunkLayout`` on a single mesh row, a ``MeshLayout`` of per-row
+        layouts when ``doc_shards > 1``."""
         if chunk_len not in self._layouts:
-            self._layouts[chunk_len] = ChunkLayout.uniform(
-                self.num_chunks * chunk_len, self.num_chunks)
+            width = self.num_chunks * chunk_len
+
+            def row_layout(r: int) -> ChunkLayout:
+                if self.weights is None:
+                    return ChunkLayout.uniform(width, self.num_chunks,
+                                               self.devices)
+                return ChunkLayout.weighted(width, self.num_chunks,
+                                            self.devices, self.weights[r],
+                                            m=self.spec_m)
+
+            if self.doc_shards == 1:
+                self._layouts[chunk_len] = row_layout(0)
+            else:
+                rw = (tuple(float(w) for w in self.row_weights)
+                      if self.row_weights is not None else None)
+                self._layouts[chunk_len] = MeshLayout(
+                    width=width,
+                    rows=tuple(row_layout(r)
+                               for r in range(self.doc_shards)),
+                    row_weights=rw)
         return self._layouts[chunk_len]
 
     def lane_plan(self, bucket: BucketPlan, *, entry: str = ENTRY_STARTS,

@@ -9,11 +9,15 @@ turns capacities into the Eq. 1 weights that ``SpecDFAEngine(weights=...)``
 takes; ``synthetic_capacities`` makes a skewed fleet for benchmarks and
 tests.
 
+On a sharded matcher's mesh ``calibrated_capacities(..., mesh=)`` measures
+each rank's own device and gathers the [D] vector in row-major mesh order,
+so every rank lays out the same chunks.
+
 The same measure-then-choose discipline drives ``autotune_spec_shapes``, the
 opt-in shape autotuner behind ``Matcher(autotune=True)``: it times candidate
-``(num_chunks, l_blk)`` configurations (and, as arithmetic only, the mesh
-extents of the sharded backend) on a synthetic probe corpus and applies the
-measured winner.  ``l_blk`` is the symbol block of the fused CUDA kernels,
+``(num_chunks, l_blk)`` configurations (and, on the sharded backend, mesh
+extents, each candidate's cost the slowest rank's) on a synthetic probe
+corpus and applies the measured winner.  ``l_blk`` is the symbol block of the fused CUDA kernels,
 so it is searched on ``backend="cuda"``.  Results cache per (DFA,
 candidates, device, backend) key: in-process, and on disk when
 ``$REPRO_AUTOTUNE_CACHE`` names a JSON path (the JAX package's row schema).
@@ -47,6 +51,7 @@ from .partition import capacity_weights
 
 __all__ = ["profile_capacity", "profile_workers", "synthetic_capacities",
            "calibrated_capacities", "clear_calibration_cache",
+           "mesh_gather_values",
            "TunedShape", "autotune_spec_shapes", "clear_autotune_cache",
            "ObservedTraffic", "TrafficProfile", "synthetic_traffic"]
 
@@ -98,29 +103,50 @@ _CALIBRATION_CACHE: dict[tuple, np.ndarray] = {}
 
 
 def _calibration_key(devices, dfa: DFA | None, n_symbols: int, repeats: int,
-                     seed: int) -> tuple:
+                     seed: int, mesh=None) -> tuple:
     # a custom benchmark DFA changes what is being measured -> its content
     # hashes into the key; the default benchmark is pinned by its parameters
     sig = ("default",) if dfa is None else (
         dfa.table.shape, dfa.table.tobytes(), int(dfa.start))
-    return (tuple(str(d) for d in devices), sig, int(n_symbols),
-            int(repeats), int(seed))
+    key = (tuple(str(d) for d in devices), sig, int(n_symbols),
+           int(repeats), int(seed))
+    # a mesh's vector is the gathered one: its own entry per mesh
+    return key if mesh is None else key + (id(mesh), tuple(mesh.shape))
+
+
+def mesh_gather_values(mesh, values, device) -> np.ndarray:
+    """All-gather each rank's float64 values over the whole mesh: [D, ...]
+    in row-major mesh order, identical on every rank (``device`` is the
+    rank's own, where an NCCL mesh gathers)."""
+    from ..launch.mesh import all_gather_rows
+    x = torch.as_tensor(np.atleast_1d(np.asarray(values, np.float64)))
+    out = all_gather_rows(mesh, x[None].to(device))
+    return out.cpu().numpy()
 
 
 def calibrated_capacities(devices, dfa: DFA | None = None, *,
                           n_symbols: int = 200_000, repeats: int = 5,
-                          seed: int = 0, refresh: bool = False) -> np.ndarray:
+                          seed: int = 0, refresh: bool = False,
+                          mesh=None) -> np.ndarray:
     """Cached ``profile_capacity`` over a device set (one measurement per
     (device set, benchmark) pair per process).
 
-    ``refresh=True`` forces a re-measurement and replaces the cache entry.
-    Returns a copy; mutating the result never corrupts the cache.
+    With ``mesh`` (a sharded matcher's ``DeviceMesh``; call it on every
+    rank): ``devices`` is this rank's own device, each rank measures it, and
+    the [D] capacities are gathered over the mesh in row-major order, the
+    same vector on every rank.  ``refresh=True`` forces a re-measurement and
+    replaces the cache entry.  Returns a copy; mutating the result never
+    corrupts the cache.
     """
-    key = _calibration_key(devices, dfa, n_symbols, repeats, seed)
+    key = _calibration_key(devices, dfa, n_symbols, repeats, seed, mesh)
     if refresh or key not in _CALIBRATION_CACHE:
-        _CALIBRATION_CACHE[key] = np.asarray(
+        caps = np.asarray(
             profile_capacity(dfa, n_symbols=n_symbols, repeats=repeats,
                              seed=seed, devices=list(devices)), np.float64)
+        if mesh is not None:
+            caps = mesh_gather_values(mesh, caps,
+                                      resolve_device(devices[0])).reshape(-1)
+        _CALIBRATION_CACHE[key] = caps
     return _CALIBRATION_CACHE[key].copy()
 
 
@@ -279,9 +305,10 @@ def _autotune_key(packed, backend: str, nc_cands, lb_cands, mesh_shape,
     h.update(packed.starts.tobytes())
     obs_sig = None if observed is None else (int(observed.batch),
                                              tuple(observed.lengths))
+    world = (_world_size(),) if backend == "sharded" else ()
     h.update(repr((backend, tuple(nc_cands), tuple(lb_cands),
                    mesh_shape, devices, lookahead_r, obs_sig,
-                   _device_sig(device))).encode())
+                   _device_sig(device)) + world).encode())
     return h.hexdigest()[:24]
 
 
@@ -326,7 +353,9 @@ def _measure_config(packed, probe, *, backend: str, num_chunks: int,
     """Median host-clock microseconds of warm ``membership_batch`` calls of
     one candidate ``Matcher`` on ``device``; on a card each reading ends in
     ``torch.cuda.synchronize()`` (the call is host-bound, so the host work
-    that decides the winner is inside the clock)."""
+    that decides the winner is inside the clock).  A sharded candidate
+    builds its mesh on every rank and costs its slowest rank's median,
+    gathered over the mesh, so every rank picks the same winner."""
     from .engine.facade import Matcher  # lazy: facade imports this module
     kw = {}
     if backend == "sharded":
@@ -350,7 +379,16 @@ def _measure_config(packed, probe, *, backend: str, num_chunks: int,
         t0 = time.perf_counter()
         run()
         times.append(time.perf_counter() - t0)
-    return float(np.median(times)) * 1e6
+    us = float(np.median(times)) * 1e6
+    if backend == "sharded":
+        us = float(mesh_gather_values(m.executor.mesh, [us],
+                                      m.device).max())
+    return us
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def autotune_spec_shapes(packed, *, backend: str = "cuda",
@@ -367,8 +405,8 @@ def autotune_spec_shapes(packed, *, backend: str = "cuda",
 
     Greedy coordinate descent over three axes: ``num_chunks`` (every
     backend), mesh (doc, chunk) extents (sharded backend with
-    ``mesh_shape="auto"``: all divisor factorings of ``devices``,
-    near-square first) and the kernel symbol-block length ``l_blk``
+    ``mesh_shape="auto"``: all divisor factorings of ``devices``, the world
+    size by default, near-square first) and the kernel symbol-block length ``l_blk``
     (``backend="cuda"`` only), each axis tuned while the others hold their
     incumbent, so the search costs sums of candidates, not products.  Each
     candidate is one ``Matcher`` on ``device`` (the card unless the caller
@@ -377,10 +415,11 @@ def autotune_spec_shapes(packed, *, backend: str = "cuda",
 
     ``time_fn`` replaces the measurement: it receives the candidate config
     as a dict (``backend`` / ``num_chunks`` / ``mesh_shape`` / ``l_blk``)
-    and returns a cost in microseconds, for deterministic tests and the
-    mesh arithmetic (a measured sharded tune needs the sharded backend,
-    which is not ported).  Results cache per (DFA, candidates, device,
-    backend) key: in-process always, and through the JSON file named by
+    and returns a cost in microseconds, for deterministic tests.  A measured
+    sharded tune runs on every rank of the world (SPMD): each candidate mesh
+    is built everywhere and costs its slowest rank.  Results cache per (DFA,
+    candidates, device, world size, backend) key: in-process always, and
+    through the JSON file named by
     ``$REPRO_AUTOTUNE_CACHE`` when set (``refresh=True`` re-measures and
     overwrites both).
 
@@ -417,8 +456,7 @@ def autotune_spec_shapes(packed, *, backend: str = "cuda",
                 return tuned
 
     if backend == "sharded" and mesh_shape == "auto":
-        n_dev = (int(devices) if devices
-                 else max(torch.cuda.device_count(), 1))
+        n_dev = int(devices) if devices else _world_size()
         mesh_cands = sorted(((d, n_dev // d) for d in range(1, n_dev + 1)
                              if n_dev % d == 0),
                             key=lambda s: abs(s[0] - s[1]))

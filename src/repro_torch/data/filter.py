@@ -76,8 +76,8 @@ class CorpusFilter:
     ``capacities``/``mesh``/``mesh_shape``/``devices`` configure the packed
     batch matcher facade (see ``core.engine.Matcher``: ``backend="cuda"``,
     the default, runs the fused kernels, ``"local"`` the torch-eager
-    stages; ``backend="sharded"`` and the mesh keywords are not ported and
-    raise as ``Matcher`` does).  ``device`` places the matcher and every
+    stages, ``"sharded"`` the ("doc", "chunk") mesh lowering, one SPMD
+    program per rank with the mesh keywords passed through).  ``device`` places the matcher and every
     engine: the card unless the caller names another.  Keep/drop decisions
     are [B] bool and bit-identical across backends and scan paths
     (``scan_batch`` / ``filter`` / ``scan_stream``).

@@ -5,8 +5,10 @@ The port of the JAX package's ``distributed/fault_tolerance.py``:
   * **Retry with restore** — ``RestartManager`` wraps a step loop, catches
     failures, restores the latest saved state and resumes; the streaming
     scheduler runs every tick dispatch under it.
-  * **Elastic re-mesh** — ``reshard_tree`` waits for the sharded tier
-    (ROADMAP A14) and raises.
+  * **Elastic re-mesh** — ``reshard_tree`` places a host-side checkpoint
+    tree under new shardings on a ``DeviceMesh``, whatever mesh it was saved
+    from (``training.checkpoint.restore_checkpoint(shardings=...)`` and the
+    sharded restore of session snapshots ride it).
   * **Straggler mitigation** — the paper's own mechanism (Eq. 1/5): per-host
     throughput is profiled (core/profiling.py) and the weighted partitioner
     sizes host input shards; persistently slow hosts get proportionally less
@@ -57,10 +59,42 @@ class RestartManager:
         return state, step
 
 
+def _is_sharding(s: Any) -> bool:
+    from torch.distributed.device_mesh import DeviceMesh
+    return (isinstance(s, tuple) and len(s) == 2
+            and isinstance(s[0], DeviceMesh))
+
+
 def reshard_tree(host_tree: Any, shardings: Any) -> Any:
-    """Place a host-side checkpoint tree under new shardings: not ported yet
-    (the sharded tier, ROADMAP A14)."""
-    raise NotImplementedError("reshard_tree is not ported yet (ROADMAP A14)")
+    """Place a host-side (numpy or tensor) checkpoint tree under new
+    shardings.
+
+    ``shardings`` mirrors the tree's dicts, lists and tuples; each leaf's
+    sharding is ``(DeviceMesh, placements)`` and the leaf becomes
+    ``torch.distributed.tensor.distribute_tensor(leaf, mesh, placements)``
+    (a ``None`` sharding leaves the leaf as it is).  It works across mesh
+    shape changes, since the tree is whole on the host: the elastic path
+    (a snapshot taken on one mesh restored on another).  Placement is
+    collective: call it on every rank of the mesh with the same tree.
+    """
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    def place(x, s):
+        if s is None:
+            return x
+        if _is_sharding(s):
+            mesh, placements = s
+            t = (x.detach() if isinstance(x, torch.Tensor)
+                 else torch.from_numpy(np.array(x)))   # 0-d stays 0-d
+            return distribute_tensor(t, mesh, list(placements))
+        if isinstance(x, dict):
+            return {k: place(v, s[k]) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(place(v, si) for v, si in zip(x, s))
+        raise ValueError(f"no sharding for a leaf of type {type(x).__name__}")
+
+    return place(host_tree, shardings)
 
 
 @dataclasses.dataclass

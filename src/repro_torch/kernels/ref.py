@@ -13,12 +13,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["classify_pad_ref", "spec_match_ref", "spec_match_merge_ref",
+__all__ = ["classify_ref", "classify_pad_ref", "spec_match_ref", "spec_match_merge_ref",
            "spec_match_merge_lanes_ref", "spec_merge_ref",
            "spec_merge_lanes_ref", "cursor_merge_ref", "scan_lanes",
            "compose_lanes_torch", "spec_merge_lanes_scan_ref",
            "spec_compose_lanes_ref", "lvec_compose_ref",
            "onehot_block_maps_ref", "token_mask_ref", "flash_attn_ref"]
+
+
+def classify_ref(byte_to_class: np.ndarray,
+                 data: bytes | np.ndarray) -> np.ndarray:
+    """Host numpy byte -> class classification of one document (the paper's
+    ``IBase`` gather): the oracle of the on-device classify's in-range
+    prefix.  Returns [L] int32."""
+    arr = (np.frombuffer(data, dtype=np.uint8)
+           if isinstance(data, (bytes, bytearray)) else np.asarray(data))
+    return np.asarray(byte_to_class)[arr.astype(np.int64)].astype(np.int32)
 
 
 def classify_pad_ref(byte_to_class: torch.Tensor, bytes_buf: torch.Tensor,

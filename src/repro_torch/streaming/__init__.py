@@ -87,13 +87,15 @@ class StreamMatcher:
     **Bit-identity guarantee**: a closed stream's [K] ``accepted`` /
     ``final_states`` equal ``Matcher.membership_batch`` on the stream's
     concatenated bytes, regardless of how the bytes were split across
-    ``feed`` calls — on either backend ("cuda" / "local").
+    ``feed`` calls — on every backend ("cuda" / "local" / "sharded"; a
+    sharded matcher runs the session calls on every rank, SPMD).
 
     ``policy`` sets the tick policy (default: eager flush; see
     ``TickPolicy`` — ``max_batch`` pending streams, ``max_delay`` feed
     events, or a ``max_delay_s`` wall-clock deadline).  Remaining keyword
     arguments (``backend=``, ``num_chunks=``, ``batch_tile=``, ``device=``,
-    ...) construct the underlying ``Matcher`` (on the card unless
+    the sharded backend's ``mesh=``/``mesh_shape=``/``capacities=``, ...)
+    construct the underlying ``Matcher`` (on the card unless
     ``device`` says otherwise).  When the matcher is built here,
     ``num_chunks`` defaults to 1 (batched sequential scan, the seq
     lowering): with many concurrent streams the *row* axis already
@@ -286,7 +288,9 @@ class StreamMatcher:
         summary of everything already matched).  Writes go through
         ``training/checkpoint.py``'s atomic publish (``step_<N>.tmp`` then
         rename), so a writer killed mid-snapshot leaves only a ``.tmp``
-        directory that restore ignores.  Returns the published path.
+        directory that restore ignores; on a sharded matcher one rank
+        writes and every rank returns once it is published.  Returns the
+        published path.
         """
         sessions = sorted((s for s in self._sessions.values() if not s.closed),
                           key=lambda s: s.sid)
@@ -295,14 +299,15 @@ class StreamMatcher:
         if step is None:
             step = self._snapshot_step
         self._snapshot_step = step + 1
-        return save_sessions_tree(directory, tree, step)
+        return save_sessions_tree(directory, tree, step, self.matcher)
 
     def restore(self, directory: str, *,
                 step: int | None = None) -> list[StreamSession]:
         """Rebuild sessions from the latest (or ``step``-th) snapshot.
 
-        The restoring matcher may run either backend on any device, and the
-        snapshot may come from the JAX package: the tree is host numpy and
+        The restoring matcher may run any backend on any device or mesh
+        (a sharded one restores on every rank), and the snapshot may come
+        from the JAX package: the tree is host numpy and
         the cursors' state ids are the packed table's.  Restored sessions
         with pending bytes are re-admitted to the scheduler (no feed event
         is counted — their bytes were accounted when originally fed); the

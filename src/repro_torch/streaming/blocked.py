@@ -77,7 +77,8 @@ class BlockedStreamMatcher:
     ``source`` is a ``BlockedMatcher`` (sharing its buckets and lowerings),
     a ``PatternSet``, or anything ``PatternSet`` accepts (then ``k_blk`` /
     ``search`` / ``prefilter`` and the remaining ``Matcher`` kwargs apply:
-    ``backend``, ``device``, ``num_chunks``, ...).  The same bit-identity contract
+    ``backend``, ``device``, ``num_chunks``, the sharded backend's mesh
+    keywords, ...).  The same bit-identity contract
     as ``StreamMatcher`` holds per block: a closed stream's [K] verdict
     equals ``BlockedMatcher.membership_batch`` on the concatenated bytes.
 

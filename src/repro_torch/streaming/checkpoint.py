@@ -16,16 +16,18 @@ and signature are the JAX package's: a snapshot taken on the card restores
 on a ``device="cpu"`` matcher or in ``repro.streaming``, and the reverse.
 A snapshot is refused on restore unless its packed-table signature matches
 the target matcher's: resuming a cursor against a different pattern set
-would silently decode garbage states.  (Restoring onto a mesh-sharded
-matcher waits for the sharded tier, ROADMAP A14; the port's ``Matcher``
-refuses ``backend="sharded"``.)
+would silently decode garbage states.  On a mesh-sharded matcher the
+loaded tree is placed replicated on the target mesh (``reshard_tree``) and
+brought back to host numpy, so a snapshot restores on any mesh shape.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 
 import numpy as np
+import torch.distributed as dist
 
 from ..core.automata import PackedDFA, packed_signature
 from ..training.checkpoint import restore_checkpoint, save_checkpoint
@@ -33,7 +35,7 @@ from .cursor import MatchCursor
 
 __all__ = ["TREE_KEYS", "table_signature", "pattern_set_signature",
            "sessions_tree", "save_sessions_tree", "load_sessions_tree",
-           "unpack_cursor"]
+           "unpack_cursor", "restore_tree", "publish_tree"]
 
 # One leaf per field; the tree structure is the restore contract (the
 # ``like`` argument of restore_checkpoint only needs matching keys).
@@ -129,9 +131,31 @@ def sessions_tree(sessions, packed: PackedDFA, next_sid: int, *,
     }
 
 
-def save_sessions_tree(directory: str, tree: dict, step: int) -> str:
-    """Atomic publish through the shared checkpoint layer."""
-    return save_checkpoint(directory, tree, step)
+def publish_tree(directory: str, tree: dict, step: int,
+                 matcher=None) -> str:
+    """Atomic publish through the shared checkpoint layer.  On a sharded
+    matcher (every rank calls it, SPMD) the mesh's first rank writes the
+    step and every rank waits for it, so a restore on any rank finds it;
+    returns the published path on every rank."""
+    if matcher is None or matcher.backend != "sharded":
+        return save_checkpoint(directory, tree, step)
+    import torch
+
+    from ..launch.mesh import all_gather_rows, mesh_group
+    mesh = matcher.executor.mesh
+    path = os.path.join(directory, f"step_{step:08d}")
+    if dist.get_rank(mesh_group(mesh)) == 0:
+        path = save_checkpoint(directory, tree, step)
+    # the barrier: no rank returns before the step is published
+    all_gather_rows(mesh, torch.zeros(1, device=matcher.device))
+    return path
+
+
+def save_sessions_tree(directory: str, tree: dict, step: int,
+                       matcher=None) -> str:
+    """Atomic publish through the shared checkpoint layer
+    (``publish_tree``)."""
+    return publish_tree(directory, tree, step, matcher)
 
 
 def check_signature(tree: dict, want: str, what: str) -> None:
@@ -145,13 +169,30 @@ def check_signature(tree: dict, want: str, what: str) -> None:
             "only meaningful relative to the table they were matched with")
 
 
+def restore_tree(directory: str, matcher, keys, *, step=None
+                 ) -> tuple[dict, int]:
+    """Load a snapshot tree of ``keys`` as host numpy.  On a sharded
+    matcher every leaf is placed replicated on its mesh first (the JAX
+    package's ``PartitionSpec()``: snapshot trees are small host state, and
+    replication is valid on every mesh shape); call it on every rank."""
+    like = {key: np.zeros(0) for key in keys}
+    shardings = None
+    if matcher.backend == "sharded":
+        from torch.distributed.tensor import Replicate
+        mesh = matcher.executor.mesh
+        repl = (mesh, [Replicate()] * mesh.ndim)
+        shardings = {key: repl for key in keys}
+    tree, step = restore_checkpoint(directory, like, step=step,
+                                    shardings=shardings)
+    return {key: (val.to_local().cpu().numpy() if shardings else
+                  np.asarray(val)) for key, val in tree.items()}, step
+
+
 def load_sessions_tree(directory: str, matcher, *, step=None,
                        expect_signature: str | None = None
                        ) -> tuple[dict, int]:
     """Load (and verify) the latest complete snapshot for ``matcher``."""
-    like = {key: np.zeros(0) for key in TREE_KEYS}
-    tree, step = restore_checkpoint(directory, like, step=step)
-    tree = {key: np.asarray(val) for key, val in tree.items()}
+    tree, step = restore_tree(directory, matcher, TREE_KEYS, step=step)
     check_signature(tree, expect_signature if expect_signature is not None
                     else table_signature(matcher.packed),
                     "cursor states are")

@@ -21,8 +21,9 @@ restore: the packed-table signature must match (cursor/lane state ids are
 meaningless against another pattern set), and ``spec_r``/``lane_width`` must
 equal the target's — buffered maps are keyed in the boundary-key space of
 the resolved lookahead depth, so a snapshot taken at r=2 cannot seed an r=1
-matcher.  (Restoring onto a mesh-sharded matcher waits for the sharded tier,
-ROADMAP A14.)
+matcher.  On a mesh-sharded matcher the tree is placed replicated on the
+target mesh and brought back to host numpy (``streaming.checkpoint
+.restore_tree``).
 
 After a restore, parked raw payloads are matched and parked maps folded by
 the target matcher's own lowerings: the first gap close runs B2
@@ -33,8 +34,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from ...training.checkpoint import restore_checkpoint, save_checkpoint
-from ..checkpoint import check_signature, table_signature
+from ..checkpoint import (check_signature, publish_tree, restore_tree,
+                          table_signature)
 from ..cursor import MatchCursor
 from .buffer import BufferedSegment
 from .sequencer import Sequencer
@@ -129,16 +130,17 @@ def ooo_tree(ooo) -> dict:
     }
 
 
-def save_ooo_tree(directory: str, tree: dict, step: int) -> str:
-    """Atomic publish through the shared checkpoint layer."""
-    return save_checkpoint(directory, tree, step)
+def save_ooo_tree(directory: str, tree: dict, step: int,
+                  matcher=None) -> str:
+    """Atomic publish through the shared checkpoint layer
+    (``streaming.checkpoint.publish_tree``: one writer on a mesh)."""
+    return publish_tree(directory, tree, step, matcher)
 
 
 def load_ooo_tree(directory: str, ooo, *, step=None) -> tuple[dict, int]:
     """Load and verify the latest complete snapshot for ``ooo.matcher``."""
-    like = {key: np.zeros(0) for key in OOO_TREE_KEYS}
-    tree, step = restore_checkpoint(directory, like, step=step)
-    tree = {key: np.asarray(val) for key, val in tree.items()}
+    tree, step = restore_tree(directory, ooo.matcher, OOO_TREE_KEYS,
+                              step=step)
     check_signature(tree, table_signature(ooo.matcher.packed),
                     "buffered maps are")
     dev = ooo.matcher.dev

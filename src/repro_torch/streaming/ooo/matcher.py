@@ -286,7 +286,7 @@ class OooStreamMatcher:
         if step is None:
             step = self._snapshot_step
         self._snapshot_step = step + 1
-        return save_ooo_tree(directory, ooo_tree(self), step)
+        return save_ooo_tree(directory, ooo_tree(self), step, self.matcher)
 
     def restore(self, directory: str, *, step: int | None = None) -> list:
         """Re-open the streams of the latest complete snapshot; returns the

@@ -183,8 +183,9 @@ class MicroBatchScheduler:
     around a failed dispatch; ``straggler`` (a
     ``distributed.fault_tolerance.StragglerPolicy``) turns per-tick device
     timings into between-tick capacity rebalances on a sharded matcher
-    (the sharded backend waits for ROADMAP A14, so on the port's one-card
-    matchers the straggler hook observes and never rebalances);
+    (each rank's tick time is gathered over the mesh first, so every rank
+    trips and rebalances on the same [D] times; single-device matchers
+    never rebalance);
     ``fault_plan`` (``streaming.faults.FaultPlan``) injects deterministic
     failures, delays and capacity corruption; ``sleep`` is the backoff
     sleeper (injectable for tests).
@@ -499,15 +500,20 @@ class MicroBatchScheduler:
         measurement spreads uniformly (real per-host telemetry would slot in
         here); a ``FaultPlan`` overlays its scheduled delays and capacity
         corruption, which is how degraded-capacity recovery is exercised
-        deterministically.
+        deterministically.  On a sharded matcher each rank's own wall
+        time is all-gathered over the mesh (row-major), so the [D] times,
+        the trip and the new capacities are the same on every rank.
         """
         if self.straggler is None:
             return
         m = self.matcher
         if m.backend != "sharded" or m.n_devices < 2:
             return  # single-device layouts are uniform: nothing to rebalance
+        from ..core.profiling import mesh_gather_values
         n = m.n_devices
-        base = np.full(n, max(wall if wall is not None else 1e-3, 1e-9) / n)
+        own = max(wall if wall is not None else 1e-3, 1e-9) / n
+        base = mesh_gather_values(m.executor.mesh, [own],
+                                  m.device).reshape(-1)
         times = (self.fault_plan.device_times(tick_idx, base)
                  if self.fault_plan is not None else base)
         if self.straggler.update(times):

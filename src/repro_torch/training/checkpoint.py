@@ -337,8 +337,9 @@ def restore_checkpoint(directory: str, like: Any,
                        step: Optional[int] = None,
                        shardings: Any = None) -> tuple[Any, int]:
     """Restore the latest (or given) step in ``like``'s structure, each leaf
-    on the ``like`` leaf's device and dtype.  Resharding onto a mesh
-    (``shardings``) waits for the sharded tier (ROADMAP A14)."""
+    on the ``like`` leaf's device and dtype; with ``shardings`` (a tree of
+    ``(DeviceMesh, placements)``) each leaf is then placed on its mesh by
+    ``distributed.fault_tolerance.reshard_tree`` (call it on every rank)."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {directory}")

@@ -2,9 +2,8 @@
 JAX package, on the CPU.
 
 Mirrors the autotuner rows of tests/test_lanes_kernel.py and the
-observed-traffic rows of tests/test_compose_kernel.py (without the sharded
-mesh rows: the port's sharded backend is not there yet, only the mesh
-arithmetic).  The JAX package's ``pallas`` backend searches ``l_blk`` where
+observed-traffic rows of tests/test_compose_kernel.py (the mesh rows as
+arithmetic, and one measured sharded tune on a world of one).  The JAX package's ``pallas`` backend searches ``l_blk`` where
 the port's ``cuda`` backend does; under one shared ``time_fn`` both
 packages must pick the same ``TunedShape``.  Port matchers run on
 ``device="cpu"`` (the ``cuda`` backend then runs the kernels' plain
@@ -128,11 +127,40 @@ def test_autotune_searches_l_blk_on_cuda_and_mesh_arithmetic():
     assert ts.mesh_shape == (1, 8) and ts.l_blk == 0
 
 
-def test_measured_sharded_tune_needs_the_sharded_backend():
-    with pytest.raises(NotImplementedError, match="A14"):
-        autotune_spec_shapes(_toy_packed(), backend="sharded",
-                             num_chunks_candidates=[4], mesh_shape="auto",
-                             devices=2, repeats=1, **CPU)
+def test_measured_sharded_tune_needs_the_sharded_backend(tmp_path,
+                                                         monkeypatch):
+    """A measured sharded tune on a world of one: every candidate builds
+    its mesh and is timed; fed the same scores as ``time_fn``, the JAX
+    package's arithmetic picks the same shape."""
+    import torch.distributed as dist
+
+    scores = {}
+    measure = prof._measure_config
+
+    def recording(packed, probe, **kw):
+        us = measure(packed, probe, **kw)
+        scores[(kw["num_chunks"], tuple(kw["mesh_shape"]), kw["l_blk"])] = us
+        return us
+
+    monkeypatch.setattr(prof, "_measure_config", recording)
+    dist.init_process_group("gloo", init_method="file://"
+                            + str(tmp_path / "store"), rank=0, world_size=1)
+    try:
+        got = autotune_spec_shapes(_toy_packed(), backend="sharded",
+                                   num_chunks_candidates=[4, 8],
+                                   mesh_shape="auto", repeats=1, **CPU)
+    finally:
+        dist.destroy_process_group()
+    assert got.source == "measured" and got.mesh_shape == (1, 1)
+    assert sorted(scores) == [(4, (1, 1), 0), (8, (1, 1), 0)]
+    assert all(us > 0 for us in scores.values())
+    want = jprof.autotune_spec_shapes(
+        _j_toy_packed(), backend="sharded", num_chunks_candidates=[4, 8],
+        mesh_shape="auto", devices=1,
+        time_fn=lambda c: scores[(c["num_chunks"], tuple(c["mesh_shape"]),
+                                  c["l_blk"])])
+    assert (got.num_chunks, got.mesh_shape, got.l_blk) == (
+        want.num_chunks, want.mesh_shape, want.l_blk)
 
 
 @pytest.mark.parametrize("jax_backend,backend",

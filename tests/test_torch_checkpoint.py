@@ -216,6 +216,11 @@ def test_checkpoint_ignores_tmp_and_stray_entries(tmp_path):
 
 
 def test_checkpoint_manager_keep_last_k_and_async(tmp_path):
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.launch.mesh import make_matcher_mesh
+
     mgr = ckpt.CheckpointManager(str(tmp_path), keep=2, use_async=True)
     t = torch.arange(6, dtype=torch.float32)
     b = t.bfloat16()
@@ -232,8 +237,19 @@ def test_checkpoint_manager_keep_last_k_and_async(tmp_path):
     assert step == 4
     assert torch.equal(out["t"], before[0]) and torch.equal(out["b"],
                                                             before[1])
-    with pytest.raises(NotImplementedError, match="A14"):
-        mgr.restore({"t": torch.zeros(0)}, shardings={"t": None})
+    # restored under shardings: placed on a mesh (a world of one here)
+    dist.init_process_group("gloo", init_method="file://"
+                            + str(tmp_path / "store"), rank=0, world_size=1)
+    try:
+        mesh = make_matcher_mesh(device="cpu")
+        out, step = mgr.restore(
+            {"t": torch.zeros(0), "b": torch.zeros(0, dtype=torch.bfloat16)},
+            shardings={"t": (mesh, [Replicate(), Replicate()]), "b": None})
+        assert step == 4 and isinstance(out["t"], DTensor)
+        assert torch.equal(out["t"].full_tensor(), before[0])
+        assert torch.equal(out["b"], before[1])
+    finally:
+        dist.destroy_process_group()
 
 
 MSGPACK_OBJECTS = [

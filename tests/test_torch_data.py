@@ -335,14 +335,26 @@ def test_blocked_scan_stream_and_early_close():
     assert filt2.stats.batch_calls > 0
 
 
-def test_filter_refuses_the_sharded_keywords_as_jax():
+def test_filter_refuses_the_sharded_keywords_as_jax(tmp_path):
+    import torch.distributed as dist
+
     with pytest.raises(ValueError) as want:
         JCorpusFilter(["ab"], capacities=[1.0])
     with pytest.raises(ValueError) as got:
         CorpusFilter(["ab"], capacities=[1.0], **CPU)
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="A14"):
-        CorpusFilter(["ab"], backend="sharded", **CPU)
+    # the sharded backend takes them: a world of one, equal keep-masks
+    docs = [b"xxab" * 30, b"a" * 70, b"b", b"ab", b"zzzz" * 40 + b"ab"]
+    dist.init_process_group("gloo", init_method="file://"
+                            + str(tmp_path / "store"), rank=0, world_size=1)
+    try:
+        shard = CorpusFilter(["ab"], backend="sharded", capacities=[1.0],
+                             mesh_shape=(1, 1), num_chunks=4, **CPU)
+        np.testing.assert_array_equal(
+            shard.scan_batch(docs),
+            JCorpusFilter(["ab"], num_chunks=4).scan_batch(docs))
+    finally:
+        dist.destroy_process_group()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             CorpusFilter(["ab"])

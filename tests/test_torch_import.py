@@ -7,8 +7,10 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -32,6 +34,8 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.data, repro_torch.data.corpus\n"
             "import repro_torch.data.filter, repro_torch.data.loader\n"
             "import repro_torch.data.tokenizer\n"
+            "import repro_torch.launch.mesh, repro_torch.core.engine.sharded\n"
+            "import repro_torch.distributed.sharding\n"
             "assert 'msgpack' not in sys.modules, 'msgpack was imported'\n"
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'the JAX package was imported'\n"
@@ -108,8 +112,19 @@ def test_matcher_unported_options_raise():
     dfa = compile_regex("ab")
     with pytest.raises(ValueError, match="cuda"):
         Matcher(dfa, backend="pallas", device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        Matcher(dfa, backend="sharded", device="cpu")
+    # the sharded backend is ported: with no world, it starts a world of one
+    assert not dist.is_initialized()
+    try:
+        ms = Matcher(dfa, backend="sharded", device="cpu")
+        assert ms.n_devices == 1 and dist.get_world_size() == 1
+        assert ms.perf_report()["mesh"]["shape"] == [1, 1]
+        docs = [b"xxab" * 20, b"a" * 50, b"ab"]
+        np.testing.assert_array_equal(
+            ms.membership_batch(docs).final_states,
+            Matcher(dfa, backend="local", device="cpu")
+            .membership_batch(docs).final_states)
+    finally:
+        dist.destroy_process_group()
     # the autotuner is ported: a tune on the CPU, reported as the JAX
     # package reports it
     tuned = Matcher(dfa, autotune=True, device="cpu").perf_report()[
@@ -132,10 +147,10 @@ SHARDED_ONLY = [("calibrate", True), ("capacities", [1.0]), ("spec_m", 2),
 @pytest.mark.parametrize("key,value", SHARDED_ONLY,
                          ids=[k for k, _ in SHARDED_ONLY])
 def test_matcher_sharded_only_keywords_raise_as_reference(backend, key,
-                                                          value):
+                                                          value, tmp_path):
     """A single-device Matcher refuses each sharded-only keyword with the
     JAX package's ValueError and message (its backend="local"; the port's
-    "local" and "cuda" on CPU tensors)."""
+    "local" and "cuda" on CPU tensors); the sharded backend takes it."""
     from repro.core import Matcher as JMatcher
     from repro.core import compile_regex as j_compile_regex
     from repro_torch.core import Matcher, compile_regex
@@ -146,9 +161,28 @@ def test_matcher_sharded_only_keywords_raise_as_reference(backend, key,
         Matcher(compile_regex("ab"), backend=backend, device="cpu",
                 **{key: value})
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="A14"):
-        Matcher(compile_regex("ab"), backend="sharded", device="cpu",
-                **{key: value})
+    # the sharded backend takes each keyword (the mesh keywords in a valid
+    # form: a mesh, one device) and matches as the local backend does
+    from repro_torch.launch.mesh import make_matcher_mesh
+    dist.init_process_group("gloo", init_method="file://"
+                            + str(tmp_path / "store"), rank=0, world_size=1)
+    try:
+        valid = {"mesh": make_matcher_mesh(device="cpu"), "devices": 1}
+        dfa = compile_regex(".*(ab|ba){2}")
+        ms = Matcher(dfa, backend="sharded", device="cpu", num_chunks=4,
+                     **{key: valid.get(key, value)})
+        assert ms.n_devices == 1
+        if key in ("capacities", "calibrate"):
+            assert ms.capacities.shape == (1,) and ms.capacities[0] > 0
+        if key == "spec_m":
+            assert ms.planner.spec_m == 2
+        docs = [b"xxabba" * 9, b"ba" * 40, b"abab", b""]
+        np.testing.assert_array_equal(
+            ms.membership_batch(docs).final_states,
+            Matcher(dfa, backend=backend, device="cpu", num_chunks=4)
+            .membership_batch(docs).final_states)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_serving_entry_points_without_device_need_cuda():

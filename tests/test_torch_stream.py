@@ -397,5 +397,8 @@ def test_restart_manager_and_straggler_policy():
     assert caps.shape == (4,) and caps[3] < caps[0]
     assert p.rebalanced_shards(100).sizes.sum() == 100
     from repro_torch.distributed import reshard_tree
-    with pytest.raises(NotImplementedError, match="A14"):
-        reshard_tree({}, {})
+    assert reshard_tree({}, {}) == {}
+    tree = {"a": np.arange(3), "b": [np.ones(2)]}
+    assert reshard_tree(tree, {"a": None, "b": [None]}) is not tree
+    with pytest.raises(ValueError, match="no sharding"):
+        reshard_tree({"a": np.arange(3)}, {"a": "replicated"})
