@@ -172,6 +172,25 @@ Phases (any mismatch raises, so the exit code is non-zero):
      sessions on the (2, 2) matcher snapshot mid-stream (one rank writes)
      and restored on (a)'s (1, 1) matcher and on ``backend="cuda"``, closed
      results equal the whole documents';
+ 19. every model family at full published width, random f32 weights from
+     a seeded generator on the card, one model at a time (each freed
+     before the next), with its parameter count, wall times and tokens/s,
+     the device idle share of a profiled call, peak device memory and
+     B9/B5 launches (added to the kernels line's counts): (a)
+     granite-moe-1b-a400m: ``api.prefill`` B = 2, T = 2,048 (B9 once per
+     layer) against the blockwise route, phase 12's constrained
+     ``generate`` (B5 once a step; every row a live prefix; tokens equal
+     with ``use_kernel=False``), the eager decode step and ``launch.serve
+     --arch``; (b) internvl2-2b likewise, its prefill 256 patch embeddings
+     + 1,792 tokens (B9 at D = 128); (c) seamless-m4t-medium: prefill of
+     frames [4, 1,024, 1,024] and tokens [4, 1,024] (B9 on the decoder's
+     self-attention) against the blockwise route, then 32 eager
+     ``api.decode`` steps from that cache against the encoded memory; (d)
+     recurrentgemma-2b: prefill B = 4, T = 2,048 (no kernel), 32 decode
+     steps, and teacher-forced decode over 64 tokens against
+     ``train_logits`` within the JAX package's envelope (rtol = atol =
+     3e-2, argmax agreement > 0.9); (e) xlstm-1.3b likewise (atol 0.15),
+     with the sLSTM blocks' share of the prefill;
   then print the kernels line and the result line.
 
 Only ``repro_torch``, torch and numpy are imported.  Without a CUDA device,
@@ -265,6 +284,13 @@ BLOCKED17 = (512, 32, 2048)          # 17(c): K, k_blk, documents
 MESH18 = (2, 2)                      # 18(b): the spawned world's mesh
 RATIO18 = 1.41                       # 18(b): the fast half's capacity
 CHILD18_S = 240                      # 18(b): each rank's time limit, s
+ARCH19 = (("moe", "granite-moe-1b-a400m"), ("vlm", "internvl2-2b"),
+          ("encdec", "seamless-m4t-medium"), ("hybrid", "recurrentgemma-2b"),
+          ("ssm", "xlstm-1.3b"))         # phase 19: one model a family
+PREFILL19 = {"moe": (2, 2048), "vlm": (2, 2048),  # B, seq_len (vlm: 256
+             "encdec": (4, 2048)}        # patches; encdec: 1,024 + 1,024)
+PREFILL19R = (4, 2048)                # 19: hybrid and ssm prefill B, T
+DECODE19 = 32                         # 19: eager decode steps
 RESIDUES = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
 
 # one planted occurrence of every PCRE-14 pattern (re.search-verified)
@@ -2887,6 +2913,359 @@ def phase18_sharded(ps, docs, want3, m3):
             dist.destroy_process_group()
 
 
+def prefill_vs_blockwise(tag, params, cfg, batch, n_tokens, counts):
+    """``api.prefill`` on the auto route (B9 once per attention layer of
+    the prompt) against the blockwise route: warm, then one timed call of
+    each; last-position logits within 5e-2 of the largest, greedy argmax
+    equal wherever the blockwise top-2 margin passes that tolerance.
+    Returns (wall of the auto route, B9 launches)."""
+    import torch
+    from repro_torch.kernels import flash_attn
+    from repro_torch.models import api
+
+    runs = {}
+    for route in ("auto", "blockwise"):
+        api.prefill(params, cfg, batch, attn_route=route)          # warm
+        torch.cuda.synchronize()
+        flash_attn.reset_launches()
+        t0 = time.perf_counter()
+        logits, _ = api.prefill(params, cfg, batch, attn_route=route)
+        torch.cuda.synchronize()
+        runs[route] = (logits[:, -1].float(), time.perf_counter() - t0,
+                       flash_attn.launches["flash_attn"])
+        del logits
+    (lk, wk, nk), (lx, wx, nx) = runs["auto"], runs["blockwise"]
+    counts["flash_attn"] += nk
+    check(bool(torch.isfinite(lk).all())
+          and lk.shape == (lx.shape[0], cfg.padded_vocab),
+          f"{tag} prefill logits not finite or of the wrong shape")
+    err = float((lk - lx).abs().max())
+    scale = float(lx.abs().max())
+    tol = 5e-2 * scale
+    print(f"{tag} api.prefill {n_tokens} tokens: B9 route {wk:.4f} s "
+          f"({n_tokens / wk:.0f} tokens/s, B9 launches {nk}); blockwise "
+          f"route {wx:.4f} s ({n_tokens / wx:.0f} tokens/s, B9 launches "
+          f"{nx}); last-position logits max |err| {err:.5f} of max |logit| "
+          f"{scale:.4f} ({err / scale:.5f})")
+    check(nx == 0, f"{tag} the blockwise route launched B9")
+    check(err <= tol, f"{tag} prefill logits on B9 and on the blockwise "
+          "route differ by more than 5e-2 of the largest logit")
+    ak, ax = lk.argmax(-1), lx.argmax(-1)
+    top2 = lx.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    for r in torch.nonzero(ak != ax).flatten().tolist():
+        print(f"{tag} row {r}: argmax {int(ak[r])} vs {int(ax[r])}; "
+              f"blockwise top-2 margin {float(margin[r]):.5f}")
+    check(bool(((ak == ax) | (margin <= tol)).all()), f"{tag} greedy argmax "
+          "differs between the routes where the top two logits are apart")
+    return wk, nk
+
+
+def generate_constrained(tag, params, cfg, rng, counts):
+    """Phase 12's constrained ``generate`` (8 prompts x 512 bytes, 32 greedy
+    steps, no EOS): B5 once a step, every row a live prefix of the grammar,
+    tokens equal to a run with ``use_kernel=False``."""
+    import torch
+    from repro_torch.core import compile_regex
+    from repro_torch.kernels import token_mask
+    from repro_torch.serving import (GrammarConstraint, ServeConfig,
+                                     ServingEngine)
+
+    n, width, max_new, _ = SERVE12
+    dfa = compile_regex(GRAMMAR12)
+    prompts = grammar_prompts(rng, n, width)
+    gc = GrammarConstraint(dfa, cfg.padded_vocab, eos_id=None, device=DEVICE)
+    eng = ServingEngine(cfg, params, ServeConfig(max_new_tokens=max_new),
+                        constraint=gc)
+    eng.generate(prompts[:, :64])                # warm
+    torch.cuda.synchronize()
+    token_mask.reset_launches()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts)
+    wall = time.perf_counter() - t0
+    launched = token_mask.launches["token_mask"]
+    counts["token_mask"] += launched
+    steps = decode_steps(out, eng.serve.eos_id)
+    check(steps == max_new and launched == steps, f"{tag} generate launched "
+          f"B5 {launched} times over {steps} decode steps (of {max_new})")
+    check(out.shape == (n, max_new) and all(
+        live_prefix(dfa, p, row, eng.serve.eos_id)
+        for p, row in zip(prompts, out)),
+        f"{tag} a generated row leaves the grammar")
+    plain = GrammarConstraint(dfa, cfg.padded_vocab, use_kernel=False,
+                              eos_id=None, device=DEVICE)
+    out_plain = ServingEngine(cfg, params, ServeConfig(max_new_tokens=max_new),
+                              constraint=plain).generate(prompts)
+    check(np.array_equal(out, out_plain), f"{tag} generate with B5 differs "
+          "from generate with use_kernel=False")
+    print(f"{tag} generate: {n} prompts x {width} bytes, {steps} decode steps"
+          f", {n * steps} tokens in {wall:.4f} s: {n * steps / wall:.1f} "
+          f"tokens/s; B5 launches {launched}; every row a live prefix of the "
+          f"grammar, tokens equal with use_kernel=False")
+    text = bytes(int(x) for x in out[0] if x < 256).decode(errors="replace")
+    print(f"{tag}   ...{bytes(prompts[0][-24:].astype(np.uint8)).decode()!r}"
+          f" -> {text!r}")
+
+
+def decode_loop_ms(step, n):
+    """``n`` eager decode steps (``step(i)`` runs step i): host-clock ms a
+    step over all but the first (warm) one."""
+    import torch
+    step(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, n):
+        step(i)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / (n - 1) * 1e3
+
+
+class f32_compute:
+    """Run the model layers in float32 instead of bf16 inside the block
+    (``models.layers.Compute``, read at every use)."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import layers
+        self.saved = layers.Compute
+        layers.Compute = torch.float32
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        layers.Compute = self.saved
+
+
+def forced_decode(params, cfg, init_state, step_fn, toks):
+    """(train_logits, the logits of decode steps from an empty state fed
+    ``toks`` one at a time), float32."""
+    import torch
+    from repro_torch.models import api
+
+    full, _ = api.train_logits(params, cfg, {"tokens": toks})
+    state = init_state(cfg, toks.shape[0], device=DEVICE)
+    outs = []
+    for i in range(toks.shape[1]):
+        logits, state = step_fn(params, cfg, state, toks[:, i:i + 1], i)
+        outs.append(logits[:, 0].float())
+    return full.float(), torch.stack(outs, 1)
+
+
+def logit_gap(got, want):
+    """(max |err|, max of |err| - 3e-2 |want|, RMS err / RMS want, argmax
+    agreement) of two [B, T, V] logit tensors."""
+    err = (got - want).abs()
+    return (float(err.max()), float((err - 3e-2 * want.abs()).max()),
+            float(err.pow(2).mean().sqrt() / want.pow(2).mean().sqrt()),
+            float((got.argmax(-1) == want.argmax(-1)).float().mean()))
+
+
+def forced_decode_check(tag, params, cfg, init_state, step_fn, atol):
+    """Teacher-forced decode from an empty state over a 64-token prompt
+    against ``train_logits``.  In float32 compute it is held to the JAX
+    package's ``test_decode_matches_forward`` envelope (rtol 3e-2,
+    ``atol``, argmax agreement > 0.9): the decode recurrences equal the
+    forward pass's.  In bf16, the model's compute dtype, the gap is
+    printed beside each path's gap to the float32 forward pass: at full
+    width both paths' bf16 roundings move the logits alike."""
+    import torch
+
+    b, t = 2, 64
+    gen = np.random.default_rng(SEED + 19)
+    toks = torch.from_numpy(gen.integers(0, cfg.vocab_size, size=(b, t))
+                            .astype(np.int32)).to(DEVICE)
+    with f32_compute():
+        full32, dec32 = forced_decode(params, cfg, init_state, step_fn, toks)
+    full, dec = forced_decode(params, cfg, init_state, step_fn, toks)
+    check(bool(torch.isfinite(full).all() and torch.isfinite(dec).all()),
+          f"{tag} bf16 logits not finite")
+    fmt = ("max |err| {:.5f}, max |err| - 3e-2 |logit| {:.5f}, RMS err / RMS "
+           "logit {:.5f}, argmax agreement {:.4f}")
+    gap = logit_gap(dec32, full32)
+    print(f"{tag} teacher-forced decode over {t} tokens vs train_logits, "
+          f"float32 compute: " + fmt.format(*gap) + f" (atol {atol})")
+    for name, got, want in (("bf16 decode vs bf16 forward", dec, full),
+                            ("bf16 forward vs float32 forward", full,
+                             full32),
+                            ("bf16 decode vs float32 forward", dec, full32)):
+        print(f"{tag}   {name}: " + fmt.format(*logit_gap(got, want)))
+    check(gap[1] <= atol and gap[3] > 0.9, f"{tag} teacher-forced decode "
+          "differs from the forward pass beyond the reference's envelope")
+
+
+def recurrent_prefill_and_decode(tag, params, cfg, init_state, step_fn):
+    """``api.prefill`` at B = 4, T = 2,048 (no kernel) and 32 greedy decode
+    steps from an empty state.  Returns the prefill's batch."""
+    import torch
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.kernels import flash_attn
+    from repro_torch.models import api
+
+    b, t = PREFILL19R
+    batch = api.make_inputs(cfg, ShapeSpec("p", "prefill", t, b), SEED,
+                            device=DEVICE)
+    api.prefill(params, cfg, batch)                              # warm
+    flash_attn.reset_launches()
+    logits, wall = synced(lambda: api.prefill(params, cfg, batch)[0])
+    check(bool(torch.isfinite(logits).all())
+          and logits.shape == (b, 1, cfg.padded_vocab)
+          and flash_attn.launches["flash_attn"] == 0,
+          f"{tag} prefill logits not finite, of the wrong shape, or B9 ran")
+    print(f"{tag} api.prefill B={b} T={t}: {wall:.4f} s "
+          f"({b * t / wall:.0f} tokens/s)")
+    state = init_state(cfg, b, device=DEVICE)
+    tok = batch["tokens"][:, :1]
+    finite = []
+
+    def step(i):
+        nonlocal tok
+        logits, _ = step_fn(params, cfg, state, tok, i)
+        finite.append(torch.isfinite(logits).all())
+        tok = logits[:, -1, :cfg.vocab_size].argmax(-1, keepdim=True).to(
+            torch.int32)
+
+    ms = decode_loop_ms(step, DECODE19)
+    check(bool(torch.stack(finite).all()), f"{tag} decode logits not finite")
+    print(f"{tag} {DECODE19} greedy decode steps from an empty state "
+          f"(B={b}): {ms:.2f} ms a step on the host clock, "
+          f"{b * 1e3 / ms:.1f} tokens/s")
+    device_busy(lambda: step(DECODE19), f"{tag} decode step")
+    return batch
+
+
+def phase19_families(counts):
+    """Every model family at full published width on the card, one model
+    at a time: moe, vlm and encdec prefill on B9 against the blockwise
+    route, constrained generate on B5 (moe, vlm), encdec decode against the
+    encoded memory, the hybrid and xLSTM prefill and decode with the
+    teacher-forced check."""
+    import torch
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import recurrent as RG
+    from repro_torch.models import transformer as TF
+    from repro_torch.models import xlstm as XL
+
+    rng = np.random.default_rng(SEED + 19)
+    for family, arch in ARCH19:
+        tag = f"[19{family}]"
+        t_model = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = api.init(cfg, SEED, device=DEVICE)
+        torch.cuda.synchronize()
+        print(f"{tag} {arch} ({cfg.family}): {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
+              f"head_dim {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
+              f"; {numel(params)} random f32 parameters in "
+              f"{time.perf_counter() - t0:.2f} s")
+        if cfg.family in ("moe", "vlm", "encdec"):
+            b, t = PREFILL19[cfg.family]
+            batch = api.make_inputs(cfg, ShapeSpec("p", "prefill", t, b),
+                                    SEED, device=DEVICE)
+            _, nk = prefill_vs_blockwise(tag, params, cfg, batch, b * t,
+                                         counts)
+            check(nk == cfg.n_layers, f"{tag} api.prefill launched B9 {nk} "
+                  f"times; expected once per decoder layer ({cfg.n_layers})")
+            device_busy(lambda: api.prefill(params, cfg, batch),
+                        f"{tag} prefill")
+        if cfg.family in ("moe", "vlm"):
+            generate_constrained(tag, params, cfg, rng, counts)
+            n, width, max_new, _ = SERVE12
+            cache = TF.init_cache(cfg, n, width + max_new, device=DEVICE)
+            tok = torch.full((n, 1), ord("1"), dtype=torch.int32,
+                             device=DEVICE)
+            ms = decode_loop_ms(lambda i: TF.decode_step(
+                params, cfg, cache, tok, width + i), 9)
+            print(f"{tag} decode_step (eager, B={n}, cache "
+                  f"{width + max_new}): {ms:.2f} ms a step on the host clock")
+            device_busy(lambda: TF.decode_step(params, cfg, cache, tok,
+                                               width + 9),
+                        f"{tag} decode_step")
+            del cache
+        if cfg.family == "encdec":
+            # continue from the B9 prefill's cache against the encoded memory
+            b, t = batch["tokens"].shape
+            _, pcache = api.prefill(params, cfg, batch)
+            cache = ED.init_encdec_cache(cfg, b, t + DECODE19 + 1,
+                                         device=DEVICE)
+            for name in ("k", "v"):
+                cache[name][:, :, :t] = pcache[name]
+            del pcache
+            memory = ED.encode(params, cfg, batch["frames"])
+            tok = batch["tokens"][:, -1:]
+            finite = []
+
+            def step(i):
+                nonlocal tok
+                logits, _ = api.decode(params, cfg, {
+                    "cache": cache, "memory": memory, "tokens": tok,
+                    "pos": t + i})
+                finite.append(torch.isfinite(logits).all())
+                tok = logits[:, -1, :cfg.vocab_size].argmax(
+                    -1, keepdim=True).to(torch.int32)
+
+            ms = decode_loop_ms(step, DECODE19)
+            check(bool(torch.stack(finite).all()),
+                  f"{tag} decode logits not finite")
+            print(f"{tag} {DECODE19} eager api.decode steps (B={b}) "
+                  f"after the B9 prefill, against the encoded memory: "
+                  f"{ms:.2f} ms a step on the host clock, "
+                  f"{b * 1e3 / ms:.1f} tokens/s")
+            device_busy(lambda: step(DECODE19), f"{tag} decode step")
+            del cache, memory
+        if cfg.family == "hybrid":
+            batch = recurrent_prefill_and_decode(
+                tag, params, cfg, RG.init_hybrid_state, RG.decode_step_hybrid)
+            device_busy(lambda: api.prefill(params, cfg, batch),
+                        f"{tag} prefill")
+            forced_decode_check(tag, params, cfg, RG.init_hybrid_state,
+                                RG.decode_step_hybrid, 3e-2)
+        if cfg.family == "ssm":
+            batch = recurrent_prefill_and_decode(
+                tag, params, cfg, XL.init_xlstm_state, XL.decode_step_xlstm)
+            # the sLSTM blocks' share of a prefill (synchronised around each)
+            spent = [0.0, 0]
+            block = XL.slstm_block
+
+            def timed(*a, **kw):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out = block(*a, **kw)
+                torch.cuda.synchronize()
+                spent[0] += time.perf_counter() - t1
+                spent[1] += 1
+                return out
+
+            XL.slstm_block = timed
+            try:
+                _, wall_s = synced(lambda: api.prefill(params, cfg, batch))
+            finally:
+                XL.slstm_block = block
+            print(f"{tag} sLSTM blocks ({spent[1]} of {cfg.n_layers}, "
+                  f"{PREFILL19R[1]} sequential steps each): "
+                  f"{spent[0]:.4f} s of a {wall_s:.4f} s prefill (share "
+                  f"{spent[0] / wall_s:.3f})")
+            # a quarter of the prompt: the profiler's own processing of the
+            # full prefill's ~300 k events takes about a minute
+            short = {"tokens": batch["tokens"][:, :PREFILL19R[1] // 4]}
+            device_busy(lambda: api.prefill(params, cfg, short),
+                        f"{tag} prefill (T = {PREFILL19R[1] // 4})")
+            forced_decode_check(tag, params, cfg, XL.init_xlstm_state,
+                                XL.decode_step_xlstm, 0.15)
+        print(f"{tag} peak device memory {torch.cuda.max_memory_allocated()}"
+              f" B ({torch.cuda.max_memory_allocated() / 2**30:.2f} GiB); "
+              f"{time.perf_counter() - t_model:.1f} s for the model")
+        del params, batch
+        torch.cuda.empty_cache()
+        if cfg.family in ("moe", "vlm"):
+            serve.main(["--arch", arch, "--max-new", "8", "--prompts",
+                        "12. 34", "7, 891", "--grammar", GRAMMAR12])
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3428,6 +3807,11 @@ def main() -> int:
     t0 = time.perf_counter()
     phase18_sharded(ps, docs, want3, m)
     print(f"[18] phase 18 in {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 19: every model family at full width ---------------------------
+    t0 = time.perf_counter()
+    phase19_families(counts)
+    print(f"[19] phase 19 in {time.perf_counter() - t0:.1f} s")
     for name in kernels:
         kernels[name]["launches"] = counts[name]
 

@@ -3,8 +3,11 @@
 ``params_from_jax(cfg, tree)`` takes the pytree that the JAX package's
 ``models.api.init`` returns, as nested dicts of numpy arrays (``jax.tree.map
 (np.asarray, params)``), and returns the port's parameters: the same names,
-the same stacked ``[L, ...]`` layout, float32 tensors on ``device``.  The
-tests feed both packages the same weights through it.
+the same stacked layout (``[L, ...]`` layers; ``[n_groups, ...]`` groups
+and an unstacked ``tail`` for the hybrid and ssm families; ``enc``/``dec``
+stacks for encdec), float32 tensors on ``device``.  Every family's tree
+goes through it (``api.param_shapes``).  The tests feed both packages the
+same weights through it.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.engine.plan import resolve_device
-from .transformer import param_shapes
+from .api import param_shapes
 
 __all__ = ["params_from_jax"]
 

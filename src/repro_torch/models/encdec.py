@@ -1,0 +1,145 @@
+"""Encoder-decoder backbone (seamless-m4t-medium).
+
+The port of the JAX package's ``models/encdec.py``.  The audio frontend is a
+stub: batches carry precomputed frame embeddings [B, T_enc, D] for the
+encoder.  The encoder is bidirectional and keeps no cache (the blockwise
+attention path); the decoder is a causal stack with cross-attention to the
+encoder memory.  A decoder prefill into a cache exactly the prompt's
+length runs its self-attention on the fused kernel B9 on the card (as
+``transformer.forward`` does); cross-attention runs blockwise in prefill
+and directly in decode.  Layers are stacked ``[L, ...]`` under ``enc`` and
+``dec``; a Python loop takes the place of ``lax.scan``, and the decoder's
+cache is filled in place.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..configs.base import ModelConfig
+from . import layers as L
+
+__all__ = ["init_encdec", "forward_encdec", "encode", "init_encdec_cache",
+           "decode_step_encdec"]
+
+
+def init_enc_layer(cfg: ModelConfig, gen, *, device) -> dict:
+    return {
+        "ln1": L.init_rmsnorm(cfg.d_model, device=device),
+        "attn": L.init_attention(gen, cfg.d_model, cfg.n_heads,
+                                 cfg.n_kv_heads, cfg.hd, device=device),
+        "ln2": L.init_rmsnorm(cfg.d_model, device=device),
+        "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, device=device),
+    }
+
+
+def init_dec_layer(cfg: ModelConfig, gen, *, device) -> dict:
+    return {
+        "ln1": L.init_rmsnorm(cfg.d_model, device=device),
+        "self": L.init_attention(gen, cfg.d_model, cfg.n_heads,
+                                 cfg.n_kv_heads, cfg.hd, device=device),
+        "ln_x": L.init_rmsnorm(cfg.d_model, device=device),
+        "cross": L.init_attention(gen, cfg.d_model, cfg.n_heads,
+                                  cfg.n_kv_heads, cfg.hd, device=device),
+        "ln2": L.init_rmsnorm(cfg.d_model, device=device),
+        "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, device=device),
+    }
+
+
+def init_encdec(cfg: ModelConfig, gen: torch.Generator, *, device) -> dict:
+    """Random parameters from ``gen`` on ``device`` (the JAX initialisers'
+    distributions; not their numbers)."""
+    n_enc = cfg.n_enc_layers or cfg.n_layers
+    embed = L.init_embedding(gen, cfg.padded_vocab, cfg.d_model,
+                             device=device)
+    enc = L.stack_trees([init_enc_layer(cfg, gen, device=device)
+                         for _ in range(n_enc)])
+    dec = L.stack_trees([init_dec_layer(cfg, gen, device=device)
+                         for _ in range(cfg.n_layers)])
+    return {
+        "embed": embed,
+        "enc": enc,
+        "dec": dec,
+        "enc_norm": L.init_rmsnorm(cfg.d_model, device=device),
+        "final_norm": L.init_rmsnorm(cfg.d_model, device=device),
+        "head": L.init_dense(gen, cfg.d_model, cfg.padded_vocab,
+                             device=device),
+    }
+
+
+def encode(params: dict, cfg: ModelConfig,
+           frames: torch.Tensor) -> torch.Tensor:
+    """frames [B, T_enc, D] (stubbed frontend output) -> memory [B, T_enc,
+    D] (bf16)."""
+    x = frames.to(L.Compute)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for i in range(cfg.n_enc_layers or cfg.n_layers):
+        p = L.index_tree(params["enc"], i)
+        h, _ = L.attention(p["attn"], L.rms_norm(p["ln1"], x, cfg.norm_eps),
+                           positions=positions, rope_theta=cfg.rope_theta,
+                           causal=False)
+        x = x + h
+        x = x + L.swiglu_mlp(p["mlp"], L.rms_norm(p["ln2"], x, cfg.norm_eps))
+    return L.rms_norm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _dec_layer(cfg, p, x, memory, *, positions, cache=None,
+               cache_index: int = 0, attn_route: str = "auto"):
+    h, _ = L.attention(p["self"], L.rms_norm(p["ln1"], x, cfg.norm_eps),
+                       positions=positions, rope_theta=cfg.rope_theta,
+                       cache=cache, cache_index=cache_index,
+                       attn_route=attn_route)
+    x = x + h
+    h, _ = L.attention(p["cross"], L.rms_norm(p["ln_x"], x, cfg.norm_eps),
+                       positions=positions, rope_theta=cfg.rope_theta,
+                       memory=memory, causal=False)
+    x = x + h
+    return x + L.swiglu_mlp(p["mlp"], L.rms_norm(p["ln2"], x, cfg.norm_eps))
+
+
+def forward_encdec(params: dict, cfg: ModelConfig, frames: torch.Tensor,
+                   dec_tokens: torch.Tensor, *,
+                   cache: Optional[dict] = None, last_only: bool = False,
+                   attn_route: str = "auto"):
+    """Teacher-forced training / prefill.  Returns (logits, cache, aux).
+    With ``cache`` ([L, B, S, K, H] leaves, zero) the decoder's K/V fill
+    its first T positions in place; ``attn_route`` picks the route of the
+    decoder's prefill self-attention (``layers.attention``)."""
+    memory = encode(params, cfg, frames)
+    x = L.embed(params["embed"], dec_tokens)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for i in range(cfg.n_layers):
+        c = None if cache is None else {"k": cache["k"][i],
+                                        "v": cache["v"][i]}
+        x = _dec_layer(cfg, L.index_tree(params["dec"], i), x, memory,
+                       positions=positions, cache=c, attn_route=attn_route)
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    if last_only:
+        x = x[:, -1:]
+    return (L.dense(params["head"], x), cache,
+            torch.zeros((), device=x.device))
+
+
+def init_encdec_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                      device) -> dict:
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=L.Compute, device=device),
+            "v": torch.zeros(shape, dtype=L.Compute, device=device)}
+
+
+def decode_step_encdec(params: dict, cfg: ModelConfig, cache: dict,
+                       memory: torch.Tensor, tokens: torch.Tensor, pos: int):
+    """One-token decode against the self cache (updated in place) and the
+    precomputed encoder memory.  Returns (logits, cache)."""
+    pos = int(pos)
+    x = L.embed(params["embed"], tokens)
+    positions = pos + torch.arange(x.shape[1], device=x.device)[None, :]
+    for i in range(cfg.n_layers):
+        x = _dec_layer(cfg, L.index_tree(params["dec"], i), x, memory,
+                       positions=positions,
+                       cache={"k": cache["k"][i], "v": cache["v"][i]},
+                       cache_index=pos)
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return L.dense(params["head"], x), cache

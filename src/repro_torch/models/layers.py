@@ -15,10 +15,10 @@ copies: a decode step then moves one token's K/V, not the whole cache.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from .attention_core import direct_attention, flash_attention
 
@@ -26,7 +26,8 @@ __all__ = [
     "Compute", "init_dense", "dense", "init_rmsnorm", "rms_norm",
     "init_embedding", "embed", "unembed", "rope", "init_attention",
     "attention", "init_kv_cache_layer", "init_mlp", "swiglu_mlp",
-    "truncated_normal",
+    "truncated_normal", "stack_trees", "index_tree", "sigmoid", "silu",
+    "gelu",
 ]
 
 Compute = torch.bfloat16
@@ -38,6 +39,22 @@ def truncated_normal(gen: torch.Generator, shape, scale: float, *,
     out = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return out.mul_(scale)
+
+
+def stack_trees(trees: list) -> dict:
+    """Equal nested dicts of tensors -> one dict of their leaves stacked on
+    a new leading axis (the JAX package's ``vmap``-ed initialisers)."""
+    if isinstance(trees[0], dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def index_tree(tree: dict, i: int) -> dict:
+    """Entry ``i`` of every leaf of a stacked tree (views, not copies: a
+    write to one writes to the stack)."""
+    if isinstance(tree, dict):
+        return {k: index_tree(v, i) for k, v in tree.items()}
+    return tree[i]
 
 
 def init_dense(gen, d_in: int, d_out: int, *, scale: Optional[float] = None,
@@ -87,7 +104,7 @@ def rope(x, positions, theta: float = 10_000.0):
 
 
 # --------------------------------------------------------------------------
-# Attention (GQA; full-causal or local-window)
+# Attention (GQA; full-causal, local-window, or cross)
 # --------------------------------------------------------------------------
 
 def init_attention(gen, d_model: int, n_heads: int, n_kv: int,
@@ -132,27 +149,32 @@ def _kernel_route(x, attn_route: str) -> bool:
 
 def attention(p, x, *, positions, rope_theta: float, window: int = 0,
               cache: Optional[dict] = None, cache_index: int = 0,
-              causal: bool = True, q_block: int = 512, kv_block: int = 1024,
+              memory: Optional[torch.Tensor] = None, causal: bool = True,
+              q_block: int = 512, kv_block: int = 1024,
               attn_route: str = "auto"):
-    """GQA self-attention.
+    """GQA attention.
 
     x [B, T, D].  Without ``cache``: causal (or bidirectional) attention
-    over x.  With ``cache`` ({"k", "v"} [B, S, n_kv, hd] bf16): the new K/V
-    are written into it at ``cache_index`` (in place) and x attends to the
-    first ``cache_index + T`` positions.  A prefill whose cache is exactly
-    the prompt (T == S > 16) runs the fused kernel B9 on the card; other
-    long queries run the blockwise path, short (decode) queries the direct
-    path; ``attn_route`` picks the prefill's route (``_kernel_route``).
-    Returns (out [B, T, D], cache).
+    over x.  With ``memory`` [B, S, D]: cross-attention, K/V from memory,
+    no rope, never causal.  With ``cache`` ({"k", "v"} [B, S, n_kv, hd]
+    bf16): the new K/V are written into it at ``cache_index`` (in place)
+    and x attends to the first ``cache_index + T`` positions.  A prefill
+    whose cache is exactly the prompt (T == S > 16) runs the fused kernel
+    B9 on the card; other long queries run the blockwise path, short
+    (decode) queries the direct path; ``attn_route`` picks the prefill's
+    route (``_kernel_route``).  Returns (out [B, T, D], cache).
     """
     from ..kernels import ops as kops
 
     b, t, d = x.shape
     q = torch.einsum("btd,dnh->btnh", x, p["wq"].to(Compute))
-    k = torch.einsum("bsd,dkh->bskh", x, p["wk"].to(Compute))
-    v = torch.einsum("bsd,dkh->bskh", x, p["wv"].to(Compute))
-    q = rope(q, positions, rope_theta)
-    k = rope(k, positions, rope_theta)
+    src = memory if memory is not None else x
+    k = torch.einsum("bsd,dkh->bskh", src, p["wk"].to(Compute))
+    v = torch.einsum("bsd,dkh->bskh", src, p["wv"].to(Compute))
+    if memory is None:
+        q = rope(q, positions, rope_theta)
+        k = rope(k, positions, rope_theta)
+    causal = causal and memory is None
 
     kv_valid = None
     q_offset = 0
@@ -208,4 +230,38 @@ def init_mlp(gen, d_model: int, d_ff: int, *, device):
 def swiglu_mlp(p, x):
     gate = torch.matmul(x, p["wi_gate"].to(Compute))
     up = torch.matmul(x, p["wi_up"].to(Compute))
-    return torch.matmul(F.silu(gate) * up, p["wo"].to(Compute))
+    return torch.matmul(silu(gate) * up, p["wo"].to(Compute))
+
+
+# --------------------------------------------------------------------------
+# Activations, op by op as ``jax.nn`` computes them
+# --------------------------------------------------------------------------
+# On bf16 operands XLA rounds after every op of these formulas, so a fused
+# torch activation (one rounding) differs from the JAX package in a third
+# to a half of all bf16 values by an ulp; the same ops in torch, each
+# rounding to bf16, agree bit for bit on the CPU.
+
+def sigmoid(x):
+    """``jax.nn.sigmoid``: ``1 / (1 + exp(-x))``, each op rounded to x's
+    dtype (float32 takes torch's own)."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1 / (1 + torch.exp(-x))
+
+
+def silu(x):
+    """``jax.nn.silu``: ``x * sigmoid(x)``."""
+    return x * sigmoid(x)
+
+
+def _const(v: float, dtype) -> float:
+    """A constant rounded to ``dtype``, as JAX's weakly typed literals are."""
+    return torch.tensor(v, dtype=dtype).item()
+
+
+def gelu(x):
+    """``jax.nn.gelu`` (the tanh approximation, its default), op by op with
+    its constants in x's dtype (sqrt(2/pi) is 0.796875 in bf16)."""
+    inner = _const(math.sqrt(2 / math.pi), x.dtype) * (
+        x + _const(0.044715, x.dtype) * (x * x * x))
+    return x * (_const(0.5, x.dtype) * (1 + torch.tanh(inner)))

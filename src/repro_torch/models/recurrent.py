@@ -1,0 +1,320 @@
+"""Hybrid RG-LRU + local-attention model (RecurrentGemma / Griffin family).
+
+The port of the JAX package's ``models/recurrent.py``.  The block pattern
+(``cfg.block_pattern``, default ("rglru", "rglru", "attn")) repeats in
+groups whose parameters are stacked ``[n_groups, ...]``; the remainder
+layers form an unstacked ``tail``.  A Python loop over groups takes the
+place of ``lax.scan``.
+
+The RG-LRU prefill solves the linear recurrence ``h_t = a_t * h_{t-1} +
+b_t`` in chunks of 2,048 steps: inside a chunk a log-depth doubling scan
+composes the elements (a, b) as ``(a2*a1, a2*b1 + b2)`` (the reference's
+``associative_scan``, in another association order), and the state is
+carried from chunk to chunk in sequence.
+
+Decode state: RG-LRU hidden [B, d_rnn] + causal-conv tail [B, 3, d_rnn] per
+recurrent layer; a ring buffer of ``attn_window`` K/V slots per attention
+layer.  ``decode_step_hybrid`` updates the state tensors in place and
+returns them, as the transformer's decode step does its cache.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from . import layers as L
+
+__all__ = ["init_hybrid", "forward_hybrid", "init_hybrid_state",
+           "decode_step_hybrid", "rglru_block", "attn_block",
+           "attn_block_decode", "init_ring_cache", "CONV_W"]
+
+CONV_W = 4  # causal temporal-conv width (Griffin)
+SCAN_CHUNK = 2048
+
+
+# --------------------------------------------------------------------------
+# RG-LRU
+# --------------------------------------------------------------------------
+
+def init_rglru_block(gen, d_model: int, d_rnn: int, d_ff: int, *, device):
+    tn = L.truncated_normal
+    return {
+        "ln2": L.init_rmsnorm(d_model, device=device),
+        "mlp": L.init_mlp(gen, d_model, d_ff, device=device),
+        "ln": L.init_rmsnorm(d_model, device=device),
+        "wx": tn(gen, (d_model, d_rnn), d_model ** -0.5, device=device),
+        "wgate": tn(gen, (d_model, d_rnn), d_model ** -0.5, device=device),
+        "conv_w": tn(gen, (CONV_W, d_rnn), CONV_W ** -0.5, device=device),
+        "conv_b": torch.zeros((d_rnn,), dtype=torch.float32, device=device),
+        "w_r": tn(gen, (d_rnn, d_rnn), d_rnn ** -0.5, device=device),
+        "w_i": tn(gen, (d_rnn, d_rnn), d_rnn ** -0.5, device=device),
+        "lam": torch.linspace(0.9, 0.999, d_rnn, dtype=torch.float32,
+                              device=device),                    # a ~ U
+        "wo": tn(gen, (d_rnn, d_model), d_rnn ** -0.5, device=device),
+    }
+
+
+def _rglru_coeffs(p, u):
+    """Per-step gate coefficients: h_t = a_t * h_{t-1} + b_t."""
+    r = torch.sigmoid(torch.matmul(u, p["w_r"].to(L.Compute)).float())
+    i = torch.sigmoid(torch.matmul(u, p["w_i"].to(L.Compute)).float())
+    log_a = -8.0 * F.softplus(p["lam"]) * r               # [B,T,d_rnn] fp32
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
+        * i * u.float()
+    return a, b
+
+
+def _doubling_scan(a, b):
+    """Inclusive scan of (a, b) along axis 1 under ``(a2*a1, a2*b1 + b2)``
+    in log2(T) doubling steps: after the step of offset s, element t holds
+    the composition of elements max(0, t - 2s + 1) .. t."""
+    t = a.shape[1]
+    s = 1
+    while s < t:
+        b = torch.cat([b[:, :s], a[:, s:] * b[:, :-s] + b[:, s:]], dim=1)
+        a = torch.cat([a[:, :s], a[:, s:] * a[:, :-s]], dim=1)
+        s *= 2
+    return a, b
+
+
+def _chunked_linear_scan(a, b, *, chunk: int = SCAN_CHUNK):
+    """h_t = a_t * h_{t-1} + b_t (h_{-1} = 0): a doubling scan within each
+    chunk, the state carried across chunks in sequence."""
+    bsz, t, d = a.shape
+    chunk = min(chunk, t)
+    assert t % chunk == 0, (t, chunk)
+    h_in = torch.zeros((bsz, d), dtype=a.dtype, device=a.device)
+    outs = []
+    for c in range(t // chunk):
+        acoef, bcoef = _doubling_scan(a[:, c * chunk:(c + 1) * chunk],
+                                      b[:, c * chunk:(c + 1) * chunk])
+        h_out = acoef * h_in[:, None] + bcoef
+        outs.append(h_out)
+        h_in = h_out[:, -1]
+    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+
+
+def _causal_conv(p, u, tail=None):
+    """Depthwise causal conv width CONV_W; tail [B, CONV_W-1, d] for decode.
+    bf16 products summed in bf16, in the reference's order."""
+    pad = (torch.zeros((u.shape[0], CONV_W - 1, u.shape[2]), dtype=u.dtype,
+                       device=u.device) if tail is None else tail.to(u.dtype))
+    ext = torch.cat([pad, u], dim=1)
+    t = u.shape[1]
+    out = sum(ext[:, i:i + t] * p["conv_w"][i].to(u.dtype)
+              for i in range(CONV_W))
+    return out + p["conv_b"].to(u.dtype), ext[:, -(CONV_W - 1):]
+
+
+def rglru_block(p, x, *, eps: float, state=None):
+    """x [B,T,D] -> (y, state).  state = {"h": [B,d], "conv": [B,3,d]}
+    (decode, T == 1: updated in place)."""
+    xn = L.rms_norm(p["ln"], x, eps)
+    u = torch.matmul(xn, p["wx"].to(L.Compute))
+    gate = torch.matmul(xn, p["wgate"].to(L.Compute))
+    u, conv_tail = _causal_conv(p, u, None if state is None
+                                else state["conv"])
+    a, b = _rglru_coeffs(p, u)
+    if state is None:
+        h = _chunked_linear_scan(a, b)
+    else:
+        h = a[:, 0] * state["h"] + b[:, 0]                # single step (T==1)
+        state["h"].copy_(h)
+        state["conv"].copy_(conv_tail)
+        h = h[:, None]
+    y = torch.matmul(h.to(L.Compute) * L.gelu(gate),
+                     p["wo"].to(L.Compute))
+    x = x + y
+    x = x + L.swiglu_mlp(p["mlp"], L.rms_norm(p["ln2"], x, eps))
+    return x, state
+
+
+# --------------------------------------------------------------------------
+# Local attention with ring-buffer cache
+# --------------------------------------------------------------------------
+
+def init_attn_block(gen, cfg: ModelConfig, *, device):
+    return {
+        "ln": L.init_rmsnorm(cfg.d_model, device=device),
+        "attn": L.init_attention(gen, cfg.d_model, cfg.n_heads,
+                                 cfg.n_kv_heads, cfg.hd, device=device),
+        "ln2": L.init_rmsnorm(cfg.d_model, device=device),
+        "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, device=device),
+    }
+
+
+def attn_block(p, x, cfg: ModelConfig, *, positions):
+    h, _ = L.attention(p["attn"], L.rms_norm(p["ln"], x, cfg.norm_eps),
+                       positions=positions, rope_theta=cfg.rope_theta,
+                       window=cfg.attn_window)
+    x = x + h
+    return x + L.swiglu_mlp(p["mlp"], L.rms_norm(p["ln2"], x, cfg.norm_eps))
+
+
+def init_ring_cache(cfg: ModelConfig, batch: int, *, lead=(), device):
+    shape = (*lead, batch, cfg.attn_window, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=L.Compute, device=device),
+            "v": torch.zeros(shape, dtype=L.Compute, device=device)}
+
+
+def attn_block_decode(p, x, cfg: ModelConfig, ring: dict, pos: int):
+    """Single-token local attention against the ring buffer (written in
+    place at slot ``pos % w``)."""
+    w = cfg.attn_window
+    xn = L.rms_norm(p["ln"], x, cfg.norm_eps)
+    ap = p["attn"]
+    q = torch.einsum("btd,dnh->btnh", xn, ap["wq"].to(L.Compute))
+    k = torch.einsum("btd,dkh->btkh", xn, ap["wk"].to(L.Compute))
+    v = torch.einsum("btd,dkh->btkh", xn, ap["wv"].to(L.Compute))
+    positions = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
+    q = L.rope(q, positions, cfg.rope_theta)
+    k = L.rope(k, positions, cfg.rope_theta)
+    slot = pos % w
+    ring["k"][:, slot] = k[:, 0]
+    ring["v"][:, slot] = v[:, 0]
+    # absolute position held by each slot (within the last w writes): floor
+    # modulo, as the reference's ``%`` on integers
+    idx = torch.arange(w, device=x.device)
+    slot_pos = pos - torch.remainder(pos - idx, w)
+    b, t = x.shape[0], 1
+    n_kv = k.shape[2]
+    hd = q.shape[-1]
+    qg = q.reshape(b, t, n_kv, -1, hd)
+    # keys were stored post-rope at their absolute positions; mask invalids
+    logits = torch.einsum("btkgh,bskh->bkgts", qg, ring["k"]).float()
+    logits = logits * hd ** -0.5
+    ok = (slot_pos >= 0) & (slot_pos <= pos)
+    logits = torch.where(ok[None, None, None, None], logits,
+                         torch.tensor(-1e30, device=x.device))
+    probs = torch.softmax(logits, dim=-1).to(L.Compute)
+    ctx = torch.einsum("bkgts,bskh->btkgh", probs, ring["v"])
+    h = torch.einsum("btnh,nhd->btd", ctx.reshape(b, t, cfg.n_heads, hd),
+                     ap["wo"].to(L.Compute))
+    x = x + h
+    x = x + L.swiglu_mlp(p["mlp"], L.rms_norm(p["ln2"], x, cfg.norm_eps))
+    return x, ring
+
+
+# --------------------------------------------------------------------------
+# Model assembly
+# --------------------------------------------------------------------------
+
+def _pattern(cfg: ModelConfig) -> tuple[str, ...]:
+    return cfg.block_pattern or ("rglru", "rglru", "attn")
+
+
+def _pattern_layout(cfg: ModelConfig) -> tuple[int, tuple[str, ...]]:
+    pat = _pattern(cfg)
+    n_groups = cfg.n_layers // len(pat)
+    tail = cfg.n_layers - n_groups * len(pat)
+    return n_groups, pat[:tail]
+
+
+def init_group(cfg: ModelConfig, gen, pattern, *, device) -> dict:
+    d_rnn = cfg.rglru_dim or cfg.d_model
+    return {f"b{i}_{kind}": (
+        init_rglru_block(gen, cfg.d_model, d_rnn, cfg.d_ff, device=device)
+        if kind == "rglru" else init_attn_block(gen, cfg, device=device))
+        for i, kind in enumerate(pattern)}
+
+
+def init_hybrid(cfg: ModelConfig, gen: torch.Generator, *, device) -> dict:
+    """Random parameters from ``gen`` on ``device`` (the JAX initialisers'
+    distributions; not their numbers)."""
+    n_groups, tail = _pattern_layout(cfg)
+    groups = L.stack_trees([init_group(cfg, gen, _pattern(cfg),
+                                       device=device)
+                            for _ in range(n_groups)])
+    params = {
+        "embed": L.init_embedding(gen, cfg.padded_vocab, cfg.d_model,
+                                  device=device),
+        "groups": groups,
+        "final_norm": L.init_rmsnorm(cfg.d_model, device=device),
+    }
+    if tail:
+        params["tail"] = init_group(cfg, gen, tail, device=device)
+    if not cfg.tie_embeddings:
+        params["head"] = L.init_dense(gen, cfg.d_model, cfg.padded_vocab,
+                                      device=device)
+    return params
+
+
+def _head(params: dict, cfg: ModelConfig, x):
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return (L.unembed(params["embed"], x) if cfg.tie_embeddings
+            else L.dense(params["head"], x))
+
+
+def _groups(cfg: ModelConfig, tree: dict):
+    """(group tree, pattern) of every group in order: the stacked groups,
+    then the tail."""
+    n_groups, tail = _pattern_layout(cfg)
+    for g in range(n_groups):
+        yield L.index_tree(tree["groups"], g), _pattern(cfg)
+    if tail:
+        yield tree["tail"], tail
+
+
+def forward_hybrid(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+                   last_only: bool = False):
+    """Training / prefill forward. Returns (logits, None, aux=0)."""
+    x = L.embed(params["embed"], tokens)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for gp, pattern in _groups(cfg, params):
+        for i, kind in enumerate(pattern):
+            p = gp[f"b{i}_{kind}"]
+            if kind == "rglru":
+                x, _ = rglru_block(p, x, eps=cfg.norm_eps)
+            else:
+                x = attn_block(p, x, cfg, positions=positions)
+    if last_only:
+        x = x[:, -1:]
+    return _head(params, cfg, x), None, torch.zeros((), device=x.device)
+
+
+def _group_state(cfg: ModelConfig, batch: int, pattern, *, lead=(),
+                 device) -> dict:
+    d_rnn = cfg.rglru_dim or cfg.d_model
+    st = {}
+    for i, kind in enumerate(pattern):
+        if kind == "rglru":
+            st[f"b{i}_{kind}"] = {
+                "h": torch.zeros((*lead, batch, d_rnn), dtype=torch.float32,
+                                 device=device),
+                "conv": torch.zeros((*lead, batch, CONV_W - 1, d_rnn),
+                                    dtype=L.Compute, device=device),
+            }
+        else:
+            st[f"b{i}_{kind}"] = init_ring_cache(cfg, batch, lead=lead,
+                                                 device=device)
+    return st
+
+
+def init_hybrid_state(cfg: ModelConfig, batch: int, *, device) -> dict:
+    n_groups, tail = _pattern_layout(cfg)
+    state = {"groups": _group_state(cfg, batch, _pattern(cfg),
+                                    lead=(n_groups,), device=device)}
+    if tail:
+        state["tail"] = _group_state(cfg, batch, tail, device=device)
+    return state
+
+
+def decode_step_hybrid(params: dict, cfg: ModelConfig, state: dict,
+                       tokens: torch.Tensor, pos: int):
+    """One-token decode: O(window + d_rnn) state, O(1) in sequence length.
+    Returns (logits, state); the state is updated in place."""
+    pos = int(pos)
+    x = L.embed(params["embed"], tokens)
+    for (gp, pattern), (st, _) in zip(_groups(cfg, params),
+                                      _groups(cfg, state)):
+        for i, kind in enumerate(pattern):
+            key = f"b{i}_{kind}"
+            if kind == "rglru":
+                x, _ = rglru_block(gp[key], x, eps=cfg.norm_eps,
+                                   state=st[key])
+            else:
+                x, _ = attn_block_decode(gp[key], x, cfg, st[key], pos)
+    return _head(params, cfg, x), state

@@ -1,0 +1,308 @@
+"""xLSTM (sLSTM + mLSTM) stack — the ssm family.
+
+The port of the JAX package's ``models/xlstm.py``.  mLSTM: a matrix-memory
+cell with outer-product updates; prefill runs the chunkwise-parallel form
+(chunks of ``CHUNK`` steps: intra-chunk quadratic with a decay mask, the
+recurrent state (C, n) carried across chunks in sequence); decode is the
+O(1) recurrent step on (C, n).  sLSTM: a strictly sequential scalar-memory
+cell, a Python loop over time steps in prefill.
+
+Numerics follow the reference: the exponential input gate is clamped to
+``|logit| <= GATE_CLAMP`` and forget gates are sigmoids; where the
+reference multiplies bf16 operands into float32 (``preferred_element_type``)
+the port multiplies their float32 copies (exact products, float32 sums),
+and it rounds the stored ``scores`` and ``w`` tiles to bf16 where the
+reference does.
+
+Block pattern: 7 mLSTM : 1 sLSTM (``cfg.block_pattern``), d_ff = 0 — the
+cells hold their own projections, there is no separate FFN.  The decode
+state is updated in place and returned.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ModelConfig
+from . import layers as L
+
+__all__ = ["init_xlstm", "forward_xlstm", "init_xlstm_state",
+           "decode_step_xlstm", "mlstm_block", "slstm_block", "CHUNK",
+           "GATE_CLAMP"]
+
+CHUNK = 256
+GATE_CLAMP = 8.0
+
+
+def _proj(x, w):
+    """x [B,T,D] @ w.astype(bf16) [D, ...] -> [B, T, ...] (bf16)."""
+    return torch.matmul(x, w.to(L.Compute).reshape(w.shape[0], -1)) \
+        .reshape(*x.shape[:-1], *w.shape[1:])
+
+
+# --------------------------------------------------------------------------
+# mLSTM
+# --------------------------------------------------------------------------
+
+def init_mlstm_block(gen, d_model: int, n_heads: int, *, device):
+    hd = d_model // n_heads
+    s = d_model ** -0.5
+    tn = L.truncated_normal
+    return {
+        "ln": L.init_rmsnorm(d_model, device=device),
+        "wq": tn(gen, (d_model, n_heads, hd), s, device=device),
+        "wk": tn(gen, (d_model, n_heads, hd), s, device=device),
+        "wv": tn(gen, (d_model, n_heads, hd), s, device=device),
+        "wi": tn(gen, (d_model, n_heads), s, device=device),
+        "wf": tn(gen, (d_model, n_heads), s, device=device),
+        "wog": tn(gen, (d_model, d_model), s, device=device),
+        "wo": tn(gen, (d_model, d_model), s, device=device),
+    }
+
+
+def _mlstm_gates(p, xn):
+    i_log = torch.clamp(_proj(xn, p["wi"]).float(), -GATE_CLAMP, GATE_CLAMP)
+    f = torch.sigmoid(_proj(xn, p["wf"]).float())
+    return i_log, f
+
+
+def _mlstm_chunk(C, n, qj, kj, vj, ij, fj):
+    """One chunk of the chunkwise-parallel mLSTM: (C, n) [B,N,h,h], [B,N,h]
+    float32; qj/kj/vj [B,K,N,h] bf16, ij/fj [B,K,N] float32.  Returns
+    (C', n', h [B,K,N,h] float32)."""
+    ck = qj.shape[1]
+    lf = torch.log(torch.clamp(fj, min=1e-9))           # [B,K,N]
+    cum = torch.cumsum(lf, dim=1)                        # inclusive
+    total = cum[:, -1:]
+    # intra-chunk decay: D[t,s] = exp(cum_t - cum_s + i_s), s <= t
+    dmat = cum[:, :, None] - cum[:, None, :] + ij[:, None, :]
+    mask = torch.tril(torch.ones((ck, ck), dtype=torch.bool,
+                                 device=qj.device))
+    dmat = torch.where(mask[None, :, :, None], dmat,
+                       torch.tensor(-1e30, device=qj.device))
+    dexp = torch.exp(torch.clamp(dmat, max=GATE_CLAMP))
+    qf, kf, vf = qj.float(), kj.float(), vj.float()
+    # float32 product, one rounding into the stored bf16 tile
+    scores = (torch.einsum("btnh,bsnh->btsn", qf, kf) * dexp).to(L.Compute)
+    intra = torch.einsum("btsn,bsnh->btnh", scores.float(), vf)
+    # inter-chunk: state decayed to position t
+    qdec = torch.exp(cum)[..., None] * qf
+    inter = torch.einsum("btnh,bnhg->btng", qdec, C)
+    inter_n = torch.einsum("btnh,bnh->btn", qdec, n)
+    num = intra + inter
+    # normaliser: q . n_t = sum_s decay_s * (q . k_s)  (= scores summed)
+    den = torch.abs(scores.float().sum(dim=2) + inter_n)
+    h = num / torch.clamp(den, min=1.0)[..., None]
+    # state update: C' = F C + sum_s exp(total - cum_s + i_s) k v^T
+    w = torch.exp(total - cum + ij).to(L.Compute).float()    # [B,K,N]
+    wk = w[..., None] * kf
+    kv = torch.einsum("bsnh,bsng->bnhg", wk, vf)
+    ksum = wk.sum(dim=1)
+    ftot = torch.exp(total[:, 0])[..., None]             # [B,N,1]
+    return ftot[..., None] * C + kv, ftot * n + ksum, h
+
+
+def mlstm_block(p, x, *, n_heads: int, eps: float, state=None):
+    """x [B,T,D].  state = {"C": [B,N,h,h], "n": [B,N,h]} for decode
+    (T == 1; updated in place)."""
+    b, t, d = x.shape
+    hd = d // n_heads
+    xn = L.rms_norm(p["ln"], x, eps)
+    q = _proj(xn, p["wq"]) * hd ** -0.5
+    k = _proj(xn, p["wk"])
+    v = _proj(xn, p["wv"])
+    i_log, f = _mlstm_gates(p, xn)
+
+    if state is not None:  # single-step decode
+        i = torch.exp(i_log[:, 0])                                 # [B,N]
+        f0 = f[:, 0]
+        k0, v0, q0 = k[:, 0].float(), v[:, 0].float(), q[:, 0].float()
+        c_new = f0[..., None, None] * state["C"] + \
+            i[..., None, None] * torch.einsum("bnh,bng->bnhg", k0, v0)
+        n_new = f0[..., None] * state["n"] + i[..., None] * k0
+        num = torch.einsum("bnh,bnhg->bng", q0, c_new)
+        den = torch.abs(torch.einsum("bnh,bnh->bn", q0, n_new))
+        h = (num / torch.clamp(den, min=1.0)[..., None])[:, None]  # [B,1,N,h]
+        state["C"].copy_(c_new)
+        state["n"].copy_(n_new)
+    else:  # chunkwise-parallel prefill
+        ck = min(CHUNK, t)
+        assert t % ck == 0, (t, CHUNK)
+        C = torch.zeros((b, n_heads, hd, hd), dtype=torch.float32,
+                        device=x.device)
+        n = torch.zeros((b, n_heads, hd), dtype=torch.float32,
+                        device=x.device)
+        hs = []
+        for lo in range(0, t, ck):
+            sl = slice(lo, lo + ck)
+            C, n, hj = _mlstm_chunk(C, n, q[:, sl], k[:, sl], v[:, sl],
+                                    i_log[:, sl], f[:, sl])
+            hs.append(hj)
+        h = torch.cat(hs, dim=1) if len(hs) > 1 else hs[0]
+
+    og = L.sigmoid(_proj(xn, p["wog"]))
+    y = _proj(h.reshape(b, -1, d).to(L.Compute) * og, p["wo"])
+    return x + y, state
+
+
+# --------------------------------------------------------------------------
+# sLSTM
+# --------------------------------------------------------------------------
+
+def init_slstm_block(gen, d_model: int, *, device):
+    s = d_model ** -0.5
+    tn = L.truncated_normal
+    return {
+        "ln": L.init_rmsnorm(d_model, device=device),
+        "wz": tn(gen, (d_model, d_model), s, device=device),
+        "wi": tn(gen, (d_model, d_model), s, device=device),
+        "wf": tn(gen, (d_model, d_model), s, device=device),
+        "wo_gate": tn(gen, (d_model, d_model), s, device=device),
+        "wo": tn(gen, (d_model, d_model), s, device=device),
+    }
+
+
+def slstm_block(p, x, *, eps: float, state=None):
+    """Sequential scalar-memory cell.  state = {"c": [B,D], "n": [B,D]}
+    (decode; updated in place)."""
+    xn = L.rms_norm(p["ln"], x, eps)
+    z = torch.tanh(_proj(xn, p["wz"]).float())
+    i = torch.exp(torch.clamp(_proj(xn, p["wi"]).float(), -GATE_CLAMP,
+                              GATE_CLAMP))
+    f = torch.sigmoid(_proj(xn, p["wf"]).float())
+    o = L.sigmoid(_proj(xn, p["wo_gate"]))
+
+    if state is not None:
+        c = f[:, 0] * state["c"] + i[:, 0] * z[:, 0]
+        n = f[:, 0] * state["n"] + i[:, 0]
+        h = (c / torch.clamp(n, min=1.0))[:, None]
+        state["c"].copy_(c)
+        state["n"].copy_(n)
+    else:
+        b, t, d = x.shape
+        c = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+        n = torch.zeros_like(c)
+        hs = []
+        for s in range(t):
+            c = f[:, s] * c + i[:, s] * z[:, s]
+            n = f[:, s] * n + i[:, s]
+            hs.append(c / torch.clamp(n, min=1.0))
+        h = torch.stack(hs, dim=1)
+    y = _proj(h.to(L.Compute) * o, p["wo"])
+    return x + y, state
+
+
+# --------------------------------------------------------------------------
+# Stack assembly (pattern groups, like recurrent.py)
+# --------------------------------------------------------------------------
+
+def _pattern_layout(cfg: ModelConfig):
+    pat = cfg.block_pattern or ("mlstm",) * 7 + ("slstm",)
+    n_groups = cfg.n_layers // len(pat)
+    return n_groups, pat, pat[: cfg.n_layers - n_groups * len(pat)]
+
+
+def init_group(cfg: ModelConfig, gen, pattern, *, device) -> dict:
+    return {f"b{i}_{kind}": (
+        init_mlstm_block(gen, cfg.d_model, cfg.n_heads, device=device)
+        if kind == "mlstm" else init_slstm_block(gen, cfg.d_model,
+                                                 device=device))
+        for i, kind in enumerate(pattern)}
+
+
+def init_xlstm(cfg: ModelConfig, gen: torch.Generator, *, device) -> dict:
+    """Random parameters from ``gen`` on ``device`` (the JAX initialisers'
+    distributions; not their numbers)."""
+    n_groups, pat, tail = _pattern_layout(cfg)
+    groups = L.stack_trees([init_group(cfg, gen, pat, device=device)
+                            for _ in range(n_groups)])
+    params = {
+        "embed": L.init_embedding(gen, cfg.padded_vocab, cfg.d_model,
+                                  device=device),
+        "groups": groups,
+        "final_norm": L.init_rmsnorm(cfg.d_model, device=device),
+    }
+    if tail:
+        params["tail"] = init_group(cfg, gen, tail, device=device)
+    if not cfg.tie_embeddings:
+        params["head"] = L.init_dense(gen, cfg.d_model, cfg.padded_vocab,
+                                      device=device)
+    return params
+
+
+def _groups(cfg: ModelConfig, tree: dict):
+    """(group tree, pattern) of every group in order: the stacked groups,
+    then the tail."""
+    n_groups, pat, tail = _pattern_layout(cfg)
+    for g in range(n_groups):
+        yield L.index_tree(tree["groups"], g), pat
+    if tail:
+        yield tree["tail"], tail
+
+
+def _run_pattern(cfg, x, gp, pattern, states=None):
+    for i, kind in enumerate(pattern):
+        key = f"b{i}_{kind}"
+        st = states[key] if states is not None else None
+        if kind == "mlstm":
+            x, _ = mlstm_block(gp[key], x, n_heads=cfg.n_heads,
+                               eps=cfg.norm_eps, state=st)
+        else:
+            x, _ = slstm_block(gp[key], x, eps=cfg.norm_eps, state=st)
+    return x
+
+
+def _head(params: dict, cfg: ModelConfig, x):
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return (L.unembed(params["embed"], x) if cfg.tie_embeddings
+            else L.dense(params["head"], x))
+
+
+def forward_xlstm(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+                  last_only: bool = False):
+    """Training / prefill forward. Returns (logits, None, aux=0)."""
+    x = L.embed(params["embed"], tokens)
+    for gp, pattern in _groups(cfg, params):
+        x = _run_pattern(cfg, x, gp, pattern)
+    if last_only:
+        x = x[:, -1:]
+    return _head(params, cfg, x), None, torch.zeros((), device=x.device)
+
+
+def _group_state(cfg: ModelConfig, batch: int, pattern, *, lead=(),
+                 device) -> dict:
+    hd = cfg.d_model // cfg.n_heads
+    f32 = dict(dtype=torch.float32, device=device)
+    st = {}
+    for i, kind in enumerate(pattern):
+        if kind == "mlstm":
+            st[f"b{i}_{kind}"] = {
+                "C": torch.zeros((*lead, batch, cfg.n_heads, hd, hd), **f32),
+                "n": torch.zeros((*lead, batch, cfg.n_heads, hd), **f32),
+            }
+        else:
+            st[f"b{i}_{kind}"] = {
+                "c": torch.zeros((*lead, batch, cfg.d_model), **f32),
+                "n": torch.zeros((*lead, batch, cfg.d_model), **f32),
+            }
+    return st
+
+
+def init_xlstm_state(cfg: ModelConfig, batch: int, *, device) -> dict:
+    n_groups, pat, tail = _pattern_layout(cfg)
+    state = {"groups": _group_state(cfg, batch, pat, lead=(n_groups,),
+                                    device=device)}
+    if tail:
+        state["tail"] = _group_state(cfg, batch, tail, device=device)
+    return state
+
+
+def decode_step_xlstm(params: dict, cfg: ModelConfig, state: dict,
+                      tokens: torch.Tensor, pos: int):
+    """One-token decode; returns (logits, state), the state updated in
+    place.  ``pos`` is unused (the cells keep no positions)."""
+    x = L.embed(params["embed"], tokens)
+    for (gp, pattern), (st, _) in zip(_groups(cfg, params),
+                                      _groups(cfg, state)):
+        x = _run_pattern(cfg, x, gp, pattern, states=st)
+    return _head(params, cfg, x), state

@@ -32,8 +32,12 @@ class ServeConfig:
     eos_id: int = 258
 
 
+SERVED_FAMILIES = ("dense", "moe", "vlm")
+
+
 class ServingEngine:
-    """Decode-batch server for the dense transformer family.
+    """Decode-batch server for the transformer families (dense/moe/vlm; the
+    VLM serves text prompts, no patches, as the reference).
 
     ``params`` live on the device the engine serves from; prompts are moved
     there.  ``constraint`` (if any) must hold its tables on the same device.
@@ -42,9 +46,10 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params,
                  serve: ServeConfig = ServeConfig(),
                  constraint: Optional[GrammarConstraint] = None):
-        if cfg.family != "dense":
-            raise NotImplementedError(f"serving the {cfg.family!r} family is "
-                                      "not ported yet (ROADMAP A15)")
+        if cfg.family not in SERVED_FAMILIES:
+            raise ValueError(f"ServingEngine serves the {SERVED_FAMILIES} "
+                             f"families, not {cfg.family!r} (as the JAX "
+                             "package's engine)")
         self.cfg = cfg
         self.params = params
         self.serve = serve

@@ -28,6 +28,8 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.streaming.blocked\n"
             "import repro_torch.core.prefilter\n"
             "import repro_torch.models, repro_torch.serving\n"
+            "import repro_torch.models.moe, repro_torch.models.recurrent\n"
+            "import repro_torch.models.xlstm, repro_torch.models.encdec\n"
             "import repro_torch.configs, repro_torch.launch.serve\n"
             "import repro_torch.distributed, repro_torch.training\n"
             "import repro_torch.streaming.ooo.checkpoint\n"

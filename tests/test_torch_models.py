@@ -230,10 +230,20 @@ def test_init_shapes_and_refusals(model):
     tree["layers"]["attn"]["wq"] = tree["layers"]["attn"]["wq"][:, :-1]
     with pytest.raises(ValueError, match="wq"):
         convert.params_from_jax(tcfg, tree, device="cpu")
+    # the families that waited for A15 initialise with JAX's tree
     for arch in ("granite-moe-1b-a400m", "xlstm-1.3b"):
         cfg = tconfigs.reduce_for_smoke(tconfigs.get_config(arch))
-        with pytest.raises(NotImplementedError, match="A15"):
-            tapi.init(cfg, 0, device="cpu")
-    moe = dataclasses.replace(tcfg, n_experts=4)
-    with pytest.raises(NotImplementedError, match="A15"):
-        TTF.init_lm(moe, torch.Generator(), device="cpu")
+        jcfg = reduce_for_smoke(get_config(arch))
+        want = jax.tree.map(lambda x: tuple(x.shape), jax.eval_shape(
+            lambda key: japi.init(jcfg, key), jax.random.PRNGKey(0)))
+        got = tapi.init(cfg, 0, device="cpu")
+        assert jax.tree.map(lambda x: tuple(x.shape), got) == want
+    moe = dataclasses.replace(tcfg, n_experts=4, top_k=2)
+    jmoe = reduce_for_smoke(dataclasses.replace(
+        get_config("tinyllama-1.1b"), n_experts=4, top_k=2))
+    want = jax.tree.map(lambda x: tuple(x.shape), jax.eval_shape(
+        lambda key: JTF.init_lm(jmoe, key), jax.random.PRNGKey(0)))
+    got = TTF.init_lm(moe, torch.Generator(), device="cpu")
+    assert jax.tree.map(lambda x: tuple(x.shape), got) == want
+    assert got["layers"]["moe"]["router"].shape == (moe.n_layers,
+                                                    moe.d_model, 4)

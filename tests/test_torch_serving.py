@@ -10,9 +10,12 @@ the top two tokens by more than the 5e-2 logit tolerance, so that the
 equality means something.
 """
 
+import ast
 import io
 import os
 import contextlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -31,6 +34,7 @@ from repro.serving import ServingEngine as JServingEngine
 from repro_torch import configs as tconfigs
 from repro_torch.core import compile_regex
 from repro_torch.kernels import token_mask
+from repro_torch.models import api as tapi
 from repro_torch.models import convert
 from repro_torch.models import transformer as TTF
 from repro_torch.serving import GrammarConstraint, ServeConfig, ServingEngine
@@ -183,7 +187,8 @@ def test_decode_stream_matches_one_shot_and_jax():
 
 def test_unported_serving_options_raise():
     """``swap_grammar`` is ported (its tables equal JAX's after the swap);
-    serving a family other than the dense one still raises (A15)."""
+    the engine serves the transformer families and refuses the others, as
+    the JAX engine asserts."""
     jgc, tgc = _pair(GRAMMAR, 300)
     assert tgc.swap_grammar(compile_regex(GRAMMAR)) is False
     assert jgc.swap_grammar(j_compile_regex(GRAMMAR)) is False
@@ -192,9 +197,16 @@ def test_unported_serving_options_raise():
     np.testing.assert_array_equal(tgc.allowed.numpy(), np.asarray(jgc.allowed))
     np.testing.assert_array_equal(tgc.tok_cls.numpy(), np.asarray(jgc.tok_cls))
     np.testing.assert_array_equal(tgc.table.numpy(), np.asarray(jgc.table_j))
-    cfg = tconfigs.get_config("granite-moe-1b-a400m")
-    with pytest.raises(NotImplementedError, match="A15"):
-        ServingEngine(cfg, {}, constraint=tgc)
+    cfg = tconfigs.reduce_for_smoke(tconfigs.get_config(
+        "granite-moe-1b-a400m"))
+    params = tapi.init(cfg, 0, device="cpu")
+    assert ServingEngine(cfg, params, constraint=tgc).device.type == "cpu"
+    for arch in ("recurrentgemma-2b", "xlstm-1.3b", "seamless-m4t-medium"):
+        cfg = tconfigs.get_config(arch)
+        with pytest.raises(AssertionError):
+            JServingEngine(get_config(arch), {})
+        with pytest.raises(ValueError, match="dense"):
+            ServingEngine(cfg, {}, constraint=tgc)
 
 
 @pytest.fixture(scope="module")
@@ -376,3 +388,29 @@ def test_launch_serve_on_cpu(tmp_path):
     np.testing.assert_array_equal(
         ds.states.numpy(),
         gc.advance_tokens(gc.init_states(2), prompts).numpy())
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "internvl2-2b"])
+def test_launch_serve_moe_and_vlm_on_cpu(arch):
+    """``python -m repro_torch.launch.serve --arch <moe|vlm> --device cpu
+    --smoke --grammar ...``: every completion extends its prompt within the
+    grammar."""
+    grammar = r"[0-9]{1,6}(\.[0-9]{1,4})?"
+    argv = ["--arch", arch, "--device", "cpu", "--smoke", "--max-new", "4",
+            "--prompts", "12", "7.", "--grammar", grammar]
+    env = {**os.environ, "PYTHONPATH": os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")}
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          *argv], env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.splitlines()
+    assert [line.split(" -> ")[0] for line in lines] == ["'12'", "'7.'"]
+    dfa = compile_regex(grammar)
+    for line, prompt in zip(lines, ("12", "7.")):
+        text = ast.literal_eval(line.split(" -> ")[1])
+        state = dfa.start
+        for c in dfa.classes_of(np.frombuffer((prompt + text).encode(),
+                                              np.uint8)):
+            state = int(dfa.table[state, int(c)])
+        assert state != dfa.sink, (prompt, text)
