@@ -191,6 +191,28 @@ Phases (any mismatch raises, so the exit code is non-zero):
      ``train_logits`` within the JAX package's envelope (rtol = atol =
      3e-2, argmax agreement > 0.9); (e) xlstm-1.3b likewise (atol 0.15),
      with the sLSTM blocks' share of the prefill;
+ 20. training on the card: (a) tinyllama-1.1b at full width, random f32
+     weights (seed 0), ``training.make_train_step`` in this process on 16
+     x 4,096 tokens a step in 4 microbatches, remat "nothing", AdamW at the
+     launcher's settings, on batches of ``launch.train``'s data flow (the
+     synthetic corpus through ``CorpusFilter``, B1): 4 stream steps, then
+     2 more on the last batch (the loss must fall), each step's wall time,
+     tokens/s and share of 989.4 TFLOP/s, peak device memory, the idle
+     share of a profiled one-microbatch step, B1's launches (added to the
+     kernels line's count) and the filter's decisions against
+     ``backend="local"`` on the same documents; (b) ``python -m
+     repro_torch.launch.train`` at (a)'s width for 6 steps, checkpoints
+     every 3 (its losses at steps 0-3 equal to (a)'s within 1e-4), then
+     the step-6 checkpoint removed and ``--resume``: steps 3-5 again, each
+     line equal to the uninterrupted run's; the saves' blocking and the
+     restore times; a ``RestartManager`` run of the reduced model with a
+     fault injected at step 3, recovered to the final step; (c) one AdamW
+     step of granite-moe-1b-a400m, internvl2-2b, recurrentgemma-2b,
+     xlstm-1.3b and seamless-m4t-medium at full width on ~4,096 tokens,
+     one model at a time: step time, peak memory, finite loss, aux loss
+     and gradients; (d) one step of the reduced tinyllama from one
+     converted state on the card and on the CPU: loss within 1e-3 and
+     grad_norm within 2e-2 relative, parameters within 2 lr;
   then print the kernels line and the result line.
 
 Only ``repro_torch``, torch and numpy are imported.  Without a CUDA device,
@@ -291,6 +313,27 @@ PREFILL19 = {"moe": (2, 2048), "vlm": (2, 2048),  # B, seq_len (vlm: 256
              "encdec": (4, 2048)}        # patches; encdec: 1,024 + 1,024)
 PREFILL19R = (4, 2048)                # 19: hybrid and ssm prefill B, T
 DECODE19 = 32                         # 19: eager decode steps
+ARCH20 = "tinyllama-1.1b"             # phase 20: the trained model
+TRAIN20 = (16, 4096, 4)               # 20(a), (b): sequences, tokens, microbatches
+STEPS20 = (2, 2)                      # 20(a): stream steps, steps on the last batch
+CLI20 = 1                             # 20(b): the first run's --steps and
+                                      # --ckpt-every; --resume runs one more
+RULES20 = [r"SECRET-[0-9]+"]          # the launcher's default block list
+# 20(b): the launcher's printed loss (4 decimals), gnorm (3 decimals) and lr
+# (3 significant digits) against (a)'s: half a printed unit of rounding, and
+# for loss and gnorm as much again for the run-to-run drift of the
+# embedding's backward (an atomic index_put accumulate; measured 2.8e-5 on
+# the loss over four steps); lr is relative
+LINE20_TOL = {"loss": 1e-4, "gnorm": 1e-3, "lr": 5e-3}
+LEAF20_TOL = 0.1                      # 20(d): a moment leaf's relative L2
+CLI20_S = 600                         # 20(b): each launcher run's time limit, s
+FAULT20 = (6, 3, 2)                   # 20(b): steps, the failing step, ckpt every
+SMALL20 = (4, 256)                    # 20(b) fault run and (d): batch, seq_len
+FAMILIES20 = (("moe", "granite-moe-1b-a400m"), ("vlm", "internvl2-2b"),
+              ("hybrid", "recurrentgemma-2b"), ("ssm", "xlstm-1.3b"),
+              ("encdec", "seamless-m4t-medium"))   # 20(c), one at a time
+SHAPE20C = {"ssm": (4, 1024)}         # 20(c): B, seq_len (~4,096 tokens; the
+SHAPE20 = (2, 2048)                   # xLSTM's sLSTM loop a step a token)
 RESIDUES = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
 
 # one planted occurrence of every PCRE-14 pattern (re.search-verified)
@@ -342,7 +385,7 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
-def device_busy(fn, tag, margin=0.0):
+def device_busy(fn, tag, margin=0.0, cpu=True):
     """Run ``fn`` once under torch.profiler; print its wall time, the device
     busy time (device-side events only: kernels and copies — an aten op's
     own device time repeats its kernels', and the profiler's buffer
@@ -352,13 +395,15 @@ def device_busy(fn, tag, margin=0.0):
     profile opens.  ``margin`` idle seconds inside the profile before and
     after the call, outside the timed wall: late in a long process (phase
     14) the profiler can otherwise drop the device records of a call that
-    starts or ends close to the profile's own start or stop."""
+    starts or ends close to the profile's own start or stop.  ``cpu=False``
+    traces the device alone (no host op events): a call of ~10^5 kernels
+    then takes seconds, not a minute, to process."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=([ProfilerActivity.CPU] if cpu else [])
+                 + [ProfilerActivity.CUDA]) as prof:
         time.sleep(margin)
         t0 = time.perf_counter()
         fn()
@@ -3266,6 +3311,387 @@ def phase19_families(counts):
             torch.cuda.empty_cache()
 
 
+def dense_train_flops(cfg, b, t):
+    """The flops of one train step of ``b`` x ``t`` tokens of a dense LM
+    under full remat: 6 per matmul parameter (all but the embedding table
+    and the norm scales) and token, causal attention's 6 T H hd a token and
+    layer (QK^T and PV, forward and backward, half the keys), and one more
+    forward for the recompute (a third more).  Also returns the matmul
+    parameters."""
+    from repro_torch.models import api
+
+    def matmul_params(tree, path=""):
+        if isinstance(tree, dict):
+            return sum(matmul_params(v, f"{path}/{k}")
+                       for k, v in tree.items())
+        return 0 if path.endswith(("embed/table", "scale")) \
+            else int(np.prod(tree))
+
+    n_mm = matmul_params(api.param_shapes(cfg))
+    per_token = 6 * n_mm + 6 * cfg.n_layers * t * cfg.n_heads * cfg.hd
+    return b * t * per_token * 4 / 3, n_mm
+
+
+def phase20a_train(counts):
+    """tinyllama-1.1b at full width trained in this process on the
+    launcher's B1-filtered stream: per-step time, tokens/s, flop share,
+    loss; the loss falling on one batch; peak memory, the idle share of a
+    profiled step and the filter's decisions against backend='local'.
+    Returns the stream steps' loss, grad_norm and lr."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import CorpusConfig, CorpusFilter, generate_documents
+    from repro_torch.kernels import dfa_match
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training import (AdamWConfig, TrainOptions,
+                                      init_train_state, make_train_step)
+
+    cfg = get_config(ARCH20)
+    b, t, nm = TRAIN20
+    # the launcher's options (lr 3e-4, 20 warm-up steps: the lr of steps
+    # 0-19 does not depend on --steps)
+    opts = TrainOptions(num_microbatches=nm, optimizer=AdamWConfig(
+        warmup_steps=20, total_steps=CLI20 + 1))
+    docs, masks = [], []
+
+    def source():
+        for d in generate_documents(CorpusConfig(n_documents=10_000,
+                                                 doc_len=t * 4, seed=1)):
+            docs.append(d)
+            yield d
+
+    batches, filt = launch_train.corpus_batches(cfg, b, t, RULES20,
+                                                device=DEVICE, docs=source())
+    scan = filt.scan_batch
+
+    def recording(batch_docs):
+        keep = scan(batch_docs)
+        masks.append(keep)
+        return keep
+
+    filt.scan_batch = recording
+    torch.cuda.reset_peak_memory_stats()
+    state, init_s = synced(lambda: init_train_state(cfg, SEED, device=DEVICE,
+                                                    opts=opts))
+    work, n_mm = dense_train_flops(cfg, b, t)
+    print(f"[20a] {ARCH20}: {numel(state['params'])} random f32 parameters "
+          f"({n_mm} in matmuls) and their AdamW moments in {init_s:.2f} s; "
+          f"{b} x {t} tokens a step in {nm} microbatches, remat "
+          f"{cfg.remat_policy!r}; {work:.4e} flops a step, bound "
+          f"{work / BF16_FLOPS_PER_S:.4f} s at 989.4 TFLOP/s")
+    step = make_train_step(cfg, None, opts)
+    reset_kernel_launches()
+    losses, walls, lines = [], [], []
+    for i in range(sum(STEPS20)):
+        if i < STEPS20[0]:
+            t0 = time.perf_counter()
+            host = next(batches)
+            data_s = time.perf_counter() - t0
+            batch = launch_train.batch_to_device(host, DEVICE)
+        (state, metrics), wall = synced(lambda: step(state, batch))
+        loss, gnorm, lr = (float(metrics[k]) for k in ("loss", "grad_norm",
+                                                       "lr"))
+        check(np.isfinite(loss) and np.isfinite(gnorm),
+              f"[20a] step {i}: loss {loss}, grad_norm {gnorm}")
+        losses.append(loss)
+        lines.append({"loss": loss, "gnorm": gnorm, "lr": lr})
+        walls.append(wall)
+        again = (f" (step {STEPS20[0] - 1}'s batch again)"
+                 if i >= STEPS20[0] else f", its batch {data_s:.3f} s")
+        print(f"[20a] step {i}{again}: {wall:.3f} s, {b * t / wall:.0f} "
+              f"tokens/s, {work / wall / 1e12:.1f} TFLOP/s (share "
+              f"{work / wall / BF16_FLOPS_PER_S:.4f} of 989.4); loss "
+              f"{loss:.6f} grad_norm {gnorm:.4f} lr {lr:.4e}")
+        if i == STEPS20[0] - 1:
+            b1 = kernel_launches()["spec_match_merge"]
+    # a net fall, as tests/test_substrate.py asks: in the warm-up one Adam
+    # step can overshoot (the loss on its own batch rising), the next ones
+    # bring it down
+    fixed = losses[STEPS20[0] - 1:]
+    check(fixed[-1] < fixed[0],
+          f"[20a] the loss did not fall on one batch: {fixed}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[20a] loss on one batch over {len(fixed)} steps: {fixed} "
+          f"(the last below the first); steps 1-{len(walls) - 1}: {np.mean(walls[1:]):.3f} s "
+          f"a step on average ({b * t / np.mean(walls[1:]):.0f} tokens/s); "
+          f"peak device memory {peak} B ({peak / 2**30:.2f} GiB)")
+    check(b1 > 0, "[20a] the filtered stream launched no B1")
+    counts["spec_match_merge"] += b1
+    decided = np.concatenate(masks)
+    local = CorpusFilter(RULES20, num_chunks=8, backend="local",
+                         device=DEVICE)
+    check(np.array_equal(decided, local.scan_batch(docs[:len(decided)])),
+          "[20a] the filter's decisions differ from backend='local'")
+    check(filt.stats.scanned == len(decided)
+          and filt.stats.dropped == int((~decided).sum()),
+          f"[20a] filter stats {filt.stats}")
+    print(f"[20a] the stream's filter: {filt.stats.dropped}/"
+          f"{filt.stats.scanned} documents dropped ({len(docs)} generated), "
+          f"{filt.stats.batch_calls} tiles, B1 launches {b1}; decisions "
+          f"equal backend='local' on the same documents")
+    # the idle share of one microbatch's step (a whole step's ~4x as many
+    # profiler events take minutes to process)
+    one = make_train_step(cfg, None, dataclasses.replace(
+        opts, num_microbatches=1))
+    part = {k: v[:b // nm] for k, v in batch.items()}
+    device_busy(lambda: one(state, part),
+                f"[20a] one step of {b // nm} x {t} (one microbatch)",
+                margin=PROFILE_MARGIN_S, cpu=False)
+    del state, batch, part
+    torch.cuda.empty_cache()
+    return lines[:STEPS20[0]]
+
+
+def launcher_line(line):
+    """A launcher's ``step N loss L gnorm G lr R`` line as (N, numbers)."""
+    words = line.split()
+    return int(words[1]), {k: float(words[words.index(k) + 1])
+                           for k in ("loss", "gnorm", "lr")}
+
+
+def phase20b_launcher(uninterrupted):
+    """``python -m repro_torch.launch.train`` at (a)'s width for 1 step,
+    checkpointed, then ``--resume`` for the step after it: each printed
+    step against the same step of (a), which ran the launcher's stream,
+    initial state and options uninterrupted in this process, within
+    ``LINE20_TOL``; the saves' blocking times and the restore time."""
+    import shutil
+    import tempfile
+
+    steps = CLI20
+    b, t, nm = TRAIN20
+    tmp = tempfile.mkdtemp(prefix="chip_smoke20_")
+    ckpt = os.path.join(tmp, "ckpt")
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            ARCH20, "--batch", str(b), "--seq", str(t), "--microbatches",
+            str(nm), "--ckpt-every", str(steps), "--ckpt-dir", ckpt,
+            "--log-every", "1"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = {}
+    try:
+        for name, extra in (("first", ["--steps", str(steps)]),
+                            ("resumed", ["--steps", str(steps + 1),
+                                         "--resume"])):
+            t0 = time.perf_counter()
+            res = subprocess.run(base + extra, env=env, cwd=ROOT,
+                                 capture_output=True, text=True,
+                                 timeout=CLI20_S)
+            wall = time.perf_counter() - t0
+            check(res.returncode == 0, f"[20b] the launcher ({name}) exited "
+                  f"{res.returncode}: {res.stderr[-3000:]}")
+            lines = res.stdout.splitlines()
+            for ln in lines:
+                print(f"[20b] {name}: {ln}")
+            print(f"[20b] {name} run: {wall:.1f} s of command")
+            check(lines[-1].startswith(f"done: {int(extra[1])} steps"),
+                  f"[20b] {name}: no done line")
+            runs[name] = dict(launcher_line(ln) for ln in lines
+                              if ln.startswith("step "))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    first, resumed = runs["first"], runs["resumed"]
+    check(sorted(first) == list(range(steps))
+          and sorted(resumed) == [steps],
+          f"[20b] the launcher's steps {sorted(first)}, {sorted(resumed)}")
+    printed = {**first, **resumed}
+    gaps = {k: max(abs(printed[i][k] - uninterrupted[i][k])
+                   / (uninterrupted[i][k] if k == "lr" else 1)
+                   for i in printed) for k in LINE20_TOL}
+    check(all(gaps[k] <= LINE20_TOL[k] for k in gaps),
+          f"[20b] the launcher's lines {printed} differ from (a)'s "
+          f"{uninterrupted[:steps + 1]}: gaps {gaps}")
+    print(f"[20b] the launcher's step 0 and, resumed from its step-{steps} "
+          f"checkpoint in a new process, its step {steps} equal (a)'s "
+          f"uninterrupted steps within {LINE20_TOL} (lr relative; gaps "
+          + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items()) + ")")
+
+
+def phase20b_restart():
+    """A ``RestartManager`` run at the reduced config on the card with a
+    fault injected at one step: it restores the last checkpoint and reaches
+    the final step, its state beside an uninterrupted run's."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import ShapeSpec, get_config, reduce_for_smoke
+    from repro_torch.distributed.fault_tolerance import RestartManager
+    from repro_torch.models import api
+    from repro_torch.training import (AdamWConfig, CheckpointManager,
+                                      TrainOptions, init_train_state,
+                                      make_train_step)
+
+    cfg = reduce_for_smoke(get_config(ARCH20))
+    n, fail_at, every = FAULT20
+    b, t = SMALL20
+    batches = [api.make_inputs(cfg, ShapeSpec("t", "train", t, b), s,
+                               device=DEVICE) for s in range(n)]
+    opts = TrainOptions(optimizer=AdamWConfig(lr=1e-3, warmup_steps=2,
+                                              total_steps=20))
+    step = make_train_step(cfg, None, opts)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke20_")
+
+    def run(fail, name):
+        state = init_train_state(cfg, SEED, device=DEVICE, opts=opts)
+        mgr = CheckpointManager(os.path.join(tmp, name), keep=2)
+        failed = []
+
+        def one_step(st, i):
+            if i == fail and not failed:
+                failed.append(i)
+                raise RuntimeError("injected worker fault")
+            return step(st, batches[i])[0]
+
+        rm = RestartManager(save_fn=mgr.save,
+                            restore_fn=lambda: mgr.restore(state))
+        final, at = rm.run(state, 0, n, one_step, checkpoint_every=every)
+        mgr.wait()
+        return final, at, rm
+
+    # deterministic algorithms (the embedding's backward sorts instead of
+    # adding atomically; cuBLAS on one stream with a fixed workspace), so
+    # the restored run must end bit for bit where the clean one does
+    was = torch.are_deterministic_algorithms_enabled()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        clean, at0, _ = run(None, "clean")
+        final, at, rm = run(fail_at, "faulty")
+    finally:
+        torch.use_deterministic_algorithms(was)
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = all(torch.equal(a, c) for a, c in
+               zip(tensors(final), tensors(clean)))
+    check(at == at0 == n and rm.restarts == 1
+          and int(final["opt"]["step"]) == n and same,
+          f"[20b] restart: final step {at}, restarts {rm.restarts}, failures "
+          f"{rm.failures}, state bit-equal to the clean run's: {same}")
+    print(f"[20b] RestartManager, reduced {ARCH20}, {n} steps of {b} x {t} "
+          f"under deterministic algorithms, checkpoints every {every}, a "
+          f"fault injected at step {fail_at}: {rm.restarts} restart "
+          f"({rm.failures[0][1]}), restored step "
+          f"{fail_at // every * every}, final step {at}; parameters and "
+          f"moments bit-equal to an uninterrupted run's")
+
+
+def phase20c_families():
+    """One AdamW step of every other family at full width, ~4,096 tokens,
+    one model at a time: step time, peak memory, finite loss, aux loss and
+    gradients (a finite global norm), grad_norm > 0."""
+    import torch
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.models import api
+    from repro_torch.training import (AdamWConfig, TrainOptions,
+                                      init_train_state, make_train_step)
+
+    for family, arch in FAMILIES20:
+        tag = f"[20c{family}]"
+        b, t = SHAPE20C.get(family, SHAPE20)
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        state, init_s = synced(lambda: init_train_state(cfg, SEED,
+                                                        device=DEVICE))
+        batch = api.make_inputs(cfg, ShapeSpec("t", "train", t, b), SEED,
+                                device=DEVICE)
+        step = make_train_step(cfg, None, TrainOptions(
+            optimizer=AdamWConfig(warmup_steps=20)))
+        auxes = []
+        forward = api.train_logits
+
+        def recording(*args, **kwargs):
+            logits, aux = forward(*args, **kwargs)
+            auxes.append(aux.detach())
+            return logits, aux
+
+        api.train_logits = recording
+        try:
+            (state, metrics), wall = synced(lambda: step(state, batch))
+        finally:
+            api.train_logits = forward
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        aux = float(auxes[0])
+        finite = all(bool(torch.isfinite(p).all())
+                     for p in tensors(state["params"]))
+        check(np.isfinite(loss) and np.isfinite(aux) and np.isfinite(gnorm)
+              and gnorm > 0 and finite and (family != "moe" or aux > 0),
+              f"{tag} loss {loss}, aux {aux}, grad_norm {gnorm}, finite "
+              f"parameters {finite}")
+        peak = torch.cuda.max_memory_allocated()
+        shapes = {k: tuple(v.shape) for k, v in batch.items()}
+        print(f"{tag} {arch}: {numel(state['params'])} f32 parameters in "
+              f"{init_s:.2f} s; one AdamW step on {shapes}: {wall:.3f} s; "
+              f"loss {loss:.4f}, aux {aux:.4f}, grad_norm {gnorm:.4f} (every "
+              f"gradient leaf finite), parameters finite; peak device memory "
+              f"{peak} B ({peak / 2**30:.2f} GiB)")
+        del state, batch, step, metrics
+        torch.cuda.empty_cache()
+
+
+def phase20d_card_vs_cpu():
+    """One step of the reduced tinyllama from one converted train state
+    and batch on the card and on the CPU: loss, grad_norm, the parameters
+    and, per leaf, the moments (the first step's m is (1 - b1) x the
+    clipped gradient, so they carry each leaf's gradient)."""
+    from repro_torch.configs import ShapeSpec, get_config, reduce_for_smoke
+    from repro_torch.models import api
+    from repro_torch.models.convert import (train_state_from_jax,
+                                            train_state_to_numpy)
+    from repro_torch.training import (AdamWConfig, TrainOptions,
+                                      init_train_state, make_train_step)
+
+    cfg = reduce_for_smoke(get_config(ARCH20))
+    b, t = SMALL20
+    tree = train_state_to_numpy(init_train_state(cfg, SEED, device="cpu"))
+    host = api.make_inputs(cfg, ShapeSpec("t", "train", t, b), SEED,
+                           device="cpu")
+    step = make_train_step(cfg, None, TrainOptions(optimizer=AdamWConfig(
+        lr=1e-3, warmup_steps=2, total_steps=20)))
+    out = {}
+    for dev in ("cpu", DEVICE):
+        state = train_state_from_jax(cfg, tree, device=dev)
+        state, m = step(state, {k: v.to(dev) for k, v in host.items()})
+        out[dev] = (train_state_to_numpy(state),
+                    {k: float(v) for k, v in m.items()})
+    (sc, mc), (sd, md) = out["cpu"], out[DEVICE]
+    gap = max(float(np.abs(a - c).max())
+              for a, c in zip(tensors(sd["params"]), tensors(sc["params"])))
+    # each moment leaf's relative L2 gap, the worst of m and v
+    moments = max(float(np.linalg.norm(a - c) / max(np.linalg.norm(c),
+                                                     1e-30))
+                  for name in ("m", "v") for a, c in
+                  zip(tensors(sd["opt"][name]), tensors(sc["opt"][name])))
+    lr = mc["lr"]
+    loss_rel = abs(md["loss"] - mc["loss"]) / abs(mc["loss"])
+    norm_rel = abs(md["grad_norm"] - mc["grad_norm"]) / mc["grad_norm"]
+    check(loss_rel <= 1e-3 and norm_rel <= 2e-2 and gap <= 2 * lr + 1e-6
+          and moments <= LEAF20_TOL,
+          f"[20d] card against CPU: loss {md['loss']} / {mc['loss']}, "
+          f"grad_norm {md['grad_norm']} / {mc['grad_norm']}, parameter gap "
+          f"{gap}, worst moment leaf {moments}")
+    print(f"[20d] reduced {ARCH20}, {b} x {t}, one step from one converted "
+          f"state: loss {md['loss']:.6f} on the card, {mc['loss']:.6f} on the "
+          f"CPU (rel {loss_rel:.2e} <= 1e-3); grad_norm {md['grad_norm']:.5f} "
+          f"/ {mc['grad_norm']:.5f} (rel {norm_rel:.2e} <= 2e-2); m and v "
+          f"per leaf within {moments:.3e} relative L2 <= {LEAF20_TOL} (the "
+          f"bf16 leaf tolerance of tests/test_torch_training.py); parameters "
+          f"max |err| {gap:.3e} <= 2 lr + 1e-6 = {2 * lr + 1e-6:.3e}")
+
+
+def phase20_training(counts):
+    """Training on the card: (a) tinyllama-1.1b at full width in this
+    process, (b) the launcher, its resume and a restart, (c) one step of
+    every other family, (d) the card against the CPU."""
+    t0 = time.perf_counter()
+    lines = phase20a_train(counts)
+    print(f"[20a] in {time.perf_counter() - t0:.1f} s")
+    for name, fn in (("b", lambda: phase20b_launcher(lines)),
+                     ("b restart", phase20b_restart),
+                     ("c", phase20c_families), ("d", phase20d_card_vs_cpu)):
+        t0 = time.perf_counter()
+        fn()
+        print(f"[20{name}] in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3812,6 +4238,11 @@ def main() -> int:
     t0 = time.perf_counter()
     phase19_families(counts)
     print(f"[19] phase 19 in {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 20: training on the card ---------------------------------------
+    t0 = time.perf_counter()
+    phase20_training(counts)
+    print(f"[20] phase 20 in {time.perf_counter() - t0:.1f} s")
     for name in kernels:
         kernels[name]["launches"] = counts[name]
 

@@ -1,0 +1,152 @@
+"""End-to-end training driver on one device.
+
+Wires the substrate together: synthetic corpus -> DFA block-list filter
+(``CorpusFilter``: the paper's engine as a pipeline stage, kernel B1 on the
+card) -> packed batches -> the microbatched train step -> async checkpoints
+-> restart on failure.  On the card (the default device), at full width:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
+      --steps 100 --batch 16 --seq 4096 --microbatches 4
+
+On the CPU, at the reduced smoke width:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \\
+      --steps 20 --batch 8 --seq 256
+
+The weights are random, from seed 0.  Host batches reach the device with
+one pinned, non-blocking copy a step.  ``--resume`` restores the latest
+checkpoint under ``--ckpt-dir`` and, unlike the JAX package's driver (which
+restarts the stream), skips the batches the restored steps consumed, so a
+resumed run sees the batches an uninterrupted run would.  ``--mesh-data``
+and ``--mesh-model`` above 1 need the LM mesh (ROADMAP A15) and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import os
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from ..configs import get_config, reduce_for_smoke
+from ..data import (CorpusConfig, CorpusFilter, LoaderConfig, data_stream,
+                    generate_documents)
+from ..distributed.fault_tolerance import RestartManager
+from ..training import (AdamWConfig, CheckpointManager, TrainOptions,
+                        init_train_state, make_train_step)
+
+
+def corpus_batches(cfg, batch: int, seq: int, patterns, *, device,
+                   docs=None):
+    """The launcher's data: ``docs`` (default: the synthetic corpus, 10,000
+    documents of ``4 * seq`` bytes from seed 1) through a ``CorpusFilter``
+    of ``patterns`` on ``device`` (kernel B1 on the card), packed into
+    ``[batch, seq]`` token and label blocks modulo the vocabulary.
+    Returns (an iterator of host batches, the filter)."""
+    if docs is None:
+        docs = generate_documents(CorpusConfig(n_documents=10_000,
+                                               doc_len=seq * 4, seed=1))
+    filt = CorpusFilter(patterns, num_chunks=8, device=device)
+    stream = data_stream(docs, LoaderConfig(batch_size=batch, seq_len=seq),
+                         corpus_filter=filt)
+    return ({"tokens": b["tokens"] % cfg.vocab_size,
+             "labels": b["labels"] % cfg.vocab_size} for b in stream), filt
+
+
+def batch_to_device(batch: dict, device) -> dict:
+    """A host batch's tokens and labels on ``device``: one pinned,
+    non-blocking copy on the card."""
+    device = torch.device(device)
+    host = torch.from_numpy(np.stack([batch["tokens"], batch["labels"]]))
+    if device.type == "cuda":
+        host = host.pin_memory()
+    both = host.to(device, non_blocking=True)
+    return {"tokens": both[0], "labels": both[1]}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
+                                                       "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--mesh-data", type=int, default=1)
+    ap.add_argument("--mesh-model", type=int, default=1)
+    ap.add_argument("--filter-patterns", nargs="*",
+                    default=[r"SECRET-[0-9]+"])
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--log-every", type=int, default=10,
+                    help="print a step line every this many steps")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    if args.mesh_data > 1 or args.mesh_model > 1:
+        raise NotImplementedError(
+            f"--mesh-data {args.mesh_data} --mesh-model {args.mesh_model}: "
+            "training on a mesh is not ported yet (ROADMAP A15, the LM "
+            "mesh); train on one device")
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = reduce_for_smoke(cfg)
+    device = torch.device(args.device)
+
+    batches, filt = corpus_batches(cfg, args.batch, args.seq,
+                                   args.filter_patterns, device=device)
+
+    opts = TrainOptions(
+        num_microbatches=args.microbatches,
+        optimizer=AdamWConfig(lr=args.lr, warmup_steps=20,
+                              total_steps=args.steps))
+    state = init_train_state(cfg, 0, device=device, opts=opts)
+    step_fn = make_train_step(cfg, None, opts)
+
+    mgr = CheckpointManager(args.ckpt_dir, keep=2)
+    start = 0
+    if args.resume:
+        t0 = time.perf_counter()
+        state, start = mgr.restore(state)
+        print(f"resumed from step {start} in "
+              f"{time.perf_counter() - t0:.2f} s")
+        batches = itertools.islice(batches, start, None)
+
+    def one_step(st, i):
+        st, metrics = step_fn(st, batch_to_device(next(batches), device))
+        if i % args.log_every == 0:
+            print(f"step {i:5d} loss {float(metrics['loss']):.4f} "
+                  f"gnorm {float(metrics['grad_norm']):.3f} "
+                  f"lr {float(metrics['lr']):.2e}")
+        return st
+
+    def save(st, step):
+        t0 = time.perf_counter()
+        mgr.save(st, step)
+        print(f"checkpoint step {step}: save blocked "
+              f"{time.perf_counter() - t0:.2f} s")
+
+    rm = RestartManager(save_fn=save, restore_fn=lambda: mgr.restore(state))
+    t0 = time.time()
+    state, at = rm.run(state, start, args.steps, one_step,
+                       checkpoint_every=args.ckpt_every)
+    if at % args.ckpt_every:      # the loop saved a multiple already
+        save(state, at)
+    mgr.wait()
+    dt = time.time() - t0
+    print(f"done: {at} steps in {dt:.1f}s "
+          f"({args.batch * args.seq * (at - start) / max(dt, 1e-9):.0f} "
+          f"tok/s); filter dropped {filt.stats.dropped}/"
+          f"{filt.stats.scanned} docs, model-speedup "
+          f"{filt.stats.model_speedup:.2f}x")
+
+
+if __name__ == "__main__":
+    main()

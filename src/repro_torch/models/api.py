@@ -13,8 +13,10 @@ moe and vlm (``transformer``), hybrid (``recurrent``), ssm (``xlstm``) and
 encdec (``encdec``).  The modality frontends are stubs, as in the
 reference: batches carry precomputed frame/patch embeddings.  Entry points
 run on the card unless the caller passes ``device="cpu"``; the tensors of a
-batch carry their device.  ``train_logits`` is the forward pass only: the
-training step waits for ROADMAP A15.
+batch carry their device.  ``train_logits`` is differentiable (each
+layer's body rematerialised by ``cfg.remat_policy``):
+``training.train_loop.make_train_step`` takes its gradients on one device;
+training on a mesh waits for ROADMAP A15's LM mesh.
 """
 
 from __future__ import annotations
@@ -79,7 +81,8 @@ def param_shapes(cfg: ModelConfig) -> dict:
 
 
 def train_logits(params, cfg: ModelConfig, batch: dict):
-    """The training forward pass: (logits, aux_loss)."""
+    """The training forward pass: (logits, aux_loss), differentiable in
+    ``params`` (leaves that require grad)."""
     if cfg.family in ("dense", "moe"):
         logits, _, aux = TF.forward(params, cfg, batch["tokens"])
         return logits, aux

@@ -8,6 +8,12 @@ and an unstacked ``tail`` for the hybrid and ssm families; ``enc``/``dec``
 stacks for encdec), float32 tensors on ``device``.  Every family's tree
 goes through it (``api.param_shapes``).  The tests feed both packages the
 same weights through it.
+
+``train_state_from_jax(cfg, state)`` does the same for a whole train state
+(``training.init_train_state``'s ``{"params", "opt": {"m", "v", "step"}}``,
+the JAX package's tree), and ``train_state_to_numpy`` is its inverse: the
+port's state as the nested dicts of numpy arrays that the JAX package's
+steps and checkpoints take.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from ..configs.base import ModelConfig
 from ..core.engine.plan import resolve_device
 from .api import param_shapes
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "train_state_from_jax", "train_state_to_numpy"]
 
 
 def params_from_jax(cfg: ModelConfig, tree: dict, *, device=None) -> dict:
@@ -42,3 +48,30 @@ def params_from_jax(cfg: ModelConfig, tree: dict, *, device=None) -> dict:
         return torch.from_numpy(arr).to(device)
 
     return convert(param_shapes(cfg), tree, "")
+
+
+def train_state_from_jax(cfg: ModelConfig, state: dict, *,
+                         device=None) -> dict:
+    """The JAX package's train state of ``cfg`` (numpy leaves) -> the
+    port's, on ``device`` (default: the card): parameters and both moments
+    through ``params_from_jax``, the step a 0-d int32 tensor."""
+    device = resolve_device(device)
+    if set(state) != {"params", "opt"} or set(state["opt"]) != {"m", "v",
+                                                                 "step"}:
+        raise ValueError("expected a train state {'params', 'opt': {'m', "
+                         f"'v', 'step'}}}}, got keys {sorted(state)}")
+    opt = state["opt"]
+    return {"params": params_from_jax(cfg, state["params"], device=device),
+            "opt": {"m": params_from_jax(cfg, opt["m"], device=device),
+                    "v": params_from_jax(cfg, opt["v"], device=device),
+                    "step": torch.tensor(int(np.asarray(opt["step"])),
+                                         dtype=torch.int32, device=device)}}
+
+
+def train_state_to_numpy(state: dict) -> dict:
+    """A tree of tensors (a train state, parameters) -> the same tree of
+    numpy arrays on the host, each leaf in its own memory; a 0-d step
+    stays 0-d int32."""
+    if isinstance(state, dict):
+        return {k: train_state_to_numpy(v) for k, v in state.items()}
+    return state.detach().cpu().numpy().copy()

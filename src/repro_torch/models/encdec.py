@@ -9,11 +9,13 @@ length runs its self-attention on the fused kernel B9 on the card (as
 ``transformer.forward`` does); cross-attention runs blockwise in prefill
 and directly in decode.  Layers are stacked ``[L, ...]`` under ``enc`` and
 ``dec``; a Python loop takes the place of ``lax.scan``, and the decoder's
-cache is filled in place.
+cache is filled in place.  Training rematerialises each layer's body
+(``layers.remat_all``) unless ``cfg.remat_policy`` is ``"none"``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -75,14 +77,18 @@ def encode(params: dict, cfg: ModelConfig,
     D] (bf16)."""
     x = frames.to(L.Compute)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for i in range(cfg.n_enc_layers or cfg.n_layers):
-        p = L.index_tree(params["enc"], i)
-        h, _ = L.attention(p["attn"], L.rms_norm(p["ln1"], x, cfg.norm_eps),
-                           positions=positions, rope_theta=cfg.rope_theta,
-                           causal=False)
-        x = x + h
-        x = x + L.swiglu_mlp(p["mlp"], L.rms_norm(p["ln2"], x, cfg.norm_eps))
+    body = L.remat_all(functools.partial(_enc_layer, cfg), cfg.remat_policy)
+    for p in L.unstack_tree(params["enc"]):
+        x = body(x, p, positions)
     return L.rms_norm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _enc_layer(cfg, x, p, positions):
+    h, _ = L.attention(p["attn"], L.rms_norm(p["ln1"], x, cfg.norm_eps),
+                       positions=positions, rope_theta=cfg.rope_theta,
+                       causal=False)
+    x = x + h
+    return x + L.swiglu_mlp(p["mlp"], L.rms_norm(p["ln2"], x, cfg.norm_eps))
 
 
 def _dec_layer(cfg, p, x, memory, *, positions, cache=None,
@@ -110,11 +116,12 @@ def forward_encdec(params: dict, cfg: ModelConfig, frames: torch.Tensor,
     memory = encode(params, cfg, frames)
     x = L.embed(params["embed"], dec_tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for i in range(cfg.n_layers):
+    body = L.remat_all(functools.partial(_dec_layer, cfg), cfg.remat_policy)
+    for i, p in enumerate(L.unstack_tree(params["dec"])):
         c = None if cache is None else {"k": cache["k"][i],
                                         "v": cache["v"][i]}
-        x = _dec_layer(cfg, L.index_tree(params["dec"], i), x, memory,
-                       positions=positions, cache=c, attn_route=attn_route)
+        x = body(p, x, memory, positions=positions, cache=c,
+                 attn_route=attn_route)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]

@@ -15,10 +15,13 @@ copies: a decode step then moves one token's K/V, not the whole cache.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .attention_core import direct_attention, flash_attention
 
@@ -26,8 +29,8 @@ __all__ = [
     "Compute", "init_dense", "dense", "init_rmsnorm", "rms_norm",
     "init_embedding", "embed", "unembed", "rope", "init_attention",
     "attention", "init_kv_cache_layer", "init_mlp", "swiglu_mlp",
-    "truncated_normal", "stack_trees", "index_tree", "sigmoid", "silu",
-    "gelu",
+    "truncated_normal", "stack_trees", "index_tree", "unstack_tree",
+    "remat", "remat_all", "REMAT_POLICIES", "sigmoid", "silu", "gelu",
 ]
 
 Compute = torch.bfloat16
@@ -55,6 +58,73 @@ def index_tree(tree: dict, i: int) -> dict:
     if isinstance(tree, dict):
         return {k: index_tree(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def unstack_tree(tree: dict) -> list:
+    """Every entry of a stacked tree, in order: ``torch.unbind`` of each
+    leaf (views, as ``index_tree``'s).  A backward pass through it stacks
+    the entries' gradients once; one ``index_tree`` per entry would fill a
+    zero tensor of the whole stack for each."""
+    if isinstance(tree, dict):
+        parts = {k: unstack_tree(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+# --------------------------------------------------------------------------
+# Rematerialisation (the JAX package's ``jax.checkpoint`` policies)
+# --------------------------------------------------------------------------
+
+REMAT_POLICIES = ("nothing", "dots", "none")
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the matmul outputs, recompute the rest
+    (``dots_with_no_batch_dims_saveable``; einsum's batched products are
+    ``bmm`` here and are kept too)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _needs_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_needs_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_needs_grad(v) for v in tree)
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
+def remat(fn, policy: str):
+    """``fn`` (a layer body) under a remat policy: ``"nothing"`` keeps only
+    its inputs and recomputes the body in the backward pass, ``"dots"``
+    keeps the matmul outputs as well, ``"none"`` keeps every activation.
+    Remat changes memory, never values.  A call no gradient flows through
+    (a prefill, a decode step) runs ``fn`` as it is."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
+                         f"got {policy!r}")
+    if policy == "none":
+        return fn
+    context = (functools.partial(create_selective_checkpoint_contexts,
+                                 _save_matmuls) if policy == "dots" else None)
+    kw_ctx = {} if context is None else {"context_fn": context}
+
+    def body(*args, **kwargs):
+        if not (torch.is_grad_enabled() and _needs_grad((args, kwargs))):
+            return fn(*args, **kwargs)
+        return checkpoint(fn, *args, use_reentrant=False, **kw_ctx, **kwargs)
+
+    return body
+
+
+def remat_all(fn, policy: str):
+    """The hybrid, ssm and encdec families' rule: ``fn`` fully
+    rematerialised unless ``policy`` is ``"none"`` (the reference's
+    ``nothing_saveable`` whatever else the policy names)."""
+    return remat(fn, "none" if policy == "none" else "nothing")
 
 
 def init_dense(gen, d_in: int, d_out: int, *, scale: Optional[float] = None,

@@ -20,6 +20,8 @@ returns them, as the transformer's decode step does its cache.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -251,25 +253,37 @@ def _head(params: dict, cfg: ModelConfig, x):
 def _groups(cfg: ModelConfig, tree: dict):
     """(group tree, pattern) of every group in order: the stacked groups,
     then the tail."""
-    n_groups, tail = _pattern_layout(cfg)
-    for g in range(n_groups):
-        yield L.index_tree(tree["groups"], g), _pattern(cfg)
+    _, tail = _pattern_layout(cfg)
+    for gp in L.unstack_tree(tree["groups"]):
+        yield gp, _pattern(cfg)
     if tail:
         yield tree["tail"], tail
 
 
+def _run_pattern(cfg: ModelConfig, x, gp: dict, pattern, positions):
+    for i, kind in enumerate(pattern):
+        p = gp[f"b{i}_{kind}"]
+        if kind == "rglru":
+            x, _ = rglru_block(p, x, eps=cfg.norm_eps)
+        else:
+            x = attn_block(p, x, cfg, positions=positions)
+    return x
+
+
 def forward_hybrid(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                    last_only: bool = False):
-    """Training / prefill forward. Returns (logits, None, aux=0)."""
+    """Training / prefill forward. Returns (logits, None, aux=0).  Each
+    stacked group's body is rematerialised unless ``cfg.remat_policy`` is
+    ``"none"``, the tail's never (as the reference's scan body)."""
     x = L.embed(params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for gp, pattern in _groups(cfg, params):
-        for i, kind in enumerate(pattern):
-            p = gp[f"b{i}_{kind}"]
-            if kind == "rglru":
-                x, _ = rglru_block(p, x, eps=cfg.norm_eps)
-            else:
-                x = attn_block(p, x, cfg, positions=positions)
+    group = L.remat_all(functools.partial(_run_pattern, cfg),
+                        cfg.remat_policy)
+    for gp in L.unstack_tree(params["groups"]):
+        x = group(x, gp, _pattern(cfg), positions)
+    _, tail = _pattern_layout(cfg)
+    if tail:
+        x = _run_pattern(cfg, x, params["tail"], tail, positions)
     if last_only:
         x = x[:, -1:]
     return _head(params, cfg, x), None, torch.zeros((), device=x.device)

@@ -5,13 +5,15 @@ The port of the JAX package's ``models/transformer.py``.  Parameters keep
 the JAX names and the stacked ``[L, ...]`` layout, so one checkpoint tree
 feeds both packages (``models.convert.params_from_jax``); a Python loop over
 layers takes the place of ``lax.scan``.  The same ``forward`` serves
-training (no cache) and prefill (a zero cache passed in, filled in place and
+training (no cache; each layer's body under ``cfg.remat_policy``,
+``layers.remat``) and prefill (a zero cache passed in, filled in place and
 returned); ``decode_step`` consumes one token block against the cache, also
 in place.  MoE layers run ``models.moe.moe_mlp`` on its local path.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -98,12 +100,12 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     t = x.shape[1]
     positions = torch.arange(t, device=x.device)[None, :]
     aux = torch.zeros((), device=x.device)
-    for i in range(cfg.n_layers):
+    body = L.remat(functools.partial(_layer_body, cfg), cfg.remat_policy)
+    for i, p in enumerate(L.unstack_tree(params["layers"])):
         c = None if cache is None else {"k": cache["k"][i],
                                         "v": cache["v"][i]}
-        x, a = _layer_body(cfg, x, L.index_tree(params["layers"], i),
-                           positions=positions, cache=c,
-                           attn_route=attn_route)
+        x, a = body(x, p, positions=positions, cache=c,
+                    attn_route=attn_route)
         if a is not None:
             aux = aux + a
     if last_only:

@@ -21,6 +21,8 @@ state is updated in place and returned.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..configs.base import ModelConfig
@@ -233,9 +235,9 @@ def init_xlstm(cfg: ModelConfig, gen: torch.Generator, *, device) -> dict:
 def _groups(cfg: ModelConfig, tree: dict):
     """(group tree, pattern) of every group in order: the stacked groups,
     then the tail."""
-    n_groups, pat, tail = _pattern_layout(cfg)
-    for g in range(n_groups):
-        yield L.index_tree(tree["groups"], g), pat
+    _, pat, tail = _pattern_layout(cfg)
+    for gp in L.unstack_tree(tree["groups"]):
+        yield gp, pat
     if tail:
         yield tree["tail"], tail
 
@@ -260,10 +262,17 @@ def _head(params: dict, cfg: ModelConfig, x):
 
 def forward_xlstm(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                   last_only: bool = False):
-    """Training / prefill forward. Returns (logits, None, aux=0)."""
+    """Training / prefill forward. Returns (logits, None, aux=0).  Each
+    stacked group's body is rematerialised unless ``cfg.remat_policy`` is
+    ``"none"``, the tail's never (as the reference's scan body)."""
     x = L.embed(params["embed"], tokens)
-    for gp, pattern in _groups(cfg, params):
-        x = _run_pattern(cfg, x, gp, pattern)
+    group = L.remat_all(functools.partial(_run_pattern, cfg),
+                        cfg.remat_policy)
+    _, pat, tail = _pattern_layout(cfg)
+    for gp in L.unstack_tree(params["groups"]):
+        x = group(x, gp, pat)
+    if tail:
+        x = _run_pattern(cfg, x, params["tail"], tail)
     if last_only:
         x = x[:, -1:]
     return _head(params, cfg, x), None, torch.zeros((), device=x.device)

@@ -38,6 +38,8 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.data.tokenizer\n"
             "import repro_torch.launch.mesh, repro_torch.core.engine.sharded\n"
             "import repro_torch.distributed.sharding\n"
+            "import repro_torch.training.optimizer\n"
+            "import repro_torch.training.train_loop, repro_torch.launch.train\n"
             "assert 'msgpack' not in sys.modules, 'msgpack was imported'\n"
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'the JAX package was imported'\n"
@@ -206,3 +208,25 @@ def test_serving_entry_points_without_device_need_cuda():
     assert gc.allowed.device.type == gc.tok_cls.device.type == "cpu"
     assert api.init(cfg, 0, device="cpu")["embed"]["table"].device.type \
         == "cpu"
+
+
+def test_new_training_modules_are_checked():
+    """The import scan covers the training slice's modules."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/training/optimizer.py",
+            "src/repro_torch/training/train_loop.py",
+            "src/repro_torch/launch/train.py"} <= names
+
+
+def test_training_entry_points_without_device_need_cuda():
+    from repro_torch import configs
+    from repro_torch.training import init_train_state
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    cfg = configs.reduce_for_smoke(configs.get_config("tinyllama-1.1b"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_train_state(cfg)
+    state = init_train_state(cfg, device="cpu")
+    assert state["opt"]["step"].device.type == "cpu"
+    assert state["opt"]["m"]["embed"]["table"].dtype == torch.float32
