@@ -272,8 +272,9 @@ COMPOSE13 = ((1, 4096, 256), (40, 103, 256), (40, 103, 16),
              (4096, 64, LOOK13B[0]),
              (1, 256, BIG13[0]))      # B7: B, N, Q (or the DFA of Q)
 ONEHOT13 = (16, 64, 128, 256)        # B8 and the route crossover: Q
-SCAN14, BAL14, SMALL14 = 64 << 20, 8 << 20, 1 << 20   # 14(a), (b), (c)/(d)
+SCAN14, BAL14, SMALL14 = 32 << 20, 8 << 20, 1 << 20   # 14(a), (b), (c)/(d)
 HEAD14C = 64 << 10                   # 14(c): bytes of the cross-checks
+HEAD14 = 256 << 10                   # 14(a), (b), (d): bytes of the same
 P14A, P14 = 4096, 40                 # processors of 14(a) and of (b)-(d)
 RANDOM14 = (16, 64, 128, 256)        # 14(d) random DFAs: Q (16 classes)
 PROFILE14A = LOOK13[0]               # 14(a)'s profiled call (the B6 route)
@@ -314,7 +315,7 @@ PREFILL19 = {"moe": (2, 2048), "vlm": (2, 2048),  # B, seq_len (vlm: 256
 PREFILL19R = (4, 2048)                # 19: hybrid and ssm prefill B, T
 DECODE19 = 32                         # 19: eager decode steps
 ARCH20 = "tinyllama-1.1b"             # phase 20: the trained model
-TRAIN20 = (16, 4096, 4)               # 20(a), (b): sequences, tokens, microbatches
+TRAIN20 = (8, 4096, 2)                # 20(a), (b): sequences, tokens, microbatches
 STEPS20 = (2, 2)                      # 20(a): stream steps, steps on the last batch
 CLI20 = 1                             # 20(b): the first run's --steps and
                                       # --ckpt-every; --resume runs one more
@@ -334,6 +335,35 @@ FAMILIES20 = (("moe", "granite-moe-1b-a400m"), ("vlm", "internvl2-2b"),
               ("encdec", "seamless-m4t-medium"))   # 20(c), one at a time
 SHAPE20C = {"ssm": (4, 1024)}         # 20(c): B, seq_len (~4,096 tokens; the
 SHAPE20 = (2, 2048)                   # xLSTM's sLSTM loop a step a token)
+MESH21 = (2, 2, 2)                    # 21: ("pod", "data", "model"), gloo
+CHILD21_S = 600                       # 21: each rank's time limit, s
+BYTES21 = 64 << 20                    # 21(a): the class stream, bytes
+NC21 = (4, 64)                        # 21(a): chunks a data-parallel rank
+PCRE21 = "keyword_alt"                # 21(a): Q = 27 (B8 + B7)
+RANDOM21 = (512, 16)                  # 21(a): Q, classes (B6)
+PIPE21 = (4, 8, 1024)                 # 21(a): stages, microbatches, width
+ARCH21 = "granite-moe-1b-a400m"       # 21(b), (c)
+PREFILL21 = (8, 2048)                 # 21(b): prompts, tokens (B9)
+PROMPT21 = 64                         # 21(b): generate's prompt bytes
+DECODE21 = 16                         # 21(b): constrained decode steps (B5)
+MISMATCH21 = (0.05, 3e-2)             # 21(b): the reference test's rule
+TRAIN21 = (8, 1024, 2, 2)             # 21(c): rows, tokens, microbatches,
+#                                       layers (depth cut from 24: 8 ranks'
+#                                       expert shards, moments and
+#                                       checkpoint on one card)
+CLI21 = (4, 512, 2)                   # 21(d): batch, seq, steps
+CLI21_S = 600                         # 21(d): each launcher's time limit, s
+# 21(d): the mesh launcher against one process, bf16 compute (the bf16
+# loss and norm tolerances of tests/test_torch_training.py; gnorm, lr
+# relative: lr printed to 3 digits)
+LINE21_TOL = {"loss": 2e-3, "gnorm": 5e-3, "lr": 5e-3}
+# 21(c): the sharded step and the step after the restore against one
+# process, both in float32 compute (bf16 compute rounds the embedding's
+# gradient as it accumulates a token's rows: one process and a rank
+# accumulate different rows, v of the table then differs by 0.1 relative
+# L2 at reduced size on the CPU): loss, grad_norm relative, each moment
+# leaf's relative L2 (a shard on the wrong rank gives ~1)
+F32_21 = {"loss": 1e-4, "gnorm": 1e-4, "leaf": 1e-3}
 RESIDUES = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
 
 # one planted occurrence of every PCRE-14 pattern (re.search-verified)
@@ -901,7 +931,7 @@ def phase12_serving(rng, counts):
           f"bytes x {n} rows in {stream_wall:.4f} s ({ds.stream.stats.ticks}"
           f" ticks, the seq lowering); states equal the one-shot prefill; "
           f"tokens equal with use_kernel=False and from the stream")
-    device_busy(lambda: eng.generate(prompts), "[12] generate")
+    device_busy(lambda: eng.generate(prompts), "[12] generate", cpu=False)
     # one eager decode step at the generate batch, on the host clock
     from repro_torch.models import transformer as TF
     cache = TF.init_cache(cfg, n, width + max_new, device=DEVICE)
@@ -1339,7 +1369,7 @@ def phase14_paper_engine(rng, counts, search):
                             partition="uniform", matcher=ops.spec_match,
                             device=DEVICE)
         check_dfa("[14a]", name, search[name], data,
-                  [("lookahead/uniform", eng)], SMALL14, walls)
+                  [("lookahead/uniform", eng)], HEAD14, walls)
     n = launched["[14a]"]
     check(n["spec_match"] > 0, f"(a) launched no B6 kernel: {n}")
     report("[14a]", walls)
@@ -1364,7 +1394,7 @@ def phase14_paper_engine(rng, counts, search):
                 search[name], num_chunks=P14, mode="lookahead",
                 partition="balanced", weights=weights, lookahead_r=2,
                 matcher=ops.spec_match, device=DEVICE)))
-        check_dfa("[14b]", name, search[name], doc, routes, SMALL14, walls)
+        check_dfa("[14b]", name, search[name], doc, routes, HEAD14, walls)
     n = launched["[14b]"]
     check(n["spec_match"] > 0, f"(b) launched no B6 kernel: {n}")
     report("[14b]", walls)
@@ -1414,7 +1444,7 @@ def phase14_paper_engine(rng, counts, search):
             matcher=ops.spec_match, device=DEVICE))
             for mode, part in (("lookahead", "uniform"), ("basic", "uniform"),
                                ("basic", "balanced"), ("holub", "uniform"))]
-        check_dfa("[14d]", name, dfa, doc, routes, SMALL14, walls)
+        check_dfa("[14d]", name, dfa, doc, routes, HEAD14, walls)
     n = launched["[14d]"]
     check(n["onehot_block_maps"] > 0 and n["lvec_compose"] > 0,
           f"(d) launched no B8 or no B7 kernel: {n}")
@@ -3692,6 +3722,888 @@ def phase20_training(counts):
         print(f"[20{name}] in {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 21: the LM mesh ----------------------------------------------------
+
+def all_launches():
+    """Launches so far of every kernel wrapper, by name."""
+    from repro_torch.kernels import flash_attn, token_mask
+    return {**kernel_launches(), **flash_attn.launches,
+            **token_mask.launches}
+
+
+def launch_delta(before):
+    """The launches since ``before`` (an ``all_launches()``), nonzero."""
+    return {k: v - before.get(k, 0) for k, v in all_launches().items()
+            if v - before.get(k, 0)}
+
+
+def reset_all_launches():
+    from repro_torch.kernels import flash_attn, token_mask
+    reset_kernel_launches()
+    flash_attn.reset_launches()
+    token_mask.reset_launches()
+
+
+def dfas21():
+    """21(a)'s DFAs: a PCRE-14 search DFA with 8 < Q <= 256 (the product
+    route, B8 then B7) and a random DFA of Q = 512 (the gather route,
+    B6)."""
+    from repro_torch.core import PCRE_PATTERNS, compile_regex, random_dfa
+    from repro_torch.core.automata import make_search_dfa
+    return {"pcre": make_search_dfa(compile_regex(PCRE_PATTERNS[PCRE21])),
+            "random": random_dfa(RANDOM21[0], RANDOM21[1],
+                                 rng=np.random.default_rng(SEED + 21),
+                                 with_sink=False)}
+
+
+def cfg21(train=False, no_drop=False):
+    """granite-moe-1b-a400m; ``train``: cut to ``TRAIN21[3]`` layers;
+    ``no_drop``: capacity factor E / top_k, at which no choice drops."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH21)
+    if train:
+        cfg = dataclasses.replace(cfg, n_layers=TRAIN21[3])
+    if no_drop:
+        cfg = dataclasses.replace(cfg,
+                                  capacity_factor=cfg.n_experts / cfg.top_k)
+    return cfg
+
+
+def opts21(compression="none", aux=0.01):
+    from repro_torch.training import AdamWConfig, TrainOptions
+    return TrainOptions(num_microbatches=TRAIN21[2], aux_loss_weight=aux,
+                        grad_compression=compression,
+                        optimizer=AdamWConfig(lr=3e-4, warmup_steps=20,
+                                              total_steps=100))
+
+
+def batch21(cfg, device):
+    """The first batch of the launcher's B1-filtered stream."""
+    from repro_torch.launch import train as launch_train
+    b, t = TRAIN21[:2]
+    batches, _ = launch_train.corpus_batches(cfg, b, t, RULES20,
+                                             device=device)
+    return launch_train.batch_to_device(next(batches), device)
+
+
+def blocked_moe21(p, x, *, top_k, capacity_factor, mesh=None):
+    """``moe._moe_sharded``'s arithmetic on ``MESH21``, in one process on
+    whole expert weights: the plain version 21(b) holds the mesh to at the
+    published capacity factor.  The caller's tokens split into the same
+    blocks (the batch over ("pod", "data") when that divides it, the
+    sequence over "model" when that divides it), each block routed from
+    its rows of one router product over all tokens and with the capacity
+    of its own token count; the expert buffers of the "model" ranks that
+    share a batch block are exchanged as ``all_to_all`` does (experts
+    split, capacity concatenated), each expert shard runs on its buffer of
+    the mesh's shape, and the results return the same way."""
+    import math
+
+    import torch
+    from repro_torch.models import moe
+    dp, ep = MESH21[0] * MESH21[1], MESH21[2]
+    b, t, d = x.shape
+    e = p["router"].shape[1]
+    nb = dp if b % dp == 0 else 1
+    nt = ep if t % ep == 0 else 1
+    logits = torch.matmul(x, p["router"].to(moe.Compute))
+    shard = [{k: p[k][j * e // ep:(j + 1) * e // ep]
+              for k in moe.MOE_EXPERTS} for j in range(ep)]
+    rows, auxes = [], []
+    for xb, lb in zip(x.chunk(nb, 0), logits.chunk(nb, 0)):
+        # the "model" ranks of this batch block: their sequence block (all
+        # of them the whole sequence where it is not split)
+        xs = xb.chunk(nt, 1) if nt > 1 else (xb,) * ep
+        ls = lb.chunk(nt, 1) if nt > 1 else (lb,) * ep
+        routed, sends = [], []
+        for xj, lj in zip(xs, ls):
+            flat = xj.reshape(-1, d)
+            n = flat.shape[0]
+            cap = max(top_k, int(math.ceil(n * top_k * capacity_factor / e)))
+            gates, ids, aux = moe._route(None, flat, top_k,
+                                         logits=lj.reshape(n, e))
+            slot = moe._slots(ids, e, cap)
+            routed.append((slot, gates, xj.shape, cap))
+            sends.append(moe._dispatch(flat, slot, e, cap))
+            auxes.append(aux)
+        outs = [moe._expert_ffn(shard[k], torch.cat(
+            [sj[k * e // ep:(k + 1) * e // ep] for sj in sends], dim=1))
+            for k in range(ep)]
+        parts = []
+        for j, (slot, gates, shape, cap) in enumerate(routed):
+            back = torch.cat([h[:, j * cap:(j + 1) * cap] for h in outs], 0)
+            parts.append(moe._combine(back, slot, gates, x.dtype)
+                         .reshape(shape))
+        rows.append(torch.cat(parts, 1) if nt > 1 else parts[0])
+    return torch.cat(rows, 0), torch.stack(auxes).mean()
+
+
+def f32_compute21(fn):
+    """``fn()`` with the models' compute dtype float32 (``layers`` and
+    ``moe``)."""
+    import torch
+    from repro_torch.models import layers, moe
+    saved = layers.Compute, moe.Compute
+    layers.Compute = moe.Compute = torch.float32
+    try:
+        return fn()
+    finally:
+        layers.Compute, moe.Compute = saved
+
+
+def blocked21(fn):
+    """``fn()`` with the transformer family's MoE layers on
+    ``blocked_moe21``."""
+    from repro_torch.models import transformer
+    saved = transformer.moe_mlp
+    transformer.moe_mlp = blocked_moe21
+    try:
+        return fn()
+    finally:
+        transformer.moe_mlp = saved
+
+
+def stats21():
+    """``MESH_STATS`` as {"name axes": [calls, MB, ms]}."""
+    from repro_torch.launch import mesh as lm
+    return {k: [v[0], round(v[1] / 1e6, 3), round(v[2] * 1e3, 3)]
+            for k, v in sorted(lm.MESH_STATS.items())}
+
+
+def peak21():
+    import torch
+    return (torch.cuda.max_memory_allocated() / 2 ** 30
+            if DEVICE == "cuda" else 0.0)
+
+
+def phase21a_child(mesh, smesh, tmp):
+    """(a) ``distributed_membership`` for both DFAs at both chunk counts,
+    the 2-tier merge against the flat one, the int8 pod mean over this
+    rank's shard of a tinyllama-1.1b gradient tree, and the pipeline."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import compression as Q
+    from repro_torch.distributed import sharding as shr
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch import mesh as lm
+    from repro_torch.models import api
+
+    rep = {}
+    stream = np.load(os.path.join(tmp, "stream.npy"), mmap_mode="r")
+    for tag, dfa in dfas21().items():
+        classes = dfa.classes_of(stream).astype(np.int32)
+        for nc in NC21:
+            before = all_launches()
+            got, wall = synced(lambda: C.distributed_membership(
+                dfa.table, classes, dfa.start, dfa.sink, dfa.accepting,
+                mesh, num_chunks_per_device=nc))
+            rep[f"{tag}_{nc}"] = {"state": int(got), "s": wall,
+                                  "launches": launch_delta(before)}
+    # the merge tiers, on the same maps: chunk maps of the random DFA
+    q = RANDOM21[0]
+    g = torch.Generator(device=mesh.device).manual_seed(SEED)
+    maps = torch.randint(0, q, (mesh.axis_size(("pod", "data")) * 64, q),
+                         generator=g, device=mesh.device, dtype=torch.int32)
+    want = np.arange(q)
+    for m in maps.cpu().numpy():
+        want = m[want]
+    times = {"hier": [], "flat": []}
+    tiers = {}
+    for name in ("hier", "flat", "flat", "hier"):
+        fn = (C.hierarchical_merge_lvecs if name == "hier"
+              else C.flat_merge_lvecs)
+        lm.reset_mesh_stats()
+        lm.time_collectives(True)
+        got, wall = synced(lambda: fn(maps, mesh))
+        lm.time_collectives(False)
+        check(np.array_equal(got.cpu().numpy(), want),
+              f"[21a] {name} merge differs from the host fold")
+        times[name].append(wall)
+        tiers[name] = stats21()
+    rep["merge"] = {"times": times, "tiers": tiers}
+    # the int8 pod mean over this rank's shard of tinyllama's gradients
+    tcfg = get_config("tinyllama-1.1b")
+    shapes = api.param_shapes(tcfg)
+    specs = shr.param_specs(shapes, mesh)
+    pod = mesh.coordinate("pod")
+
+    def grads_of(p):
+        g = torch.Generator(device=mesh.device).manual_seed(SEED + 100 + p)
+        out = {}
+        for path, shape in sorted(_flat21(shapes).items()):
+            idx = shr.local_slices(shape, _at21(specs, path), mesh.shape,
+                                   mesh.get_coordinate())
+            local = tuple(s.stop - s.start for s in idx)
+            out[path] = torch.randn(local, generator=g, device=mesh.device)
+        return out
+
+    grads = grads_of(pod)
+    err = Q.init_error_state(grads)
+    n_el = sum(x.numel() for x in grads.values())
+    walls = []
+    for _ in range(2):
+        lm.reset_mesh_stats()
+        lm.time_collectives(True)
+        (mean, err), wall = synced(lambda: Q.compressed_pod_mean(
+            grads, err, mesh))
+        lm.time_collectives(False)
+        walls.append(wall)
+        if len(walls) == 1:
+            other = grads_of(1 - pod)
+            worst = 0.0
+            for path, m in mean.items():
+                g0, g1 = (grads[path], other[path]) if pod == 0 else \
+                    (other[path], grads[path])
+                s0, s1 = (g0.abs().max() / 127, g1.abs().max() / 127)
+                gap = ((m - (g0 + g1) / 2).abs().max() / ((s0 + s1) / 4))
+                worst = max(worst, float(gap))
+            del other
+            check(worst <= 1.0 + 1e-3, f"[21a] int8 pod mean off by {worst}"
+                  " half-steps")
+    rep["compress"] = {"elements": n_el, "s": walls, "worst_half_steps":
+                       worst, "stats": stats21()}
+    del grads, err, mean
+    # the pipeline over ranks 0-3
+    if smesh.get_coordinate() is not None:
+        s, m, d = PIPE21
+        g = torch.Generator(device=mesh.device).manual_seed(SEED + 2)
+        ws = torch.randn((s, d, d), generator=g, device=mesh.device) \
+            * d ** -0.5
+        xs = torch.randn((m, 16, d), generator=g, device=mesh.device)
+        lm.reset_mesh_stats()
+        lm.time_collectives(True)
+        got, wall = synced(lambda: pipeline_apply(
+            lambda w, x: torch.tanh(x @ w), ws, xs, smesh))
+        lm.time_collectives(False)
+        want = xs
+        for i in range(s):
+            want = torch.tanh(want @ ws[i])
+        rep["pipeline"] = {"s": wall, "err": float((got - want).abs().max()),
+                           "stats": stats21()}
+    return rep
+
+
+def _flat21(tree, prefix=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat21(v, prefix + (k,)))
+        return out
+    return {prefix: tree}
+
+
+def _at21(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def keyed21(trees):
+    """(``name-path`` key, leaf) of each leaf of ``trees`` ({name: tree}),
+    in key order."""
+    for name, tree in trees.items():
+        for path, leaf in sorted(_flat21(tree).items()):
+            yield "-".join((name,) + path), leaf
+
+
+def save_leaves21(directory, trees):
+    """Each leaf of ``trees`` (plain tensors) as ``directory/key.npy``."""
+    os.makedirs(directory, exist_ok=True)
+    for key, leaf in keyed21(trees):
+        np.save(os.path.join(directory, key + ".npy"), leaf.cpu().numpy())
+
+
+def gathered21(trees):
+    """(key, the whole leaf as numpy) of each ``DTensor`` leaf of
+    ``trees``, on the first rank of its mesh (``None`` on the others).
+    Collective over the leaves' mesh."""
+    from repro_torch.launch import mesh as lm
+    for key, leaf in keyed21(trees):
+        whole = lm.whole_on_host(leaf, writer_only=True)
+        yield key, None if whole is None else whole.numpy()
+
+
+def gap21(key, got, want):
+    """A parameter's max |gap|; a moment leaf's relative L2 gap."""
+    if key.startswith("params-"):
+        return float(np.abs(got - want).max())
+    return float(np.linalg.norm(got - want)
+                 / max(float(np.linalg.norm(want)), 1e-30))
+
+
+def like21(cfg):
+    """A restore template of ``cfg``'s train state with ``"err"``: 0-d
+    leaves of each leaf's dtype on the card (a restored leaf takes its
+    shape from the checkpoint)."""
+    import torch
+    from repro_torch.models import api
+
+    def leaves(tree):
+        return {k: leaves(v) if isinstance(v, dict) else torch.empty(
+            (), dtype=torch.float32, device=DEVICE) for k, v in tree.items()}
+
+    shapes = api.param_shapes(cfg)
+    return {"params": leaves(shapes),
+            "opt": {"m": leaves(shapes), "v": leaves(shapes),
+                    "step": torch.empty((), dtype=torch.int32,
+                                        device=DEVICE)},
+            "err": leaves(shapes)}
+
+
+def phase21c_after_restore(tmp):
+    """The step the world took after its restore onto (2, 2), taken in this
+    process from the same checkpoint, batch, config and options: its loss,
+    grad_norm and each moment leaf's relative L2 gap to the world's."""
+    import torch
+    from repro_torch.training import restore_checkpoint
+    from repro_torch.training import train_loop as TL
+
+    cfg = cfg21(train=True, no_drop=True)
+    state, at = restore_checkpoint(os.path.join(tmp, "ckpt21"), like21(cfg))
+    step = TL.make_train_step(cfg, None, opts21(aux=0.0))
+    batch = batch21(cfg, torch.device(DEVICE))
+    state, m = f32_compute21(lambda: step(state, batch))
+    out = {"step": at, **{k: float(v) for k, v in m.items()}}
+    after = os.path.join(tmp, "after21")
+    out["gaps"] = {key: gap21(key, leaf.cpu().numpy(), np.load(
+        os.path.join(after, key + ".npy"))) for key, leaf in keyed21(
+            {"m": state["opt"]["m"], "v": state["opt"]["v"]})}
+    del state
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase21b_child(mesh, tmp):
+    """(b) granite-moe-1b-a400m at full width and depth under expert
+    parallelism: prefill (B9) at the published capacity factor and at
+    E / top_k, then constrained decode (B5) at the published factor."""
+    import torch
+    from repro_torch.core import compile_regex
+    from repro_torch.distributed import sharding as shr
+    from repro_torch.models import api
+    from repro_torch.serving import (GrammarConstraint, ServeConfig,
+                                     ServingEngine)
+
+    cfg = cfg21()
+    params, init_s = synced(lambda: api.init(
+        cfg, SEED, device=mesh.device, keep=shr.expert_keep(mesh)))
+    z = np.load(os.path.join(tmp, "prompts.npz"))
+    toks = torch.from_numpy(z["tokens"]).to(mesh.device)
+    rep = {"init_s": init_s}
+    (logits, cache), rep["prefill_s"] = synced(lambda: api.prefill(
+        params, cfg, {"tokens": toks}, mesh=mesh))
+    del cache
+    (logits_nd, cache), rep["prefill_nodrop_s"] = synced(lambda: api.prefill(
+        params, cfg21(no_drop=True), {"tokens": toks}, mesh=mesh))
+    del cache
+    if mesh.get_coordinate() == [0, 0, 0]:
+        np.savez(os.path.join(tmp, "prefill_mesh.npz"),
+                 logits=logits.float().cpu().numpy(),
+                 nodrop=logits_nd.float().cpu().numpy())
+    del logits, logits_nd
+    gc = GrammarConstraint(compile_regex(GRAMMAR12), cfg.padded_vocab,
+                           eos_id=None, device=mesh.device)
+    eng = ServingEngine(cfg, params, ServeConfig(max_new_tokens=DECODE21),
+                        constraint=gc, mesh=mesh)
+    out, rep["generate_s"] = synced(lambda: eng.generate(z["grammar"]))
+    if mesh.get_coordinate() == [0, 0, 0]:
+        np.save(os.path.join(tmp, "generate_mesh.npy"), out)
+    rep["peak_gib"] = peak21()
+    return rep
+
+
+def phase21c_child(mesh, tmp):
+    """(c) the sharded train step of granite-moe-1b-a400m (depth cut to
+    ``TRAIN21[3]`` layers) against the one-process card step, at a capacity
+    factor where no choice drops and aux weight 0 (the sharded layer
+    averages each token block's aux loss, as the reference's
+    ``_moe_sharded``: not the whole batch's): parameters and, per leaf, m
+    and v; then two int8 steps at the published factor and aux weight; a
+    save, a restore onto (2, 2) ranks 0-3 and one more step at E / top_k
+    and aux weight 0, its moments saved for the same step in one
+    process."""
+    import torch
+    from repro_torch.launch import mesh as lm
+    from repro_torch.training import CheckpointManager
+    from repro_torch.training import train_loop as TL
+    from repro_torch.training.optimizer import _tree_map
+
+    cfg = cfg21(train=True, no_drop=True)
+    batch = batch21(cfg, mesh.device)
+    rep = {}
+    opts = opts21(aux=0.0)
+    state, init_s = synced(lambda: TL.init_train_state_sharded(
+        cfg, SEED, mesh, opts))
+    step = TL.make_train_step(cfg, mesh, opts)
+    lm.reset_mesh_stats()
+    lm.time_collectives(True)
+    (state, m), wall = synced(lambda: f32_compute21(
+        lambda: step(state, batch)))
+    lm.time_collectives(False)
+    rep["none"] = {"init_s": init_s, "s": wall, "stats": stats21(),
+                   **{k: float(v) for k, v in m.items()}}
+    lr = float(m["lr"])
+    ref = os.path.join(tmp, "ref21c")
+    rep["none"]["gaps"] = {
+        key: gap21(key, got, np.load(os.path.join(ref, key + ".npy")))
+        for key, got in gathered21({"params": state["params"],
+                                    "m": state["opt"]["m"],
+                                    "v": state["opt"]["v"]})
+        if got is not None}
+    rep["none"]["param_tol"] = 2 * lr + 1e-6
+    del state
+    torch.cuda.empty_cache() if DEVICE == "cuda" else None
+    # two int8 steps on one batch, from a fresh state
+    cfg = cfg21(train=True)
+    opts8 = opts21("int8")
+    state = TL.init_train_state_sharded(cfg, SEED, mesh, opts8)
+    step8 = TL.make_train_step(cfg, mesh, opts8)
+    rep["int8"] = []
+    for _ in range(2):
+        lm.reset_mesh_stats()
+        lm.time_collectives(True)
+        (state, m), wall = synced(lambda: step8(state, batch))
+        lm.time_collectives(False)
+        rep["int8"].append({"s": wall, "stats": stats21(),
+                            **{k: float(v) for k, v in m.items()}})
+    mgr = CheckpointManager(os.path.join(tmp, "ckpt21"), use_async=False)
+    _, rep["save_s"] = synced(lambda: (mgr.save(state, 2), mgr.wait()))
+    like = _tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                           device="meta"), state)
+    del state
+    torch.cuda.empty_cache() if DEVICE == "cuda" else None
+    mesh_b = lm.make_local_mesh(2, 2, device=None if DEVICE == "cuda"
+                                else DEVICE)
+    if mesh_b.get_coordinate() is not None:
+        (back, at), rep["restore_s"] = synced(lambda: mgr.restore(
+            like, TL.state_shardings(like, mesh_b)))
+        check(at == 2 and "err" in back, f"[21c] restored step {at}")
+        cfg_b = cfg21(train=True, no_drop=True)
+        step_b = TL.make_train_step(cfg_b, mesh_b, opts21(aux=0.0))
+        (back, m), wall = synced(lambda: f32_compute21(
+            lambda: step_b(back, batch)))
+        rep["after_restore"] = {"s": wall,
+                                **{k: float(v) for k, v in m.items()}}
+        after = os.path.join(tmp, "after21")
+        os.makedirs(after, exist_ok=True)
+        for key, got in gathered21({"m": back["opt"]["m"],
+                                    "v": back["opt"]["v"]}):
+            if got is not None:
+                np.save(os.path.join(after, key + ".npy"), got)
+        del back
+    rep["peak_gib"] = peak21()
+    return rep
+
+
+def phase21_child(argv):
+    """One rank of phase 21's world (``python3 chip_smoke.py
+    --phase21-child rank world store tmp``): eight processes share the
+    card over gloo on the ("pod", "data", "model") mesh (2, 2, 2).  Writes
+    its measurements as JSON."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as lm
+
+    rank, world = int(argv[0]), int(argv[1])
+    store, tmp = argv[2:4]
+    os.environ["LOCAL_RANK"] = str(rank)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(
+                                seconds=CHILD21_S))
+    try:
+        _build.build_all()   # the parent's build: loaded, not compiled
+        dev = None if DEVICE == "cuda" else DEVICE
+        mesh = lm.make_mesh(MESH21, ("pod", "data", "model"), device=dev)
+        smesh = lm.make_mesh((4,), ("stage",), device=dev)
+        rep = {"rank": rank, "coordinate": mesh.get_coordinate(),
+               "transport": mesh.transport, "device": str(mesh.device)}
+        reset_all_launches()
+        for part, fn in (("a", lambda: phase21a_child(mesh, smesh, tmp)),
+                         ("b", lambda: phase21b_child(mesh, tmp)),
+                         ("c", lambda: phase21c_child(mesh, tmp))):
+            before = all_launches()
+            t0 = time.perf_counter()
+            rep[part] = fn()
+            rep[part]["wall_s"] = time.perf_counter() - t0
+            rep[part]["launches_total"] = launch_delta(before)
+        rep["peak_gib"] = peak21()
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+            json.dump(rep, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase21_oracle(tmp):
+    """``dfa.run`` of 21(a)'s stream for both DFAs (a process of its own,
+    beside the spawned world)."""
+    stream = np.load(os.path.join(tmp, "stream.npy"), mmap_mode="r")
+    out = {tag: int(dfa.run(np.asarray(stream)))
+           for tag, dfa in dfas21().items()}
+    with open(os.path.join(tmp, "oracle.json"), "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def phase21_references(tmp, rng):
+    """The one-process card runs the world is held to: (b) prefill logits
+    at the published capacity factor through ``blocked_moe21`` and at
+    E / top_k through the local path, and constrained decode at the
+    published factor through ``blocked_moe21``; (c) one step of the cut
+    model (its parameters and moments saved leaf by leaf)."""
+    import torch
+    from repro_torch.core import compile_regex
+    from repro_torch.models import api
+    from repro_torch.serving import (GrammarConstraint, ServeConfig,
+                                     ServingEngine)
+    from repro_torch.training import train_loop as TL
+
+    cfg = cfg21()
+    b, t = PREFILL21
+    toks = rng.integers(0, cfg.vocab_size, size=(b, t)).astype(np.int32)
+    gram = grammar_prompts(rng, b, PROMPT21)
+    np.savez(os.path.join(tmp, "prompts.npz"), tokens=toks, grammar=gram)
+    params = api.init(cfg, SEED, device=DEVICE)
+    batch = {"tokens": torch.from_numpy(toks).to(DEVICE)}
+    blocked, _ = blocked21(lambda: api.prefill(params, cfg, batch))
+    plain, _ = api.prefill(params, cfg, batch)
+    # how far the mesh's token blocks move the logits from the local path
+    # at the published factor (each block drops its own choices)
+    ref = {"logits": blocked.float().cpu().numpy(),
+           "plain_share": float((~torch.isclose(
+               plain.float(), blocked.float(), rtol=1e-5,
+               atol=MISMATCH21[1])).float().mean())}
+    del blocked, plain
+    logits, _ = api.prefill(params, cfg21(no_drop=True), batch)
+    ref["nodrop"] = logits.float().cpu().numpy()
+    del logits
+    gc = GrammarConstraint(compile_regex(GRAMMAR12), cfg.padded_vocab,
+                           eos_id=None, device=DEVICE)
+    eng = ServingEngine(cfg, params, ServeConfig(max_new_tokens=DECODE21),
+                        constraint=gc)
+    ref["tokens"] = blocked21(lambda: eng.generate(gram))
+    del params, eng
+    tcfg = cfg21(train=True, no_drop=True)
+    opts = opts21(aux=0.0)
+    state = TL.init_train_state(tcfg, SEED, device=DEVICE)
+    step = TL.make_train_step(tcfg, None, opts)
+    batch = batch21(tcfg, torch.device(DEVICE))
+    state, m = f32_compute21(lambda: step(state, batch))
+    ref.update({k: float(v) for k, v in m.items()})
+    save_leaves21(os.path.join(tmp, "ref21c"), {
+        "params": state["params"], "m": state["opt"]["m"],
+        "v": state["opt"]["v"]})
+    del state
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return ref
+
+
+def phase21d_launcher():
+    """(d) ``launch.train`` on a (2, 2) mesh under ``torch.distributed.run``
+    (four ranks sharing the card over gloo) at published widths, a small
+    batch, 2 steps; each printed step against the same step of the
+    launcher's stream, initial state and options run in this process on
+    one device (as phase 20(b) holds the one-process launcher to (a))."""
+    import shutil
+    import socket
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training import (AdamWConfig, TrainOptions,
+                                      init_train_state, make_train_step)
+
+    b, t, steps = CLI21
+    cfg = get_config(ARCH20)
+    batches, _ = launch_train.corpus_batches(cfg, b, t, RULES20,
+                                             device=torch.device(DEVICE))
+    opts = TrainOptions(optimizer=AdamWConfig(lr=3e-4, warmup_steps=20,
+                                              total_steps=steps))
+    state = init_train_state(cfg, 0, device=DEVICE, opts=opts)
+    step = make_train_step(cfg, None, opts)
+    one = {}
+    for i in range(steps):
+        state, m = step(state, launch_train.batch_to_device(
+            next(batches), DEVICE))
+        one[i] = {"loss": float(m["loss"]), "gnorm": float(m["grad_norm"]),
+                  "lr": float(m["lr"])}
+    del state, step
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke21d_")
+    argv = [sys.executable, "-m", "torch.distributed.run",
+            "--nproc-per-node", "4", "--master-port", str(port), "-m",
+            "repro_torch.launch.train",
+            "--arch", ARCH20, "--batch", str(b), "--seq", str(t),
+            "--steps", str(steps), "--log-every", "1", "--mesh-data", "2",
+            "--mesh-model", "2", "--ckpt-dir", os.path.join(tmp, "ckpt")]
+    if DEVICE != "cuda":                  # a rehearsal on the CPU
+        argv += ["--device", DEVICE, "--smoke"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    try:
+        t0 = time.perf_counter()
+        res = subprocess.run(argv, env=env, cwd=ROOT, capture_output=True,
+                             text=True, timeout=CLI21_S)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(res.returncode == 0, f"[21d] the launcher exited "
+          f"{res.returncode}: {res.stdout[-2000:]}{res.stderr[-3000:]}")
+    lines = [ln for ln in res.stdout.splitlines()
+             if ln.startswith(("step ", "checkpoint", "done"))]
+    for ln in lines:
+        print(f"[21d] mesh (2, 2): {ln}")
+    print(f"[21d] the launcher on (2, 2): {wall:.1f} s of command")
+    mesh = dict(launcher_line(ln) for ln in lines if ln.startswith("step "))
+    check(sorted(mesh) == list(range(steps)), f"[21d] steps {sorted(mesh)}")
+    gaps = {k: max(abs(mesh[i][k] - one[i][k])
+                   / (one[i][k] if k != "loss" else 1) for i in one)
+            for k in LINE21_TOL}
+    check(all(gaps[k] <= LINE21_TOL[k] for k in gaps),
+          f"[21d] the mesh launcher's lines {mesh} differ from one "
+          f"process's {one}: gaps {gaps}")
+    print(f"[21d] its steps equal one process's (the launcher's stream, "
+          f"state and options on one device) within {LINE21_TOL} (gnorm "
+          f"and lr relative; gaps "
+          + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items()) + ")")
+
+
+def phase21_mesh(counts):
+    """The LM mesh on the card: eight ranks sharing it over gloo on
+    ("pod", "data", "model") = (2, 2, 2): (a) collectives, (b) serving
+    under expert parallelism, (c) sharded training, then (d) the launcher
+    on a (2, 2) mesh."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke21_")
+    try:
+        rng = np.random.default_rng(SEED + 21)
+        stream = make_docs(rng, [BYTES21 // 64] * 64)
+        np.save(os.path.join(tmp, "stream.npy"),
+                np.frombuffer(b"".join(stream), np.uint8))
+        del stream
+        env = {**os.environ, "PYTHONUNBUFFERED": "1"}
+        oracle = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase21-oracle",
+             tmp], env=env, cwd=ROOT)
+        t0 = time.perf_counter()
+        ref = phase21_references(tmp, rng)
+        print(f"[21] one-process references (granite-moe-1b-a400m prefill "
+              f"{PREFILL21}, generate, a train step at {TRAIN21[3]} layers) "
+              f"in {time.perf_counter() - t0:.1f} s")
+        n = int(np.prod(MESH21))
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+                for r in range(n)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase21-child",
+             str(r), str(n), os.path.join(tmp, "store"), tmp], env=env,
+            cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
+            for r in range(n)]
+        try:
+            for p in procs + [oracle]:
+                p.wait(timeout=max(CHILD21_S - (time.perf_counter() - t0),
+                                   1))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs + [oracle]:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        spawn_s = time.perf_counter() - t0
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            log.seek(0)
+            text = log.read()
+            log.close()
+            check(p.returncode == 0, f"[21] rank {r} exited "
+                  f"{p.returncode}:\n" + text[-4000:])
+        check(oracle.returncode == 0, "[21a] the dfa.run oracle failed")
+        reps = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                reps.append(json.load(fh))
+        with open(os.path.join(tmp, "oracle.json")) as fh:
+            oracle_states = json.load(fh)
+        print(f"[21] {n} ranks on {MESH21} ('pod', 'data', 'model') sharing "
+              f"the card over gloo (device tensors staged through host "
+              f"memory), spawn to exit {spawn_s:.1f} s")
+        t0 = time.perf_counter()
+        after = phase21c_after_restore(tmp)
+        print(f"[21c] the step after the restore, in one process: "
+              f"{time.perf_counter() - t0:.1f} s")
+        phase21_report(reps, ref, oracle_states, after, tmp, counts)
+        t0 = time.perf_counter()
+        phase21d_launcher()
+        print(f"[21d] in {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase21_report(reps, ref, oracle_states, after, tmp, counts):
+    """Check and print what the world reported; add its launches to
+    ``counts``."""
+    for rep in reps:
+        check(rep["transport"] == "gloo", f"[21] rank {rep['rank']}: "
+              f"transport {rep['transport']}")
+        check(DEVICE != "cuda" or rep["device"].startswith("cuda"),
+              f"[21] rank {rep['rank']} computed on {rep['device']}")
+    # (a)
+    for tag in ("pcre", "random"):
+        for nc in NC21:
+            res = [rep["a"][f"{tag}_{nc}"] for rep in reps]
+            check(all(r["state"] == oracle_states[tag] for r in res),
+                  f"[21a] {tag} nc={nc}: {[r['state'] for r in res]} != "
+                  f"dfa.run {oracle_states[tag]}")
+            kind = "onehot_block_maps" if tag == "pcre" else "spec_match"
+            check(all(r["launches"].get(kind, 0) > 0
+                      and r["launches"].get("lvec_compose", 0) > 0
+                      for r in res), f"[21a] {tag} nc={nc}: launches "
+                  f"{res[0]['launches']}")
+            walls = [r["s"] for r in res]
+            print(f"[21a] distributed_membership {tag} ({BYTES21} bytes, "
+                  f"{len(reps)} ranks x {nc} chunks a dp rank): final state "
+                  f"{res[0]['state']} = dfa.run; {min(walls):.3f}-"
+                  f"{max(walls):.3f} s a rank; rank 0 launches "
+                  f"{res[0]['launches']}")
+    mg = reps[0]["a"]["merge"]
+    print(f"[21a] 2-tier merge vs flat (rank 0, 256 maps of "
+          f"{RANDOM21[0]} states, gloo on one card: host staging, not the "
+          f"paper's intra/inter-node gap): hierarchical "
+          f"{[round(x * 1e3, 3) for x in mg['times']['hier']]} ms, flat "
+          f"{[round(x * 1e3, 3) for x in mg['times']['flat']]} ms; "
+          f"collectives [calls, MB, ms]: hierarchical {mg['tiers']['hier']}"
+          f", flat {mg['tiers']['flat']}")
+    cp = reps[0]["a"]["compress"]
+    print(f"[21a] compressed_pod_mean over rank 0's shard of tinyllama-1.1b's"
+          f" gradients ({cp['elements']} float32): {cp['s']} s a round; "
+          f"worst error {cp['worst_half_steps']:.3f} half-steps of the "
+          f"pods' scales; collectives {cp['stats']}")
+    for rep in reps[:4]:
+        pl = rep["a"]["pipeline"]
+        check(pl["err"] <= 1e-4, f"[21a] pipeline rank {rep['rank']}: "
+              f"max |err| {pl['err']}")
+    pl = reps[0]["a"]["pipeline"]
+    print(f"[21a] pipeline_apply over ('stage',) = 4 ranks, {PIPE21}: "
+          f"{pl['s']:.4f} s, max |err| vs the sequential stages "
+          f"{max(r['a']['pipeline']['err'] for r in reps[:4]):.2e}; "
+          f"collectives {pl['stats']}")
+    # (b)
+    pre = np.load(os.path.join(tmp, "prefill_mesh.npz"))
+    got = pre["logits"]
+    share = float(np.mean(~np.isclose(got, ref["logits"],
+                                      atol=MISMATCH21[1])))
+    share_nd = float(np.mean(~np.isclose(pre["nodrop"], ref["nodrop"],
+                                         atol=MISMATCH21[1])))
+    gap = np.abs(got - ref["logits"])
+    print(f"[21b] prefill logits at the published capacity factor against "
+          f"one process on blocked_moe21: |max| "
+          f"{np.abs(ref['logits']).max():.3f}, max |gap| {gap.max():.4e}, "
+          f"rows equal in argmax "
+          f"{int((got.argmax(-1) == ref['logits'].argmax(-1)).sum())}/"
+          f"{got.shape[0]}; the local path's logits differ from the "
+          f"blocked ones in {ref['plain_share']:.4f} of entries")
+    del gap
+    check(share < MISMATCH21[0], f"[21b] prefill logits at the published "
+          f"capacity factor: mismatch share {share} against one process on "
+          f"blocked_moe21")
+    check(share_nd < MISMATCH21[0], f"[21b] prefill logits at E / top_k: "
+          f"mismatch share {share_nd} against the one-process card run")
+    tokens = np.load(os.path.join(tmp, "generate_mesh.npy"))
+    equal = (tokens == ref["tokens"]).all(1)
+    check(bool(equal.all()), f"[21b] decoded tokens differ from one process "
+          f"on blocked_moe21 on rows {np.flatnonzero(~equal)}")
+    b = reps[0]["b"]
+    print(f"[21b] granite-moe-1b-a400m, full width and depth, 16 experts a "
+          f"model rank: init {b['init_s']:.2f} s; prefill {PREFILL21} "
+          f"{b['prefill_s']:.3f} s (rank 0), logits mismatch share (atol "
+          f"{MISMATCH21[1]}) {share:.4f} at the published factor against "
+          f"one process on blocked_moe21, {share_nd:.4f} at E / top_k "
+          f"({b['prefill_nodrop_s']:.3f} s) against the local path; "
+          f"generate at the published factor, {DECODE21} constrained steps "
+          f"{b['generate_s']:.3f} s, tokens equal on {int(equal.sum())}/"
+          f"{len(equal)} rows")
+    # (c)
+    c0 = reps[0]["c"]
+    nonec = c0["none"]
+    check(abs(nonec["loss"] - ref["loss"]) <= F32_21["loss"]
+          and abs(nonec["grad_norm"] - ref["grad_norm"])
+          <= F32_21["gnorm"] * ref["grad_norm"],
+          f"[21c] sharded step loss {nonec['loss']} gnorm "
+          f"{nonec['grad_norm']} vs one process {ref['loss']} "
+          f"{ref['grad_norm']}")
+    gaps = nonec["gaps"]
+    worst = max(v for k, v in gaps.items() if k.startswith("params-"))
+    moments = max(v for k, v in gaps.items() if not k.startswith("params-"))
+    check(worst <= nonec["param_tol"] and moments <= F32_21["leaf"],
+          f"[21c] against the one-process step: worst parameter gap {worst}"
+          f" (bound {nonec['param_tol']}), worst moment leaf {moments} "
+          f"relative L2 (bound {F32_21['leaf']})")
+    l1, l2 = (s["loss"] for s in c0["int8"])
+    check(np.isfinite(l1) and np.isfinite(l2) and l2 < l1 + 0.5,
+          f"[21c] int8 losses {l1}, {l2}")
+    ar = c0["after_restore"]
+    restored = max(after["gaps"].values())
+    check(after["step"] == 2
+          and abs(ar["loss"] - after["loss"]) <= F32_21["loss"]
+          and abs(ar["grad_norm"] - after["grad_norm"])
+          <= F32_21["gnorm"] * after["grad_norm"]
+          and restored <= F32_21["leaf"],
+          f"[21c] the step after the restore onto (2, 2): loss {ar['loss']}"
+          f" gnorm {ar['grad_norm']} vs one process from the same checkpoint"
+          f" {after['loss']} {after['grad_norm']}; worst moment leaf "
+          f"{restored} relative L2 (bound {F32_21['leaf']})")
+    print(f"[21c] sharded step ({TRAIN21[3]}-layer granite-moe-1b-a400m, "
+          f"float32 compute, "
+          f"{TRAIN21[0]} x {TRAIN21[1]} tokens in {TRAIN21[2]} microbatches)"
+          f": {nonec['s']:.3f} s, loss {nonec['loss']:.6f} vs "
+          f"{ref['loss']:.6f}, grad_norm {nonec['grad_norm']:.6f} vs "
+          f"{ref['grad_norm']:.6f}, m and v per leaf within {moments:.3e} "
+          f"relative L2 <= {F32_21['leaf']}, worst parameter gap {worst:.3e} "
+          f"(bound {nonec['param_tol']:.3e}); collectives of the step "
+          f"[calls, MB, ms] {nonec['stats']}")
+    for i, s in enumerate(c0["int8"]):
+        print(f"[21c] int8 step {i}: {s['s']:.3f} s, loss {s['loss']:.6f}, "
+              f"collectives {s['stats']}")
+    print(f"[21c] save {c0['save_s']:.2f} s; restored onto (2, 2) in "
+          f"{c0['restore_s']:.2f} s (rank 0); its step (E / top_k, aux 0) "
+          f"{ar['s']:.3f} s, loss {ar['loss']:.6f} vs {after['loss']:.6f} "
+          f"and grad_norm {ar['grad_norm']:.6f} vs {after['grad_norm']:.6f} "
+          f"in one process from the same checkpoint, m and v per leaf "
+          f"within {restored:.3e} relative L2")
+    print("[21] peak memory a rank (GiB): " + ", ".join(
+        f"{r['rank']}: {r['peak_gib']:.2f}" for r in reps))
+    print("[21] each rank's (a), (b), (c) in s: " + ", ".join(
+        f"{r['rank']}: " + "/".join(f"{r[p]['wall_s']:.1f}" for p in "abc")
+        for r in reps))
+    total = {}
+    for rep in reps:
+        for part in ("a", "b", "c"):
+            for k, v in rep[part]["launches_total"].items():
+                total[k] = total.get(k, 0) + v
+    for name in ("spec_match_merge", "token_mask", "spec_match",
+                 "lvec_compose", "onehot_block_maps", "flash_attn"):
+        check(total.get(name, 0) > 0, f"[21] the world launched no "
+              f"{name}: {total}")
+    for k, v in total.items():
+        counts[k] = counts.get(k, 0) + v
+    print(f"[21] launches over the world's ranks: {total}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4116,7 +5028,7 @@ def main() -> int:
         print(f"{tag} timed run: {wall:.3f} s: {n_segs / wall:.1f} "
               f"segments/s, {STREAMS9 * DOC9 / wall / 1e6:.1f} MB/s")
         device_busy(lambda: run_streams(OooStreamMatcher(
-            matcher, policy=policy), docs9, plans, seg9), tag)
+            matcher, policy=policy), docs9, plans, seg9), tag, cpu=False)
         return STREAMS9 * DOC9 / wall / 1e6
 
     for frac in FRACS9:
@@ -4243,6 +5155,11 @@ def main() -> int:
     t0 = time.perf_counter()
     phase20_training(counts)
     print(f"[20] phase 20 in {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 21: the LM mesh ------------------------------------------------
+    t0 = time.perf_counter()
+    phase21_mesh(counts)
+    print(f"[21] phase 21 in {time.perf_counter() - t0:.1f} s")
     for name in kernels:
         kernels[name]["launches"] = counts[name]
 
@@ -4257,4 +5174,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase18-child"]:
         sys.exit(phase18_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--phase21-child"]:
+        sys.exit(phase21_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--phase21-oracle"]:
+        sys.exit(phase21_oracle(sys.argv[2]))
     sys.exit(main())

@@ -99,7 +99,7 @@ class Matcher:
     backend      : "cuda" (the fused kernels, default) | "local" (torch-eager
                    stages) | "sharded" (the ("doc", "chunk") mesh lowering,
                    ``engine.sharded``: B6 scans, B3 folds).
-    mesh         : sharded only: a ``DeviceMesh`` from
+    mesh         : sharded only: a mesh from
                    ``launch.mesh.make_matcher_mesh``.
     mesh_shape   : sharded only, instead of ``mesh``: ``None`` (1, D),
                    ``"auto"`` (near-square) or ``(doc, chunk)``.

@@ -3,8 +3,8 @@
 The paper's cloud result (288 EC2 cores) comes from two ingredients: split
 the input across workers, and size each worker's share by its measured
 matching capacity (Eq. 1, ``core.profiling.profile_workers``).  This
-executor lowers the one ``LanePlan`` onto a 2-D ``("doc", "chunk")``
-``DeviceMesh`` (``launch.mesh.make_matcher_mesh``) as one SPMD program per
+executor lowers the one ``LanePlan`` onto a 2-D ``("doc", "chunk")`` mesh
+(``launch.mesh.make_matcher_mesh``) as one SPMD program per
 rank: every rank constructs the same ``Matcher``, calls each method with the
 same arguments in the same order, and returns the whole result.
 
@@ -70,7 +70,7 @@ class ShardedExecutor(LaneExecutor):
     tables      : shared ``DeviceTables`` bundle, on this rank's device.
     num_chunks  : total chunk count C (a multiple of the mesh chunk extent;
                   the planner rounds up).
-    mesh        : a ``DeviceMesh`` from ``launch.mesh.make_matcher_mesh``
+    mesh        : a mesh from ``launch.mesh.make_matcher_mesh``
                   (legacy 1-D "data" meshes count as doc extent 1); defaults
                   to a 1-D chunk mesh over the whole world.
 
@@ -85,7 +85,7 @@ class ShardedExecutor(LaneExecutor):
         super().__init__(tables, num_chunks=num_chunks,
                          early_exit_segments=early_exit_segments)
         from ...launch.mesh import (make_matcher_mesh, matcher_mesh_extents,
-                                    mesh_group, mesh_transport)
+                                    mesh_transport)
         if mesh is None:
             mesh = make_matcher_mesh(device=tables.device)
         self.mesh = mesh
@@ -107,7 +107,6 @@ class ShardedExecutor(LaneExecutor):
         self.row = self.coord[0] if self.doc_axis else 0
         self.col = self.coord[-1]
         self.transport = mesh_transport(mesh)
-        mesh_group(mesh)  # the whole-mesh group exists before any tile
         # the gap-close fold's compose kernel, read when an N is first
         # lowered: "carry" (B3) or "tree" (B4), as on LocalExecutor
         self.compose_mode = "carry"

@@ -61,8 +61,10 @@ class RestartManager:
 
 def _is_sharding(s: Any) -> bool:
     from torch.distributed.device_mesh import DeviceMesh
+
+    from ..launch.mesh import LMMesh
     return (isinstance(s, tuple) and len(s) == 2
-            and isinstance(s[0], DeviceMesh))
+            and isinstance(s[0], (DeviceMesh, LMMesh)))
 
 
 def reshard_tree(host_tree: Any, shardings: Any) -> Any:
@@ -72,13 +74,18 @@ def reshard_tree(host_tree: Any, shardings: Any) -> Any:
     ``shardings`` mirrors the tree's dicts, lists and tuples; each leaf's
     sharding is ``(DeviceMesh, placements)`` and the leaf becomes
     ``torch.distributed.tensor.distribute_tensor(leaf, mesh, placements)``
-    (a ``None`` sharding leaves the leaf as it is).  It works across mesh
+    (a ``None`` sharding leaves the leaf as it is).  On an LM mesh
+    (``launch.mesh.LMMesh``) each rank keeps its block of the leaf on its
+    own device, a ``DTensor`` of the mesh's device type; no collective
+    runs, since every rank holds the whole tree.  It works across mesh
     shape changes, since the tree is whole on the host: the elastic path
     (a snapshot taken on one mesh restored on another).  Placement is
     collective: call it on every rank of the mesh with the same tree.
     """
     import torch
     from torch.distributed.tensor import distribute_tensor
+
+    from ..launch.mesh import LMMesh
 
     def place(x, s):
         if s is None:
@@ -87,6 +94,11 @@ def reshard_tree(host_tree: Any, shardings: Any) -> Any:
             mesh, placements = s
             t = (x.detach() if isinstance(x, torch.Tensor)
                  else torch.from_numpy(np.array(x)))   # 0-d stays 0-d
+            if isinstance(mesh, LMMesh):
+                from .sharding import local_block
+                block = local_block(t, placements, mesh).to(
+                    mesh.device, copy=True)
+                return mesh.dtensor(block, placements, tuple(t.shape))
             return distribute_tensor(t, mesh, list(placements))
         if isinstance(x, dict):
             return {k: place(v, s[k]) for k, v in x.items()}

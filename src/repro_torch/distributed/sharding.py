@@ -1,25 +1,48 @@
-"""Placements of the sharded matcher's operands on a ("doc", "chunk") mesh.
+"""Placements of parameters, optimizer state, batches and caches on an LM
+mesh, and of the sharded matcher's operands on a ("doc", "chunk") mesh.
 
 Each spec is a tuple of ``torch.distributed.tensor`` placements, one per
 mesh dimension (``Shard(d)``: tensor dim ``d`` is split over that mesh
 dimension; ``Replicate()``: every rank holds it whole), as
-``distribute_tensor`` takes them.  The sharded executor
-(``core.engine.sharded``) reads its splits from these functions through
-``local_slices``, so the layout is stated once.  A legacy 1-D "data" mesh
-counts as pure chunk sharding (no doc axis).
+``distribute_tensor`` takes them.  Two mesh dimensions sharding one tensor
+dim nest in mesh order (the JAX package's ``P(("pod", "data"))``).
 
-The LM half of the JAX package's module (``param_specs``,
-``opt_state_specs``, ``batch_specs``, ``cache_specs``, ``state_specs``)
-waits for ROADMAP A15.
+The LM rules (``param_specs``, ``opt_state_specs``, ``batch_specs``,
+``cache_specs``, ``state_specs``) are the JAX package's, divisibility-aware:
+every rule degrades to replication for a dimension the mesh axis does not
+divide, so one rule set serves all ten architectures and every mesh.
+  * params: FSDP over "data" on the d_model-ish dim, TP over "model" on the
+    heads/ff/vocab dim; MoE experts over "model" only (``models.moe``'s
+    expert parallelism takes them so); pods replicate params (pure DP);
+  * stacked layer/group leading dims (``STACK_KEYS``) are never sharded;
+  * batches and caches: the batch dim over ("pod", "data").
+They read only the mesh's axis names and extents (a ``launch.mesh
+.MeshLayout`` will do).  ``named`` pairs each spec with its mesh, as
+``distributed.fault_tolerance.reshard_tree`` and ``training.checkpoint
+.restore_checkpoint(shardings=)`` take them.
+
+The sharded executor (``core.engine.sharded``) reads its splits from the
+matcher functions through ``local_slices``, so the layout is stated once.
+A legacy 1-D "data" mesh counts as pure chunk sharding (no doc axis).
 """
 
 from __future__ import annotations
 
-__all__ = ["matcher_table_specs", "matcher_chunk_specs", "matcher_lane_specs",
-           "doc_batch_spec", "local_slices"]
+import math
+from typing import Any
+
+__all__ = ["param_specs", "opt_state_specs", "batch_specs", "cache_specs",
+           "state_specs", "named", "shards_of", "local_block",
+           "STACK_KEYS", "MOE_EXPERT_KEYS",
+           "matcher_table_specs", "matcher_chunk_specs", "matcher_lane_specs",
+           "doc_batch_spec", "local_slices", "leaf_placements",
+           "param_keep", "expert_keep"]
+
+STACK_KEYS = {"layers", "groups", "enc", "dec"}
+MOE_EXPERT_KEYS = {"wi_gate", "wi_up", "wo"}
 
 
-def _placements():
+def _placements_cls():
     from torch.distributed.tensor import Replicate, Shard
     return Replicate, Shard
 
@@ -31,7 +54,7 @@ def _names(mesh) -> tuple[str, ...]:
 def _split(mesh, doc_dim: int | None, chunk_dim: int | None) -> tuple:
     """One placement per mesh dim: tensor dim ``doc_dim`` over "doc",
     ``chunk_dim`` over "chunk" (or "data"); ``None`` replicates."""
-    Replicate, Shard = _placements()
+    Replicate, Shard = _placements_cls()
     out = []
     for name in _names(mesh):
         dim = doc_dim if name == "doc" else (
@@ -39,6 +62,246 @@ def _split(mesh, doc_dim: int | None, chunk_dim: int | None) -> tuple:
         out.append(Replicate() if dim is None else Shard(dim))
     return tuple(out)
 
+
+# -- the LM rules ------------------------------------------------------------
+
+def _sizes(mesh) -> dict[str, int]:
+    return {n: int(mesh.size(i)) for i, n in enumerate(_names(mesh))}
+
+
+def _div(n: int, sizes: dict, axis: str) -> bool:
+    return axis in sizes and n % sizes[axis] == 0 and n >= sizes[axis]
+
+
+def _dp(sizes: dict) -> tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in sizes)
+
+
+def _fsdp_axis(sizes, n: int):
+    return "data" if _div(n, sizes, "data") else None
+
+
+def _tp_axis(sizes, n: int):
+    return "model" if _div(n, sizes, "model") else None
+
+
+def _core_spec(name: str, shape: tuple, sizes: dict, in_moe: bool) -> tuple:
+    """One entry per tensor dim: an axis name or None (the JAX package's
+    ``_core_spec``, rule for rule)."""
+    nd = len(shape)
+    if in_moe and name in MOE_EXPERT_KEYS and nd == 3:
+        return ("model" if _div(shape[0], sizes, "model") else None,
+                None, None)
+    if name == "router":
+        return (None,) * nd
+    if name == "table" and nd == 2:        # embedding [V, D]
+        return (_tp_axis(sizes, shape[0]), _fsdp_axis(sizes, shape[1]))
+    if name in ("wq", "wk", "wv") and nd == 3:   # [D, N|K, H]
+        if _div(shape[1], sizes, "model"):
+            return (_fsdp_axis(sizes, shape[0]), "model", None)
+        if _div(shape[2], sizes, "model"):
+            return (_fsdp_axis(sizes, shape[0]), None, "model")
+        return (_fsdp_axis(sizes, shape[0]), None, None)
+    if name == "wo" and nd == 3:                  # [N, H, D]
+        if _div(shape[0], sizes, "model"):
+            return ("model", None, _fsdp_axis(sizes, shape[2]))
+        if _div(shape[1], sizes, "model"):
+            return (None, "model", _fsdp_axis(sizes, shape[2]))
+        return (None, None, _fsdp_axis(sizes, shape[2]))
+    if nd == 2 and name in ("wi_gate", "wi_up", "wx", "wgate", "wz", "wi",
+                            "wf", "wog", "wo_gate", "w"):
+        # column-parallel [D_in, D_out]
+        return (_fsdp_axis(sizes, shape[0]), _tp_axis(sizes, shape[1]))
+    if nd == 2 and name in ("wo", "w_r", "w_i"):
+        # row-parallel [D_inner, D_out]
+        return (_tp_axis(sizes, shape[0]), _fsdp_axis(sizes, shape[1]))
+    if nd == 2 and name == "conv_w":
+        return (None, _tp_axis(sizes, shape[1]))
+    if nd == 1:
+        # vectors: shard large ones (rglru lam/bias) over model, keep norms
+        if name in ("lam", "conv_b") and _div(shape[0], sizes, "model"):
+            return ("model",)
+        return (None,)
+    return (None,) * nd
+
+
+def _placements(entries: tuple, names: tuple) -> tuple:
+    """Spec entries (an axis, a tuple of axes, or None per tensor dim) ->
+    one placement per mesh dim."""
+    Replicate, Shard = _placements_cls()
+    out = []
+    for name in names:
+        dims = [d for d, e in enumerate(entries)
+                if e == name or (isinstance(e, tuple) and name in e)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
+
+
+def _stacked(names: list) -> bool:
+    return any(k in STACK_KEYS for k in names[:-1])
+
+
+def _leaf_entries(names: list, shape: tuple, sizes: dict) -> tuple:
+    """The entries of a leaf at path ``names``: a stacked leaf's leading
+    dim is never sharded."""
+    name = names[-1] if names else ""
+    in_moe = "moe" in names
+    if _stacked(names):
+        return (None, *_core_spec(name, tuple(shape[1:]), sizes, in_moe))
+    return _core_spec(name, tuple(shape), sizes, in_moe)
+
+
+def _shape(leaf) -> tuple:
+    return tuple(leaf) if isinstance(leaf, tuple) else tuple(leaf.shape)
+
+
+def _map_paths(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(list(path), tree)
+
+
+def param_specs(params: Any, mesh) -> Any:
+    """The placements tree of a parameter tree (leaves: tensors, arrays or
+    shape tuples, e.g. ``models.api.param_shapes``)."""
+    sizes, names = _sizes(mesh), _names(mesh)
+    return _map_paths(lambda path, leaf: _placements(
+        _leaf_entries(path, _shape(leaf), sizes), names), params)
+
+
+def opt_state_specs(params: Any, mesh) -> Any:
+    """Adam m/v mirror the param sharding (ZeRO-style fully sharded
+    states)."""
+    return param_specs(params, mesh)
+
+
+def _batch_axis(sizes: dict, n: int, batch: int):
+    dp = _dp(sizes)
+    dp_size = math.prod(sizes[a] for a in dp) if dp else 1
+    return dp if (n == batch and batch % max(dp_size, 1) == 0
+                  and dp_size > 1) else None
+
+
+def batch_specs(batch: Any, mesh, global_batch: int) -> Any:
+    """Shard the leading batch dim over ("pod", "data") when divisible; a
+    scalar (or a non-tensor such as a position) replicates."""
+    sizes, names = _sizes(mesh), _names(mesh)
+
+    def spec_of(_, leaf):
+        if not hasattr(leaf, "shape") or len(leaf.shape) == 0:
+            return _placements((), names)
+        bs = _batch_axis(sizes, leaf.shape[0], global_batch)
+        return _placements((bs,) + (None,) * (len(leaf.shape) - 1), names)
+
+    return _map_paths(spec_of, batch)
+
+
+def cache_specs(cache: Any, mesh, batch: int) -> Any:
+    """KV caches [L, B, S, K, H]: batch over dp, heads (or head_dim) over
+    model."""
+    sizes, names = _sizes(mesh), _names(mesh)
+
+    def spec_of(_, leaf):
+        shape = _shape(leaf)
+        if len(shape) != 5:
+            return _placements((None,) * len(shape), names)
+        _, b, _, k, h = shape
+        bs = _batch_axis(sizes, b, batch)
+        if _div(k, sizes, "model"):
+            return _placements((None, bs, None, "model", None), names)
+        if _div(h, sizes, "model"):
+            return _placements((None, bs, None, None, "model"), names)
+        return _placements((None, bs, None, None, None), names)
+
+    return _map_paths(spec_of, cache)
+
+
+def state_specs(state: Any, mesh, batch: int) -> Any:
+    """Recurrent decode states: the batch dim over dp, the last
+    model-divisible dim not already taken over model."""
+    sizes, names = _sizes(mesh), _names(mesh)
+
+    def spec_of(_, leaf):
+        shape = _shape(leaf)
+        spec = [None] * len(shape)
+        for i, d in enumerate(shape):
+            if _batch_axis(sizes, d, batch) is not None:
+                spec[i] = _dp(sizes)
+                break
+        for i in range(len(shape) - 1, -1, -1):
+            if spec[i] is None and _div(shape[i], sizes, "model"):
+                spec[i] = "model"
+                break
+        return _placements(tuple(spec), names)
+
+    return _map_paths(spec_of, state)
+
+
+def named(tree_specs: Any, mesh) -> Any:
+    """Each placements tuple of ``tree_specs`` as ``(mesh, placements)``."""
+    if isinstance(tree_specs, dict):
+        return {k: named(v, mesh) for k, v in tree_specs.items()}
+    return (mesh, tree_specs)
+
+
+def shards_of(placements: tuple, mesh) -> tuple[tuple[str, int], ...]:
+    """``(axis, tensor dim)`` of each ``Shard`` placement, in mesh order."""
+    _, Shard = _placements_cls()
+    return tuple((n, p.dim) for n, p in zip(_names(mesh), placements)
+                 if isinstance(p, Shard))
+
+
+def local_block(x, placements: tuple, mesh):
+    """This rank's block of ``x`` (a tensor every rank holds whole) under
+    ``placements`` on ``mesh`` (a view)."""
+    idx = local_slices(tuple(x.shape), placements, mesh.shape,
+                       mesh.get_coordinate())
+    return x[idx]
+
+
+def leaf_placements(names: list, shape: tuple, mesh) -> tuple:
+    """The placements of the parameter at path ``names`` with ``shape``; a
+    leaf under a stack key is read as one stacked entry (its own shape,
+    without the leading stack dim), as the initialisers draw them."""
+    sizes = _sizes(mesh)
+    name = names[-1] if names else ""
+    if _stacked(names):
+        entries = _core_spec(name, tuple(shape), sizes, "moe" in names)
+    else:
+        entries = _leaf_entries(names, shape, sizes)
+    return _placements(entries, _names(mesh))
+
+
+def param_keep(mesh):
+    """A ``keep(path, leaf)`` for ``models.api.init``: this rank's block of
+    each freshly drawn leaf under ``param_specs`` (a copy, so the whole
+    leaf is freed)."""
+    def keep(path, leaf):
+        return local_block(leaf, leaf_placements(list(path),
+                                                 tuple(leaf.shape), mesh),
+                           mesh).clone()
+    return keep
+
+
+def expert_keep(mesh):
+    """A ``keep(path, leaf)`` for ``models.api.init``: the serving layout
+    of expert parallelism.  Expert leaves keep this rank's ``[E / ep, ...]``
+    shard over "model", as ``param_specs`` places them; every other leaf
+    stays whole."""
+    Replicate, _ = _placements_cls()
+
+    def keep(path, leaf):
+        names = list(path)
+        if not ("moe" in names and names[-1] in MOE_EXPERT_KEYS):
+            return leaf
+        full = leaf_placements(names, tuple(leaf.shape), mesh)
+        only = tuple(p if n == "model" else Replicate()
+                     for n, p in zip(_names(mesh), full))
+        return local_block(leaf, only, mesh).clone()
+    return keep
+
+
+# -- the matcher's operands --------------------------------------------------
 
 def matcher_table_specs(mesh) -> dict[str, tuple]:
     """The packed matcher tables (``engine.plan.DeviceTables``) replicate on
@@ -84,7 +347,7 @@ def doc_batch_spec(mesh, batch: int) -> tuple:
     independent rows, so B splits over both mesh axes jointly (doc-major:
     ``Shard(0)`` on each) when the mesh size divides it; otherwise every
     rank scans the whole tile (replicated)."""
-    Replicate, Shard = _placements()
+    Replicate, Shard = _placements_cls()
     size = int(mesh.size())
     if size > 1 and batch % size == 0:
         return tuple(Shard(0) for _ in _names(mesh))
@@ -96,7 +359,7 @@ def local_slices(shape, placements, mesh_shape, coord) -> tuple[slice, ...]:
     a ``Shard(d)`` on mesh dim ``i`` splits what is left of dim ``d`` into
     ``mesh_shape[i]`` equal parts (nested in mesh-dim order) and keeps part
     ``coord[i]``.  Uneven splits raise."""
-    _, Shard = _placements()
+    _, Shard = _placements_cls()
     start = [0] * len(shape)
     size = list(shape)
     for i, p in enumerate(placements):

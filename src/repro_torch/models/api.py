@@ -4,6 +4,7 @@
   train_logits(params, cfg, batch)    -> (logits, aux_loss)
   prefill(params, cfg, batch)         -> (logits, cache)
   decode(params, cfg, batch)          -> (logits, cache/state)
+  (each of the last three takes ``mesh=``, as the reference's)
   make_inputs(cfg, shape, seed)       -> concrete batch
   input_specs(cfg, shape)             -> TensorSpec batch
   param_shapes(cfg)                   -> nested parameter shapes
@@ -15,8 +16,15 @@ reference: batches carry precomputed frame/patch embeddings.  Entry points
 run on the card unless the caller passes ``device="cpu"``; the tensors of a
 batch carry their device.  ``train_logits`` is differentiable (each
 layer's body rematerialised by ``cfg.remat_policy``):
-``training.train_loop.make_train_step`` takes its gradients on one device;
-training on a mesh waits for ROADMAP A15's LM mesh.
+``training.train_loop.make_train_step`` takes its gradients, on one device
+or on an LM mesh.
+
+``mesh`` (a ``launch.mesh.LMMesh``; SPMD: every rank passes the same whole
+batch and gets the whole result) reaches the transformer family's MoE
+layers, which then run expert parallelism over its "model" axis; the
+expert leaves of ``params`` are then this rank's shard (``init(...,
+keep=distributed.sharding.expert_keep(mesh))``).  The other families accept
+it and pass it on, as the reference's.
 """
 
 from __future__ import annotations
@@ -63,14 +71,19 @@ def _init_fn(cfg: ModelConfig):
     return _INIT[cfg.family]
 
 
-def init(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
+def init(cfg: ModelConfig, seed: int = 0, *, device=None,
+         keep=None) -> dict:
     """Random parameters from a ``torch.Generator`` seeded with ``seed``, on
-    ``device`` (default: the card)."""
+    ``device`` (default: the card).  ``keep(path, leaf)`` takes each leaf
+    as it is drawn (``layers.keep_tree``): a sharded initialisation keeps
+    its part of the same numbers."""
     init_fn = _init_fn(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
-    return init_fn(cfg, gen, device=device)
+    if keep is None:
+        return init_fn(cfg, gen, device=device)
+    return init_fn(cfg, gen, device=device, keep=keep)
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
@@ -80,30 +93,37 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return _tree_map(lambda x: tuple(x.shape), params)
 
 
-def train_logits(params, cfg: ModelConfig, batch: dict):
+def train_logits(params, cfg: ModelConfig, batch: dict, *, mesh=None,
+                 weights=None):
     """The training forward pass: (logits, aux_loss), differentiable in
-    ``params`` (leaves that require grad)."""
-    if cfg.family in ("dense", "moe"):
-        logits, _, aux = TF.forward(params, cfg, batch["tokens"])
-        return logits, aux
-    if cfg.family == "vlm":
+    ``params`` (leaves that require grad).  ``weights(path, tree)`` (each
+    family's per-layer gather, as ``transformer.forward`` takes it) is the
+    sharded train step's."""
+    if cfg.family in ("dense", "moe", "vlm"):
+        prefix = batch["patches"] if cfg.family == "vlm" else None
         logits, _, aux = TF.forward(params, cfg, batch["tokens"],
-                                    prefix_embeds=batch["patches"])
-        return logits[:, batch["patches"].shape[1]:], aux  # text positions
+                                    prefix_embeds=prefix, mesh=mesh,
+                                    weights=weights)
+        if prefix is not None:
+            logits = logits[:, prefix.shape[1]:]         # text positions
+        return logits, aux
     if cfg.family == "hybrid":
-        logits, _, aux = RG.forward_hybrid(params, cfg, batch["tokens"])
+        logits, _, aux = RG.forward_hybrid(params, cfg, batch["tokens"],
+                                           mesh=mesh, weights=weights)
         return logits, aux
     if cfg.family == "ssm":
-        logits, _, aux = XL.forward_xlstm(params, cfg, batch["tokens"])
+        logits, _, aux = XL.forward_xlstm(params, cfg, batch["tokens"],
+                                          mesh=mesh, weights=weights)
         return logits, aux
     if cfg.family == "encdec":
         logits, _, aux = ED.forward_encdec(params, cfg, batch["frames"],
-                                           batch["tokens"])
+                                           batch["tokens"], mesh=mesh,
+                                           weights=weights)
         return logits, aux
     raise ValueError(cfg.family)
 
 
-def prefill(params, cfg: ModelConfig, batch: dict, *,
+def prefill(params, cfg: ModelConfig, batch: dict, *, mesh=None,
             last_only: bool = True, attn_route: str = "auto"):
     """Prompt ingestion.  The transformer families and the enc-dec decoder
     prefill into a cache exactly the prompt's length, so their
@@ -121,41 +141,43 @@ def prefill(params, cfg: ModelConfig, batch: dict, *,
         logits, cache, _ = TF.forward(params, cfg, tokens,
                                       prefix_embeds=prefix, cache=cache,
                                       last_only=last_only,
-                                      attn_route=attn_route)
+                                      attn_route=attn_route, mesh=mesh)
         return logits, cache
     if cfg.family == "hybrid":
         logits, _, _ = RG.forward_hybrid(params, cfg, tokens,
-                                         last_only=last_only)
+                                         last_only=last_only, mesh=mesh)
         return logits, None
     if cfg.family == "ssm":
         logits, _, _ = XL.forward_xlstm(params, cfg, tokens,
-                                        last_only=last_only)
+                                        last_only=last_only, mesh=mesh)
         return logits, None
     if cfg.family == "encdec":
         cache = ED.init_encdec_cache(cfg, b, t, device=tokens.device)
         logits, cache, _ = ED.forward_encdec(params, cfg, batch["frames"],
                                              tokens, cache=cache,
                                              last_only=last_only,
-                                             attn_route=attn_route)
+                                             attn_route=attn_route,
+                                             mesh=mesh)
         return logits, cache
     raise ValueError(cfg.family)
 
 
-def decode(params, cfg: ModelConfig, batch: dict):
+def decode(params, cfg: ModelConfig, batch: dict, *, mesh=None):
     """One decode step; the batch's cache or state is updated in place."""
     if cfg.family in ("dense", "moe", "vlm"):
         return TF.decode_step(params, cfg, batch["cache"], batch["tokens"],
-                              batch["pos"])
+                              batch["pos"], mesh=mesh)
     if cfg.family == "hybrid":
         return RG.decode_step_hybrid(params, cfg, batch["state"],
-                                     batch["tokens"], batch["pos"])
+                                     batch["tokens"], batch["pos"],
+                                     mesh=mesh)
     if cfg.family == "ssm":
         return XL.decode_step_xlstm(params, cfg, batch["state"],
-                                    batch["tokens"], batch["pos"])
+                                    batch["tokens"], batch["pos"], mesh=mesh)
     if cfg.family == "encdec":
         return ED.decode_step_encdec(params, cfg, batch["cache"],
                                      batch["memory"], batch["tokens"],
-                                     batch["pos"])
+                                     batch["pos"], mesh=mesh)
     raise ValueError(cfg.family)
 
 

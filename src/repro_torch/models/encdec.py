@@ -50,40 +50,51 @@ def init_dec_layer(cfg: ModelConfig, gen, *, device) -> dict:
     }
 
 
-def init_encdec(cfg: ModelConfig, gen: torch.Generator, *, device) -> dict:
+def init_encdec(cfg: ModelConfig, gen: torch.Generator, *, device,
+                keep=None) -> dict:
     """Random parameters from ``gen`` on ``device`` (the JAX initialisers'
-    distributions; not their numbers)."""
+    distributions; not their numbers); ``keep`` as ``layers.keep_tree``."""
     n_enc = cfg.n_enc_layers or cfg.n_layers
-    embed = L.init_embedding(gen, cfg.padded_vocab, cfg.d_model,
-                             device=device)
-    enc = L.stack_trees([init_enc_layer(cfg, gen, device=device)
-                         for _ in range(n_enc)])
-    dec = L.stack_trees([init_dec_layer(cfg, gen, device=device)
-                         for _ in range(cfg.n_layers)])
+    embed = L.keep_tree(keep, ("embed",), L.init_embedding(
+        gen, cfg.padded_vocab, cfg.d_model, device=device))
+    enc = L.stack_trees([
+        L.keep_tree(keep, ("enc",), init_enc_layer(cfg, gen, device=device))
+        for _ in range(n_enc)])
+    dec = L.stack_trees([
+        L.keep_tree(keep, ("dec",), init_dec_layer(cfg, gen, device=device))
+        for _ in range(cfg.n_layers)])
     return {
         "embed": embed,
         "enc": enc,
         "dec": dec,
-        "enc_norm": L.init_rmsnorm(cfg.d_model, device=device),
-        "final_norm": L.init_rmsnorm(cfg.d_model, device=device),
-        "head": L.init_dense(gen, cfg.d_model, cfg.padded_vocab,
-                             device=device),
+        "enc_norm": L.keep_tree(keep, ("enc_norm",), L.init_rmsnorm(
+            cfg.d_model, device=device)),
+        "final_norm": L.keep_tree(keep, ("final_norm",), L.init_rmsnorm(
+            cfg.d_model, device=device)),
+        "head": L.keep_tree(keep, ("head",), L.init_dense(
+            gen, cfg.d_model, cfg.padded_vocab, device=device)),
     }
 
 
-def encode(params: dict, cfg: ModelConfig,
-           frames: torch.Tensor) -> torch.Tensor:
+def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor,
+           weights=None) -> torch.Tensor:
     """frames [B, T_enc, D] (stubbed frontend output) -> memory [B, T_enc,
-    D] (bf16)."""
+    D] (bf16).  ``weights`` as ``forward_encdec``'s."""
     x = frames.to(L.Compute)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    body = L.remat_all(functools.partial(_enc_layer, cfg), cfg.remat_policy)
+    body = L.remat_all(functools.partial(
+        _enc_layer, cfg, gather=None if weights is None
+        else functools.partial(weights, ("enc",))), cfg.remat_policy)
     for p in L.unstack_tree(params["enc"]):
         x = body(x, p, positions)
-    return L.rms_norm(params["enc_norm"], x, cfg.norm_eps)
+    norm = params["enc_norm"] if weights is None else weights(
+        ("enc_norm",), params["enc_norm"])
+    return L.rms_norm(norm, x, cfg.norm_eps)
 
 
-def _enc_layer(cfg, x, p, positions):
+def _enc_layer(cfg, x, p, positions, gather=None):
+    if gather is not None:
+        p = gather(p)
     h, _ = L.attention(p["attn"], L.rms_norm(p["ln1"], x, cfg.norm_eps),
                        positions=positions, rope_theta=cfg.rope_theta,
                        causal=False)
@@ -92,7 +103,9 @@ def _enc_layer(cfg, x, p, positions):
 
 
 def _dec_layer(cfg, p, x, memory, *, positions, cache=None,
-               cache_index: int = 0, attn_route: str = "auto"):
+               cache_index: int = 0, attn_route: str = "auto", gather=None):
+    if gather is not None:
+        p = gather(p)
     h, _ = L.attention(p["self"], L.rms_norm(p["ln1"], x, cfg.norm_eps),
                        positions=positions, rope_theta=cfg.rope_theta,
                        cache=cache, cache_index=cache_index,
@@ -108,24 +121,36 @@ def _dec_layer(cfg, p, x, memory, *, positions, cache=None,
 def forward_encdec(params: dict, cfg: ModelConfig, frames: torch.Tensor,
                    dec_tokens: torch.Tensor, *,
                    cache: Optional[dict] = None, last_only: bool = False,
-                   attn_route: str = "auto"):
+                   attn_route: str = "auto", mesh=None, weights=None):
     """Teacher-forced training / prefill.  Returns (logits, cache, aux).
+    ``mesh`` is accepted and unused, as the reference's (it reaches the
+    transformer family's MoE layers only).  ``weights(path, tree)`` (the
+    sharded train step's ZeRO-3 gather) makes each layer's parameters whole
+    inside its rematerialised body, and the embedding's, the norms' and the
+    head's just before use.
     With ``cache`` ([L, B, S, K, H] leaves, zero) the decoder's K/V fill
     its first T positions in place; ``attn_route`` picks the route of the
     decoder's prefill self-attention (``layers.attention``)."""
-    memory = encode(params, cfg, frames)
-    x = L.embed(params["embed"], dec_tokens)
+    memory = encode(params, cfg, frames, weights)
+    embed_p = params["embed"] if weights is None else weights(
+        ("embed",), params["embed"])
+    x = L.embed(embed_p, dec_tokens)
+    del embed_p
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    body = L.remat_all(functools.partial(_dec_layer, cfg), cfg.remat_policy)
+    body = L.remat_all(functools.partial(
+        _dec_layer, cfg, gather=None if weights is None
+        else functools.partial(weights, ("dec",))), cfg.remat_policy)
     for i, p in enumerate(L.unstack_tree(params["dec"])):
         c = None if cache is None else {"k": cache["k"][i],
                                         "v": cache["v"][i]}
         x = body(p, x, memory, positions=positions, cache=c,
                  attn_route=attn_route)
-    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    top = params if weights is None else {
+        k: weights((k,), params[k]) for k in ("final_norm", "head")}
+    x = L.rms_norm(top["final_norm"], x, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
-    return (L.dense(params["head"], x), cache,
+    return (L.dense(top["head"], x), cache,
             torch.zeros((), device=x.device))
 
 
@@ -137,7 +162,8 @@ def init_encdec_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def decode_step_encdec(params: dict, cfg: ModelConfig, cache: dict,
-                       memory: torch.Tensor, tokens: torch.Tensor, pos: int):
+                       memory: torch.Tensor, tokens: torch.Tensor, pos: int,
+                       *, mesh=None):
     """One-token decode against the self cache (updated in place) and the
     precomputed encoder memory.  Returns (logits, cache)."""
     pos = int(pos)

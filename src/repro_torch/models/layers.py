@@ -31,6 +31,7 @@ __all__ = [
     "attention", "init_kv_cache_layer", "init_mlp", "swiglu_mlp",
     "truncated_normal", "stack_trees", "index_tree", "unstack_tree",
     "remat", "remat_all", "REMAT_POLICIES", "sigmoid", "silu", "gelu",
+    "keep_tree",
 ]
 
 Compute = torch.bfloat16
@@ -42,6 +43,20 @@ def truncated_normal(gen: torch.Generator, shape, scale: float, *,
     out = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return out.mul_(scale)
+
+
+def keep_tree(keep, path: tuple, tree):
+    """``keep(path, leaf)`` on each leaf of a freshly drawn tree (``None``:
+    the tree as it is).  The initialisers call it on each leaf as soon as
+    it is drawn, so a sharded initialisation (``training.train_loop
+    .init_train_state_sharded``) keeps this rank's part of each leaf and
+    never holds more than one layer's leaves whole; the draws, and so the
+    numbers, are the unsharded initialisation's."""
+    if keep is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: keep_tree(keep, path + (k,), v) for k, v in tree.items()}
+    return keep(path, tree)
 
 
 def stack_trees(trees: list) -> dict:

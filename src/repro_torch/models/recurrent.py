@@ -223,28 +223,35 @@ def init_group(cfg: ModelConfig, gen, pattern, *, device) -> dict:
         for i, kind in enumerate(pattern)}
 
 
-def init_hybrid(cfg: ModelConfig, gen: torch.Generator, *, device) -> dict:
+def init_hybrid(cfg: ModelConfig, gen: torch.Generator, *, device,
+                keep=None) -> dict:
     """Random parameters from ``gen`` on ``device`` (the JAX initialisers'
-    distributions; not their numbers)."""
+    distributions; not their numbers); ``keep`` as ``layers.keep_tree``."""
     n_groups, tail = _pattern_layout(cfg)
-    groups = L.stack_trees([init_group(cfg, gen, _pattern(cfg),
-                                       device=device)
-                            for _ in range(n_groups)])
+    groups = L.stack_trees([
+        L.keep_tree(keep, ("groups",),
+                    init_group(cfg, gen, _pattern(cfg), device=device))
+        for _ in range(n_groups)])
     params = {
-        "embed": L.init_embedding(gen, cfg.padded_vocab, cfg.d_model,
-                                  device=device),
+        "embed": L.keep_tree(keep, ("embed",), L.init_embedding(
+            gen, cfg.padded_vocab, cfg.d_model, device=device)),
         "groups": groups,
-        "final_norm": L.init_rmsnorm(cfg.d_model, device=device),
+        "final_norm": L.keep_tree(keep, ("final_norm",), L.init_rmsnorm(
+            cfg.d_model, device=device)),
     }
     if tail:
-        params["tail"] = init_group(cfg, gen, tail, device=device)
+        params["tail"] = L.keep_tree(keep, ("tail",), init_group(
+            cfg, gen, tail, device=device))
     if not cfg.tie_embeddings:
-        params["head"] = L.init_dense(gen, cfg.d_model, cfg.padded_vocab,
-                                      device=device)
+        params["head"] = L.keep_tree(keep, ("head",), L.init_dense(
+            gen, cfg.d_model, cfg.padded_vocab, device=device))
     return params
 
 
-def _head(params: dict, cfg: ModelConfig, x):
+def _head(params: dict, cfg: ModelConfig, x, weights=None):
+    if weights is not None:
+        params = {k: weights((k,), params[k]) for k in (
+            "final_norm", "embed" if cfg.tie_embeddings else "head")}
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     return (L.unembed(params["embed"], x) if cfg.tie_embeddings
             else L.dense(params["head"], x))
@@ -260,7 +267,10 @@ def _groups(cfg: ModelConfig, tree: dict):
         yield tree["tail"], tail
 
 
-def _run_pattern(cfg: ModelConfig, x, gp: dict, pattern, positions):
+def _run_pattern(cfg: ModelConfig, x, gp: dict, pattern, positions,
+                 gather=None):
+    if gather is not None:
+        gp = gather(gp)
     for i, kind in enumerate(pattern):
         p = gp[f"b{i}_{kind}"]
         if kind == "rglru":
@@ -271,22 +281,33 @@ def _run_pattern(cfg: ModelConfig, x, gp: dict, pattern, positions):
 
 
 def forward_hybrid(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-                   last_only: bool = False):
-    """Training / prefill forward. Returns (logits, None, aux=0).  Each
+                   last_only: bool = False, mesh=None, weights=None):
+    """Training / prefill forward. Returns (logits, None, aux=0); ``mesh``
+    is accepted and unused, as the reference's.  Each
     stacked group's body is rematerialised unless ``cfg.remat_policy`` is
-    ``"none"``, the tail's never (as the reference's scan body)."""
-    x = L.embed(params["embed"], tokens)
+    ``"none"``, the tail's never (as the reference's scan body).
+    ``weights(path, tree)`` (the sharded train step's ZeRO-3 gather) makes
+    each group's parameters whole inside its rematerialised body, and the
+    embedding's, the tail's and the head's just before use."""
+    embed_p = params["embed"] if weights is None else weights(
+        ("embed",), params["embed"])
+    x = L.embed(embed_p, tokens)
+    del embed_p
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    group = L.remat_all(functools.partial(_run_pattern, cfg),
-                        cfg.remat_policy)
+    group = L.remat_all(functools.partial(
+        _run_pattern, cfg, gather=None if weights is None
+        else functools.partial(weights, ("groups",))), cfg.remat_policy)
     for gp in L.unstack_tree(params["groups"]):
         x = group(x, gp, _pattern(cfg), positions)
     _, tail = _pattern_layout(cfg)
     if tail:
-        x = _run_pattern(cfg, x, params["tail"], tail, positions)
+        x = _run_pattern(cfg, x, params["tail"], tail, positions,
+                         gather=None if weights is None
+                         else functools.partial(weights, ("tail",)))
     if last_only:
         x = x[:, -1:]
-    return _head(params, cfg, x), None, torch.zeros((), device=x.device)
+    return (_head(params, cfg, x, weights), None,
+            torch.zeros((), device=x.device))
 
 
 def _group_state(cfg: ModelConfig, batch: int, pattern, *, lead=(),
@@ -317,7 +338,7 @@ def init_hybrid_state(cfg: ModelConfig, batch: int, *, device) -> dict:
 
 
 def decode_step_hybrid(params: dict, cfg: ModelConfig, state: dict,
-                       tokens: torch.Tensor, pos: int):
+                       tokens: torch.Tensor, pos: int, *, mesh=None):
     """One-token decode: O(window + d_rnn) state, O(1) in sequence length.
     Returns (logits, state); the state is updated in place."""
     pos = int(pos)

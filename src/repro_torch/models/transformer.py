@@ -8,7 +8,8 @@ layers takes the place of ``lax.scan``.  The same ``forward`` serves
 training (no cache; each layer's body under ``cfg.remat_policy``,
 ``layers.remat``) and prefill (a zero cache passed in, filled in place and
 returned); ``decode_step`` consumes one token block against the cache, also
-in place.  MoE layers run ``models.moe.moe_mlp`` on its local path.
+in place.  MoE layers run ``models.moe.moe_mlp``: its local path, or
+expert parallelism on an LM mesh.
 """
 
 from __future__ import annotations
@@ -40,25 +41,31 @@ def init_layer(cfg: ModelConfig, gen: torch.Generator, *, device) -> dict:
     return p
 
 
-def init_lm(cfg: ModelConfig, gen: torch.Generator, *, device) -> dict:
+def init_lm(cfg: ModelConfig, gen: torch.Generator, *, device,
+            keep=None) -> dict:
     """Random parameters from ``gen`` on ``device`` (the JAX initialisers'
-    distributions; not their numbers)."""
-    layers = L.stack_trees([init_layer(cfg, gen, device=device)
-                            for _ in range(cfg.n_layers)])
+    distributions; not their numbers); ``keep`` as ``layers.keep_tree``."""
+    layers = L.stack_trees([
+        L.keep_tree(keep, ("layers",), init_layer(cfg, gen, device=device))
+        for _ in range(cfg.n_layers)])
     params = {
-        "embed": L.init_embedding(gen, cfg.padded_vocab, cfg.d_model,
-                                  device=device),
+        "embed": L.keep_tree(keep, ("embed",), L.init_embedding(
+            gen, cfg.padded_vocab, cfg.d_model, device=device)),
         "layers": layers,
-        "final_norm": L.init_rmsnorm(cfg.d_model, device=device),
+        "final_norm": L.keep_tree(keep, ("final_norm",), L.init_rmsnorm(
+            cfg.d_model, device=device)),
     }
     if not cfg.tie_embeddings:
-        params["head"] = L.init_dense(gen, cfg.d_model, cfg.padded_vocab,
-                                      device=device)
+        params["head"] = L.keep_tree(keep, ("head",), L.init_dense(
+            gen, cfg.d_model, cfg.padded_vocab, device=device))
     return params
 
 
 def _layer_body(cfg: ModelConfig, x, p, *, positions, cache=None,
-                cache_index: int = 0, attn_route: str = "auto"):
+                cache_index: int = 0, attn_route: str = "auto", mesh=None,
+                weights=None):
+    if weights is not None:
+        p = weights(("layers",), p)
     h, _ = L.attention(
         p["attn"], L.rms_norm(p["ln1"], x, cfg.norm_eps), positions=positions,
         rope_theta=cfg.rope_theta, window=cfg.attn_window, cache=cache,
@@ -67,13 +74,16 @@ def _layer_body(cfg: ModelConfig, x, p, *, positions, cache=None,
     hn = L.rms_norm(p["ln2"], x, cfg.norm_eps)
     if cfg.n_experts:
         h, aux = moe_mlp(p["moe"], hn, top_k=cfg.top_k,
-                         capacity_factor=cfg.capacity_factor)
+                         capacity_factor=cfg.capacity_factor, mesh=mesh)
     else:
         h, aux = L.swiglu_mlp(p["mlp"], hn), None
     return x + h, aux
 
 
-def _logits(params: dict, cfg: ModelConfig, x):
+def _logits(params: dict, cfg: ModelConfig, x, weights=None):
+    if weights is not None:
+        params = {k: weights((k,), params[k]) for k in (
+            "final_norm", "embed" if cfg.tie_embeddings else "head")}
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
         return L.unembed(params["embed"], x)
@@ -83,7 +93,7 @@ def _logits(params: dict, cfg: ModelConfig, x):
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             prefix_embeds: Optional[torch.Tensor] = None,
             cache: Optional[dict] = None, last_only: bool = False,
-            attn_route: str = "auto"):
+            attn_route: str = "auto", mesh=None, weights=None):
     """tokens [B, T] -> (logits [B, T(+Np) or 1, V_pad], cache, aux_loss).
 
     ``prefix_embeds`` [B, Np, D] (VLM patch embeddings) are prepended.
@@ -93,14 +103,25 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     (``"auto"``, ``"kernel"`` or ``"blockwise"``) picks the prefill's
     attention route (``layers.attention``).  ``aux_loss`` is the MoE
     load-balancing loss summed over layers (0 without experts).
+
+    ``mesh`` (an LM mesh, ``launch.mesh.LMMesh``) reaches the MoE layers
+    only: expert parallelism over its "model" axis (``moe.moe_mlp``).
+    ``weights(path, tree)`` (the sharded train step's ZeRO-3 gather) makes
+    each layer's parameters whole inside its rematerialised body, so the
+    backward pass gathers them again, and the embedding's and head's just
+    before use.
     """
-    x = L.embed(params["embed"], tokens)
+    embed_p = params["embed"] if weights is None else weights(
+        ("embed",), params["embed"])
+    x = L.embed(embed_p, tokens)
+    del embed_p
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     t = x.shape[1]
     positions = torch.arange(t, device=x.device)[None, :]
     aux = torch.zeros((), device=x.device)
-    body = L.remat(functools.partial(_layer_body, cfg), cfg.remat_policy)
+    body = L.remat(functools.partial(_layer_body, cfg, mesh=mesh,
+                                     weights=weights), cfg.remat_policy)
     for i, p in enumerate(L.unstack_tree(params["layers"])):
         c = None if cache is None else {"k": cache["k"][i],
                                         "v": cache["v"][i]}
@@ -110,7 +131,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             aux = aux + a
     if last_only:
         x = x[:, -1:]
-    return _logits(params, cfg, x), cache, aux
+    return _logits(params, cfg, x, weights), cache, aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -121,9 +142,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
-                tokens: torch.Tensor, pos: int):
+                tokens: torch.Tensor, pos: int, *, mesh=None):
     """tokens [B, t] (t small) at position ``pos`` -> (logits, cache); the
-    cache is updated in place."""
+    cache is updated in place.  ``mesh`` as ``forward``'s."""
     pos = int(pos)
     x = L.embed(params["embed"], tokens)
     t = x.shape[1]
@@ -132,7 +153,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
         x, _ = _layer_body(cfg, x, L.index_tree(params["layers"], i),
                            positions=positions,
                            cache={"k": cache["k"][i], "v": cache["v"][i]},
-                           cache_index=pos)
+                           cache_index=pos, mesh=mesh)
     return _logits(params, cfg, x), cache
 
 

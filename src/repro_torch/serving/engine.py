@@ -41,11 +41,15 @@ class ServingEngine:
 
     ``params`` live on the device the engine serves from; prompts are moved
     there.  ``constraint`` (if any) must hold its tables on the same device.
+    ``mesh`` (an LM mesh) is passed to the prefill and every decode step:
+    SPMD, every rank serves the same prompts, its MoE layers run expert
+    parallelism, and each rank returns the whole result (``params``' expert
+    leaves are this rank's shard, see ``models.moe.moe_mlp``).
     """
 
     def __init__(self, cfg: ModelConfig, params,
                  serve: ServeConfig = ServeConfig(),
-                 constraint: Optional[GrammarConstraint] = None):
+                 constraint: Optional[GrammarConstraint] = None, mesh=None):
         if cfg.family not in SERVED_FAMILIES:
             raise ValueError(f"ServingEngine serves the {SERVED_FAMILIES} "
                              f"families, not {cfg.family!r} (as the JAX "
@@ -54,6 +58,7 @@ class ServingEngine:
         self.params = params
         self.serve = serve
         self.constraint = constraint
+        self.mesh = mesh
         self.device = params["embed"]["table"].device
         if constraint is not None and constraint.allowed.device != self.device:
             raise ValueError(f"constraint tables on "
@@ -93,7 +98,8 @@ class ServingEngine:
         # the cache is longer than the prompt, so this prefill takes the
         # blockwise attention path, as the JAX engine's does
         logits, cache, _ = TF.forward(self.params, self.cfg, toks,
-                                      cache=cache, last_only=True)
+                                      cache=cache, last_only=True,
+                                      mesh=self.mesh)
         gen = None
         if self.serve.temperature > 0:
             gen = torch.Generator(device=self.device)
@@ -130,5 +136,6 @@ class ServingEngine:
             if states is not None:
                 states = self.constraint.advance(states, tok)
             last, cache = TF.decode_step(self.params, self.cfg, cache,
-                                         tok[:, None], t_prompt + i)
+                                         tok[:, None], t_prompt + i,
+                                         mesh=self.mesh)
         return out

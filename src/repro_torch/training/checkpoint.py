@@ -24,6 +24,13 @@ no tensor.  Saving asynchronously copies every leaf to the host before
 ``submit`` returns (torch updates tensors in place, so a later ``add_`` must
 not reach the file); the writer thread sees numpy only.
 
+A state sharded on an LM mesh (``DTensor`` leaves, ``training.train_loop
+.init_train_state_sharded``) saves collectively: every rank of the mesh
+calls ``save``, each leaf is gathered whole to the host, and one writer,
+the mesh's first rank, publishes the same ``arrays.npz``.  ``restore(like,
+shardings=state_shardings(like, mesh))`` places a checkpoint saved on any
+mesh onto this one: every rank reads the file and keeps its shards.
+
 The manifest is msgpack without the ``msgpack`` package: ``_packb`` /
 ``_unpackb`` encode exactly the subset the manifest uses, in msgpack's
 smallest encodings, so the bytes equal ``msgpack.packb``'s.
@@ -99,9 +106,23 @@ def _rebuild(like: Any, leaf_of, prefix: tuple = ()) -> Any:
 
 # -- leaves to host numpy and back -------------------------------------------
 
+def _dtensor_mesh(leaf: Any):
+    """The LM mesh of a ``DTensor`` leaf (None for any other leaf)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(leaf, DTensor):
+        from ..launch.mesh import lm_mesh_of
+        return lm_mesh_of(leaf)
+    return None
+
+
 def _to_numpy(leaf: Any) -> np.ndarray:
     """A host copy of one leaf (never a view of memory the caller may
-    mutate afterwards)."""
+    mutate afterwards); a ``DTensor`` leaf is gathered whole (collective)."""
+    if _dtensor_mesh(leaf) is not None:
+        from ..launch.mesh import whole_on_host
+        leaf = whole_on_host(leaf, writer_only=True)
+        if leaf is None:                 # not the writer: nothing to keep
+            return None
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if t.device.type != "cpu":
@@ -118,12 +139,15 @@ def _to_numpy(leaf: Any) -> np.ndarray:
 
 
 def _flatten(tree: Any) -> dict[str, np.ndarray]:
-    return {key: _to_numpy(leaf) for key, leaf in _leaves(tree)}
+    """Every leaf on the host; a sharded leaf is gathered to the writer
+    (other ranks keep nothing of it)."""
+    flat = {key: _to_numpy(leaf) for key, leaf in _leaves(tree)}
+    return {k: v for k, v in flat.items() if v is not None}
 
 
-def _from_numpy(arr: np.ndarray, like: Any) -> Any:
+def _from_numpy(arr: np.ndarray, like: Any, host: bool = False) -> Any:
     """A loaded entry as the ``like`` leaf's type: a tensor of its dtype on
-    its device, else numpy."""
+    its device (``host``: on the host), else numpy."""
     if not isinstance(like, torch.Tensor):
         return arr
     if arr.dtype.kind == "V":          # raw bit pattern of a non-numpy dtype
@@ -132,13 +156,31 @@ def _from_numpy(arr: np.ndarray, like: Any) -> Any:
             raise ValueError(f"stored {arr.dtype} cannot restore into "
                              f"{like.dtype} ({nbytes} bytes an element)")
         raw = torch.from_numpy(arr.reshape(-1).view(np.uint8).copy())
-        return raw.view(like.dtype).reshape(arr.shape).to(like.device)
+        out = raw.view(like.dtype).reshape(arr.shape)
+        return out if host else out.to(like.device)
     return torch.from_numpy(np.array(arr)).to(
-        device=like.device, dtype=like.dtype)
+        device="cpu" if host else like.device, dtype=like.dtype)
 
 
-def _unflatten(tree_like: Any, flat: dict[str, np.ndarray]) -> Any:
-    return _rebuild(tree_like, lambda key, like: _from_numpy(flat[key], like))
+def _unflatten(tree_like: Any, flat: dict[str, np.ndarray],
+               host: bool = False) -> Any:
+    return _rebuild(tree_like,
+                    lambda key, like: _from_numpy(flat[key], like, host))
+
+
+def _state_mesh(tree: Any):
+    """The LM mesh of a sharded state (its first ``DTensor`` leaf's), or
+    None."""
+    for _, leaf in _leaves(tree):
+        mesh = _dtensor_mesh(leaf)
+        if mesh is not None:
+            return mesh
+    return None
+
+
+def _is_writer(mesh) -> bool:
+    import torch.distributed as dist
+    return mesh is None or dist.get_rank() == int(mesh.ranks.flat[0])
 
 
 # -- the manifest: msgpack's encoding of a small subset ----------------------
@@ -271,7 +313,14 @@ def _publish(directory: str, flat: dict[str, np.ndarray], step: int) -> str:
 
 
 def save_checkpoint(directory: str, state: Any, step: int) -> str:
-    return _publish(directory, _flatten(state), step)
+    """Publish ``state`` as step ``step``; a sharded state's leaves are
+    gathered (every rank of its mesh calls this) and its mesh's first rank
+    writes.  Returns the step's directory."""
+    mesh = _state_mesh(state)
+    flat = _flatten(state)
+    if not _is_writer(mesh):
+        return os.path.join(directory, f"step_{step:08d}")
+    return _publish(directory, flat, step)
 
 
 class _AsyncSaver:
@@ -284,7 +333,10 @@ class _AsyncSaver:
         self.wait()
         # every leaf is on the host, in memory of its own, before this
         # returns: the caller may update its tensors in place right away
+        mesh = _state_mesh(state)
         flat = _flatten(state)
+        if not _is_writer(mesh):
+            return
 
         def work():
             try:
@@ -338,19 +390,35 @@ def restore_checkpoint(directory: str, like: Any,
                        shardings: Any = None) -> tuple[Any, int]:
     """Restore the latest (or given) step in ``like``'s structure, each leaf
     on the ``like`` leaf's device and dtype; with ``shardings`` (a tree of
-    ``(DeviceMesh, placements)``) each leaf is then placed on its mesh by
-    ``distributed.fault_tolerance.reshard_tree`` (call it on every rank)."""
+    ``(mesh, placements)``) each leaf, read on the host, is then placed on
+    its mesh by ``distributed.fault_tolerance.reshard_tree`` (call it on
+    every rank)."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {directory}")
     path = os.path.join(directory, f"step_{step:08d}")
     with np.load(os.path.join(path, "arrays.npz")) as z:
+        if shardings is not None and isinstance(like, dict):
+            # leaf by leaf: a rank holds one whole leaf at a time
+            from ..distributed.fault_tolerance import reshard_tree
+            return _rebuild(like, lambda key, leaf: reshard_tree(
+                _from_numpy(z[key], leaf, host=True),
+                _sharding_at(shardings, key))), step
         flat = {k: z[k] for k in z.files}
-    tree = _unflatten(like, flat)
+    tree = _unflatten(like, flat, host=shardings is not None)
     if shardings is not None:
         from ..distributed.fault_tolerance import reshard_tree
         tree = reshard_tree(tree, shardings)
     return tree, step
+
+
+def _sharding_at(shardings: Any, key: str) -> Any:
+    """The sharding of the leaf at checkpoint key ``key`` in a tree of
+    nested dicts."""
+    node = shardings
+    for part in key.split("/"):
+        node = node[part]
+    return node
 
 
 class CheckpointManager:
@@ -360,17 +428,28 @@ class CheckpointManager:
         self.directory = directory
         self.keep = keep
         self.use_async = use_async
+        self._mesh = None        # the LM mesh of the last sharded save
         os.makedirs(directory, exist_ok=True)
 
     def save(self, state: Any, step: int) -> None:
+        """Save (asynchronously by default); a sharded state's save is
+        collective over its mesh."""
+        self._mesh = _state_mesh(state)
         if self.use_async:
             save_checkpoint_async(self.directory, state, step)
         else:
             save_checkpoint(self.directory, state, step)
-        self._gc()
+        if _is_writer(self._mesh):
+            self._gc()
 
     def wait(self):
+        """Wait for the last save to be published (after a sharded save,
+        on every rank of its mesh: one barrier after the writer's wait)."""
         _SAVER.wait()
+        if self._mesh is not None:
+            from ..launch.mesh import barrier
+            mesh, self._mesh = self._mesh, None
+            barrier(mesh)
 
     def restore(self, like: Any, shardings: Any = None) -> tuple[Any, int]:
         self.wait()

@@ -82,7 +82,8 @@ def clip_by_global_norm(grads: Any, max_norm: float):
     return _tree_map(lambda g: g * scale, grads), norm
 
 
-def adamw_update(cfg: AdamWConfig, params: Any, grads: Any, opt: dict):
+def adamw_update(cfg: AdamWConfig, params: Any, grads: Any, opt: dict, *,
+                 norm: torch.Tensor | None = None):
     """One AdamW step, in place; returns (params, opt, metrics).
 
     Consumes its arguments: the float32 gradients are clipped in place
@@ -91,10 +92,12 @@ def adamw_update(cfg: AdamWConfig, params: Any, grads: Any, opt: dict):
     they are computed, so peak memory grows by one leaf's temporaries, not
     by second copies of the gradients, parameters and moments.  The
     returned trees hold the given tensors; ``opt["step"]`` is advanced in
-    place too.
+    place too.  ``norm`` is the gradients' global norm where they are a
+    rank's shards of a mesh (``train_loop``'s sharded step counts it);
+    by default it is computed from ``grads``.
     """
     grads = _tree_map(lambda g: g.to(torch.float32), grads)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if norm is None else norm
     scale = _clip_scale(gnorm, cfg.clip_norm)
     for g in _leaves(grads):
         g.mul_(scale)

@@ -1,7 +1,8 @@
-"""Training step factory: microbatched gradient accumulation on one device.
+"""Training step factory: microbatched gradient accumulation, on one device
+or on an LM mesh.
 
 The port of the JAX package's ``training/train_loop.py``.
-``make_train_step(cfg, ...)`` returns ``train_step(state, batch) ->
+``make_train_step(cfg, mesh, ...)`` returns ``train_step(state, batch) ->
 (state, metrics)`` with
 
   * gradient accumulation over ``num_microbatches``: the batch splits on
@@ -10,7 +11,7 @@ The port of the JAX package's ``training/train_loop.py``.
     ``lax.scan``), float32 gradients and losses summed and divided by the
     count;
   * loss = token cross entropy + ``aux_loss_weight`` x the MoE aux loss,
-    float32 (``loss_fn``);
+    float32;
   * AdamW (``training.optimizer``) on the float32 parameters.
 
 Each layer's body is rematerialised by ``cfg.remat_policy``
@@ -22,23 +23,48 @@ reference's pure function, the step updates the state's tensors in place
 width a second copy of the parameters and moments would not fit beside the
 first.
 
-The mesh-sharded step (the reference's ``state_shardings``,
-``init_train_state_sharded``, ``jit_train_step`` and the int8 cross-pod
-gradient compression) waits for the LM mesh (ROADMAP A15): a mesh raises.
+On an LM mesh (``launch.mesh.LMMesh``) the state is sharded by
+``state_shardings`` (``DTensor`` leaves whose local shards sit on the
+rank's card; ``init_train_state_sharded`` builds it leaf by leaf) and the
+step is one SPMD program a rank; every rank passes the same global batch:
+
+  * each rank takes its rows of each microbatch over the dp axes
+    ("pod", "data"), as ``batch_specs`` places them;
+  * each layer gathers its non-expert weights whole just before use,
+    inside its rematerialised body, so the backward pass gathers them
+    again (ZeRO-3), and frees them after use; the MoE layers' experts stay
+    this rank's shard, under expert parallelism over "model";
+  * gradients are averaged over the dp axes: over "data" each leaf's
+    gradient is reduce-scattered to its shard (or averaged, where the
+    leaf is whole over "data"), over "pod" averaged, or exchanged in int8
+    (``distributed.compression``) with ``grad_compression="int8"``; along
+    "model" the ranks repeat the dense work, so their gradients are equal
+    and are not summed;
+  * AdamW updates each shard in place; the global gradient norm counts
+    each element once.
+The dense compute along "model" is repeated on each model rank (only the
+MoE layers split their tokens over it); the results are the reference's,
+and the state's memory is sharded as the reference's is.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed import compression as comp
+from ..distributed import sharding as shr
+from ..launch import mesh as lmesh
 from ..models import api
 from ..models.transformer import lm_loss
 from .optimizer import AdamWConfig, _tree_map, adamw_init, adamw_update
 
-__all__ = ["TrainOptions", "make_train_step", "init_train_state"]
+__all__ = ["TrainOptions", "make_train_step", "init_train_state",
+           "init_train_state_sharded", "state_shardings", "jit_train_step",
+           "local_state"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,22 +75,87 @@ class TrainOptions:
     optimizer: AdamWConfig = AdamWConfig()
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "training on a mesh is not ported yet (ROADMAP A15, the LM "
-            "mesh: sharded parameters and optimizer state, the cross-pod "
-            "gradient compression); pass mesh=None to train on one device")
+def _wants_err(mesh, opts: TrainOptions) -> bool:
+    return (opts.grad_compression == "int8" and mesh is not None
+            and "pod" in tuple(mesh.mesh_dim_names))
 
 
 def init_train_state(cfg: ModelConfig, seed: int = 0, *, device=None,
-                     opts: TrainOptions = TrainOptions()) -> dict:
+                     mesh=None, opts: TrainOptions = TrainOptions()) -> dict:
     """``{"params", "opt"}``: ``api.init``'s random parameters from ``seed``
-    on ``device`` (default: the card) and zero AdamW moments.  ``opts``
-    adds no state on one device (the int8 compression's error state
-    belongs to a mesh's "pod" axis)."""
+    on ``device`` (default: the card) and zero AdamW moments, whole; with
+    ``grad_compression="int8"`` and a mesh with "pod", the error-feedback
+    state ``"err"`` too."""
     params = api.init(cfg, seed, device=device)
-    return {"params": params, "opt": adamw_init(params)}
+    state = {"params": params, "opt": adamw_init(params)}
+    if _wants_err(mesh, opts):
+        state["err"] = comp.init_error_state(params)
+    return state
+
+
+def state_shardings(state: dict, mesh):
+    """The ``(mesh, placements)`` tree of a train state (whole, or sharded:
+    the rules read each leaf's global shape)."""
+    Replicate = _replicate()
+    specs = {
+        "params": shr.param_specs(state["params"], mesh),
+        "opt": {"m": shr.param_specs(state["opt"]["m"], mesh),
+                "v": shr.param_specs(state["opt"]["v"], mesh),
+                "step": tuple(Replicate for _ in mesh.mesh_dim_names)},
+    }
+    if "err" in state:
+        specs["err"] = shr.param_specs(state["err"], mesh)
+    return shr.named(specs, mesh)
+
+
+def _replicate():
+    from torch.distributed.tensor import Replicate
+    return Replicate()
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def local_state(tree):
+    """The tree of each ``DTensor`` leaf's local shard (the tensor itself,
+    not a copy: writing to it writes the state); other leaves as they
+    are."""
+    def local(x):
+        if _is_dtensor(x):
+            with torch.no_grad():
+                return x.to_local()
+        return x
+    return _tree_map(local, tree)
+
+
+def init_train_state_sharded(cfg: ModelConfig, seed: int, mesh,
+                             opts: TrainOptions = TrainOptions()) -> dict:
+    """The state of ``init_train_state(cfg, seed, mesh=mesh, opts=opts)``,
+    placed by ``state_shardings`` on ``mesh``: each leaf is drawn whole
+    from the seed in the unsharded order (one layer's leaves at a time),
+    this rank keeps its shard on its device and frees the rest, so no rank
+    ever holds the whole state.  Call it on every rank of the mesh."""
+    shapes = api.param_shapes(cfg)
+    specs = shr.param_specs(shapes, mesh)
+    local = api.init(cfg, seed, device=mesh.device,
+                     keep=shr.param_keep(mesh))
+
+    def wrap(tree):
+        return _tree_map(mesh.dtensor, tree, specs, shapes)
+
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
+    rep = tuple(_replicate() for _ in mesh.mesh_dim_names)
+    state = {"params": wrap(local),
+             "opt": {"m": wrap(_tree_map(zeros, local)),
+                     "v": wrap(_tree_map(zeros, local)),
+                     "step": mesh.dtensor(torch.zeros(
+                         (), dtype=torch.int32, device=mesh.device), rep,
+                         ())}}
+    if _wants_err(mesh, opts):
+        state["err"] = wrap(_tree_map(zeros, local))
+    return state
 
 
 def _microbatches(batch: dict, nm: int) -> list[dict]:
@@ -83,8 +174,11 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     """Returns ``train_step(state, batch) -> (state, metrics)``.  The
     batch's tensors (``tokens``, ``labels``, and ``patches`` or ``frames``
     where the family takes them) lie on the parameters' device; the state
-    is updated in place and returned."""
-    _refuse_mesh(mesh)
+    is updated in place and returned.  With ``mesh`` the state is
+    ``init_train_state_sharded``'s and every rank passes the same global
+    batch (see the module's docstring)."""
+    if mesh is not None:
+        return _make_sharded_step(cfg, mesh, opts)
 
     def loss_fn(params, mb):
         logits, aux = api.train_logits(params, cfg, mb)
@@ -123,3 +217,151 @@ def make_train_step(cfg: ModelConfig, mesh=None,
         return new_state, dict(metrics, loss=loss)
 
     return train_step
+
+
+def _paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_paths(v, prefix + (k,)))
+        return out
+    return {prefix: tree}
+
+
+def _make_sharded_step(cfg: ModelConfig, mesh, opts: TrainOptions):
+    names = tuple(mesh.mesh_dim_names)
+    dp = lmesh.dp_axes(mesh)
+    dp_size = mesh.axis_size(dp)
+    n_data = mesh.axis_size("data")
+    ep = "model" in names
+    # the MoE layers see the "model" axis alone: the rows are this rank's
+    layer_mesh = mesh.submesh(("model",)) if ep else None
+    nm = opts.num_microbatches
+    err_on = _wants_err(mesh, opts)
+
+    def expert(path) -> bool:
+        return ep and "moe" in path and path[-1] in shr.MOE_EXPERT_KEYS
+
+    def rows(batch: dict, i: int) -> dict:
+        """This rank's rows of microbatch ``i``."""
+        out = {}
+        for k, x in batch.items():
+            b = x.shape[0]
+            if b % nm or (b // nm) % dp_size:
+                raise ValueError(f"batch[{k!r}] has {b} rows: not "
+                                 f"num_microbatches={nm} x a multiple of "
+                                 f"the {dp_size} data-parallel ranks")
+            mb, part = b // nm, b // nm // dp_size
+            start = i * mb + mesh.group_index(dp) * part
+            out[k] = x[start:start + part]
+        return out
+
+    def train_step(state, batch):
+        params = state["params"]
+        shards = {p: shr.shards_of(x.placements, mesh)
+                  for p, x in _paths(params).items()}
+        local = local_state(params)
+        live = _tree_map(lambda p: p.detach().requires_grad_(), local)
+
+        def gathered(path, tree):
+            """``tree`` (at ``path``; under a stack key one layer's
+            entries) with every non-expert leaf made whole."""
+            stacked = bool(path) and path[0] in shr.STACK_KEYS
+
+            def leaf(sub, x):
+                full = path + sub
+                if expert(full):
+                    return x
+                sh = shards[full]
+                if stacked:
+                    sh = tuple((a, d - 1) for a, d in sh)
+                return lmesh.gather_shards(x, mesh, sh, summed=dp)
+            return _map_sub(leaf, tree)
+
+        loss_sum = torch.zeros((), dtype=torch.float32, device=mesh.device)
+        with torch.enable_grad():
+            for i in range(nm):
+                mb = rows(batch, i)
+                labels_all = batch["labels"].reshape(
+                    (nm, -1) + tuple(batch["labels"].shape[1:]))[i]
+                count = torch.clamp((labels_all >= 0).sum(), min=1)
+                logits, aux = api.train_logits(
+                    live, cfg, mb, mesh=layer_mesh, weights=gathered)
+                local_count = (mb["labels"] >= 0).sum()
+                nll_sum = lm_loss(logits, mb["labels"]) * torch.clamp(
+                    local_count, min=1)
+                obj = nll_sum * (dp_size / count) \
+                    + opts.aux_loss_weight * aux
+                obj.backward()
+                loss_sum = loss_sum + obj.detach()
+        loss = lmesh.all_reduce(loss_sum / nm, mesh, names, "mean")
+
+        grads = {}
+        for path, p in _paths(live).items():
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            if nm > 1:
+                g.div_(nm)
+            # the data tier: the backward's reduce-scatter summed a data-
+            # sharded leaf's gradient; a leaf whole over "data" averages
+            if any(a == "data" for a, _ in shards[path]):
+                g.div_(n_data)
+            else:
+                g = lmesh.all_reduce(g, mesh, "data", "mean")
+            grads[path] = g
+        del live
+        # the pod tier: a mean, or the int8 exchange with error feedback
+        if err_on:
+            errs = _paths(local_state(state["err"]))
+            mean, new_err = comp.compressed_pod_mean(grads, errs, mesh)
+            for path, e in new_err.items():
+                errs[path].copy_(e)
+            grads = mean
+        else:
+            grads = {p: lmesh.all_reduce(g, mesh, "pod", "mean")
+                     for p, g in grads.items()}
+        # the global norm: each element once (a leaf is whole on the ranks
+        # of the axes that do not shard it)
+        n = mesh.size()
+        sq = sum(torch.sum(torch.square(g)) * (
+            math.prod(mesh.axis_size(a) for a, _ in shards[p]) / n)
+            for p, g in grads.items())
+        norm = torch.sqrt(lmesh.all_reduce(sq, mesh, names))
+        _, _, metrics = adamw_update(opts.optimizer, local, _unpaths(grads),
+                                     local_state(state["opt"]), norm=norm)
+        return state, dict(metrics, loss=loss)
+
+    return train_step
+
+
+def _map_sub(fn, tree, prefix=()):
+    if isinstance(tree, dict):
+        return {k: _map_sub(fn, v, prefix + (k,)) for k, v in tree.items()}
+    return fn(prefix, tree)
+
+
+def _unpaths(flat: dict) -> dict:
+    out: dict = {}
+    for path, x in flat.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = x
+    return out
+
+
+def jit_train_step(cfg: ModelConfig, mesh, state, batch_specs_tree,
+                   opts: TrainOptions = TrainOptions()):
+    """The sharded step (the reference's ``jit``-wrapped entry with
+    explicit shardings): the state is ``state_shardings``' and is updated
+    in place (the reference donates it); the batch is the global one on
+    every rank, split as ``batch_specs_tree`` places it (its leading dim
+    over the dp axes)."""
+    dp = lmesh.dp_axes(mesh)
+    names = tuple(mesh.mesh_dim_names)
+    for spec in _paths(batch_specs_tree).values():
+        split = {names[i] for i, p in enumerate(spec)
+                 if getattr(p, "dim", None) == 0}
+        if split and split != set(dp):
+            raise ValueError(f"batch placements {spec} split the rows over "
+                             f"{sorted(split)}, not the dp axes {dp}")
+    return make_train_step(cfg, mesh, opts)

@@ -301,15 +301,36 @@ def test_moe_layer_with_every_expert_chosen():
 
 
 def test_moe_mlp_refuses_an_expert_axis():
-    class Mesh:
-        mesh_dim_names = ("data", "model")
+    """An LM mesh with the expert axis takes the expert-parallel path (on a
+    world of one: a 1-way "model" axis, the local path's numbers), which
+    refuses expert leaves that are not this rank's shard; a mesh without
+    the axis takes the local path.  (``tests/test_torch_mesh.py`` holds the
+    8-rank path to the JAX package.)"""
+    import torch.distributed as dist
 
-    p = TMOE.init_moe(torch.Generator(), 8, 8, 2, device="cpu")
-    x = torch.zeros((1, 4, 8), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="A15"):
-        TMOE.moe_mlp(p, x, top_k=1, mesh=Mesh())
-    Mesh.mesh_dim_names = ("doc", "chunk")
-    assert TMOE.moe_mlp(p, x, top_k=1, mesh=Mesh())[0].shape == (1, 4, 8)
+    from repro_torch.launch import mesh as lmesh
+
+    class Mesh:
+        mesh_dim_names = ("doc", "chunk")
+
+    p = TMOE.init_moe(torch.Generator().manual_seed(0), 8, 8, 2,
+                      device="cpu")
+    x = torch.randn((1, 4, 8), generator=torch.Generator().manual_seed(1)
+                    ).bfloat16()
+    want, want_aux = TMOE.moe_mlp(p, x, top_k=1)
+    got = TMOE.moe_mlp(p, x, top_k=1, mesh=Mesh())
+    assert torch.equal(got[0], want) and torch.equal(got[1], want_aux)
+    ours = not dist.is_initialized()
+    try:
+        mesh = lmesh.make_local_mesh(device="cpu")
+        got, aux = TMOE.moe_mlp(p, x, top_k=1, mesh=mesh)
+        assert torch.equal(got, want) and torch.equal(aux, want_aux)
+        with pytest.raises(ValueError, match="takes its 2"):
+            TMOE.moe_mlp({**p, "wi_gate": p["wi_gate"][:1]}, x, top_k=1,
+                         mesh=mesh)
+    finally:
+        if ours and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("family", FAMILIES)

@@ -524,12 +524,41 @@ def test_restart_manager_recovers_from_an_injected_fault(tmp_path):
 @pytest.mark.parametrize("how", ["make_train_step", "--mesh-data",
                                  "--mesh-model"])
 def test_mesh_refusals_name_a15(how):
+    """The LM mesh (ROADMAP A15) is ported: the sharded step on a world of
+    one's (1, 1) mesh takes the one-device step's values, and the launcher
+    refuses a mesh its world cannot hold (``tests/test_torch_mesh.py``
+    runs it on 4 processes)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.training import train_loop as TLOOP
+
     _, tcfg = _configs("dense")
-    with pytest.raises(NotImplementedError, match="A15"):
-        if how == "make_train_step":
-            make_train_step(tcfg, mesh=object())
-        else:
+    if how != "make_train_step":
+        with pytest.raises(ValueError, match="takes 2 processes, the world "
+                                             "has 1"):
             tlaunch.main(["--device", "cpu", "--smoke", how, "2"])
+        return
+    batch = tapi.make_inputs(tcfg, ShapeSpec("t", "train", 32, 4), seed=0,
+                             device="cpu")
+    opts = TrainOptions(num_microbatches=2, optimizer=OPT)
+    ours = not dist.is_initialized()
+    try:
+        mesh = lmesh.make_local_mesh(device="cpu")
+        sharded = TLOOP.init_train_state_sharded(tcfg, 0, mesh, opts)
+        sharded, got = make_train_step(tcfg, mesh, opts)(sharded, batch)
+        state, want = make_train_step(tcfg, None, opts)(
+            init_train_state(tcfg, 0, device="cpu"), batch)
+        for k in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(got[k]), float(want[k]),
+                                       rtol=1e-6)
+        for (path, a), (_, b) in zip(_leaves(TLOOP.local_state(sharded)),
+                                     _leaves(state)):
+            np.testing.assert_allclose(_np(a), _np(b), rtol=0, atol=1e-7,
+                                       err_msg=path)
+    finally:
+        if ours and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def _launch(*argv):
