@@ -40,7 +40,9 @@ Phases (any mismatch raises, so the exit code is non-zero):
  10. hold kernel B5 (``token_mask``) against its plain version bit for bit:
      B=8, V=32,000 bf16 with the phase-12 grammar's mask table, and B=128,
      V=128,256 (the llama3 vocabulary) in bf16 and f32; time it beside the
-     plain version and the two-call ``torch.where`` gather-and-select;
+     plain version and the two-call ``torch.where`` gather-and-select, and
+     an empty kernel's device time beside its own; time ``ops.token_mask``
+     per call outside a census and with one recording, interleaved;
  11. hold kernel B9 (``flash_attn``) against its plain version within
      atol = rtol = 3e-2, max |err| <= 1e-2 and RMS error <= 1e-3 of the
      plain output's RMS, at the tinyllama prefill shape (128 query heads over
@@ -201,11 +203,12 @@ Phases (any mismatch raises, so the exit code is non-zero):
      share of a profiled one-microbatch step, B1's launches (added to the
      kernels line's count) and the filter's decisions against
      ``backend="local"`` on the same documents; (b) ``python -m
-     repro_torch.launch.train`` at (a)'s width for 6 steps, checkpoints
-     every 3 (its losses at steps 0-3 equal to (a)'s within 1e-4), then
-     the step-6 checkpoint removed and ``--resume``: steps 3-5 again, each
-     line equal to the uninterrupted run's; the saves' blocking and the
-     restore times; a ``RestartManager`` run of the reduced model with a
+     repro_torch.launch.train`` at (a)'s width cut to ``LAYERS_CLI``
+     layers (``--layers``) for 1 step, checkpointed, then ``--resume``
+     for 1 more, each line equal within ``LINE20_TOL`` to the same step
+     of the launcher's stream, state and options run in this process;
+     the saves' blocking and the restore times; a ``RestartManager`` run
+     of the reduced model with a
      fault injected at step 3, recovered to the final step; (c) one AdamW
      step of granite-moe-1b-a400m, internvl2-2b, recurrentgemma-2b,
      xlstm-1.3b and seamless-m4t-medium at full width on ~4,096 tokens,
@@ -213,6 +216,27 @@ Phases (any mismatch raises, so the exit code is non-zero):
      and gradients; (d) one step of the reduced tinyllama from one
      converted state on the card and on the CPU: loss within 1e-3 and
      grad_norm within 2e-2 relative, parameters within 2 lr;
+ 21. the LM mesh: eight ``--phase21-child`` ranks sharing the card over
+     gloo on ("pod", "data", "model") = (2, 2, 2) (see ``phase21_mesh``);
+ 22. the analysis tools (``repro_torch.launch.{census,dryrun,roofline}``),
+     run where phases 12 and 20(a) hold their models, so none is
+     initialised again: (a) after 20(a)'s steps, one more train step of
+     its shape (8 x 4,096 tokens, 2 microbatches) under
+     ``census.trace_census`` on the real state, its dot flops, op counts,
+     collectives and kernels equal to the dry run's trace of the same
+     one-card step (``dryrun.trace_one_card``: the card's program on fake
+     CPU tensors, the dry run's one route; in a ``--phase22-traces``
+     subprocess at the lowest priority with no card visible, started
+     before phase 19, so its host work overlaps phases 19 and 20(a) and
+     none of the kernel phases), the trace's predicted peak memory against
+     ``max_memory_allocated`` within ``MEM22``, 20(a)'s measured step's
+     share of the step's bound (its flops at the bf16 rate against its
+     state and batch moved once) and the census's roofline row on H100
+     constants (``roofline.analyze_record``); (b) after phase 12's prefill
+     comparison, one of its ``api.prefill`` calls (B = 4, T = 2,048) under
+     the census: 22 B9 launches, the counter moved by 22, flops and dot
+     flops equal to the dry run's trace of the same call (in this process,
+     launching nothing);
   then print the kernels line and the result line.
 
 Only ``repro_torch``, torch and numpy are imported.  Without a CUDA device,
@@ -326,8 +350,14 @@ RULES20 = [r"SECRET-[0-9]+"]          # the launcher's default block list
 # embedding's backward (an atomic index_put accumulate; measured 2.8e-5 on
 # the loss over four steps); lr is relative
 LINE20_TOL = {"loss": 1e-4, "gnorm": 1e-3, "lr": 5e-3}
+DISPATCH10 = (5, 200)                 # 10: rounds x calls of ops.token_mask
+# 22(a): the dry run's predicted peak over the measured max_memory_allocated
+MEM22 = (0.85, 1.10)
+CHILD22_S = 900                       # 22: the fake traces' time limit, s
 LEAF20_TOL = 0.1                      # 20(d): a moment leaf's relative L2
 CLI20_S = 600                         # 20(b): each launcher run's time limit, s
+LAYERS_CLI = 4                        # 20(b), 21(d): the launcher's depth
+                                      # (published widths; --layers)
 FAULT20 = (6, 3, 2)                   # 20(b): steps, the failing step, ckpt every
 SMALL20 = (4, 256)                    # 20(b) fault run and (d): batch, seq_len
 FAMILIES20 = (("moe", "granite-moe-1b-a400m"), ("vlm", "internvl2-2b"),
@@ -344,6 +374,7 @@ RANDOM21 = (512, 16)                  # 21(a): Q, classes (B6)
 PIPE21 = (4, 8, 1024)                 # 21(a): stages, microbatches, width
 ARCH21 = "granite-moe-1b-a400m"       # 21(b), (c)
 PREFILL21 = (8, 2048)                 # 21(b): prompts, tokens (B9)
+LAYERS21 = 8                          # 21(b): granite-moe's depth (of 24)
 PROMPT21 = 64                         # 21(b): generate's prompt bytes
 DECODE21 = 16                         # 21(b): constrained decode steps (B5)
 MISMATCH21 = (0.05, 3e-2)             # 21(b): the reference test's rule
@@ -721,12 +752,59 @@ def phase10_token_mask(gc, rng, kernels):
               f"{lib_ms:.5f} ms  bound {bound:.5f} ms (bytes, "
               f"{n_bytes} B)  equal bit for bit")
         if (b, v, dtype) == MASK10[0]:
+            first = (dev_ms, bound)
             kernels["token_mask"] = dict(
                 name="token_mask", route="cuda",
                 source="src/repro_torch/kernels/csrc/token_mask.cu",
                 replaces="src/repro/kernels/token_mask.py:28",
                 launches=None, max_abs_err=0, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by="bytes", library_ms=lib_ms)
+    # an empty kernel (torch's spin kernel for 0 cycles): the least device
+    # time a launch takes, beside B5's at the main path's shape
+    empty_ms = kernel_device_ms(lambda: torch.cuda._sleep(0), "spin_kernel",
+                                20)
+    dev_ms, bound = first
+    print(f"[10] an empty kernel (torch.cuda._sleep(0)): device time "
+          f"{'n/a' if empty_ms is None else f'{empty_ms:.5f} ms'} a launch; "
+          f"B5 at B={MASK10[0][0]} V={MASK10[0][1]}: "
+          f"{device_share(dev_ms, bound)} (bytes only)")
+    phase10_dispatch_cost(gc, rng)
+
+
+def phase10_dispatch_cost(gc, rng):
+    """B5 through ``kernels.ops`` at the main path's shape, per call,
+    outside a census and with one recording (what ``ops._dispatch`` then
+    adds: the launch counted with its operands' bytes), interleaved."""
+    import torch
+    from repro_torch.kernels import census_hooks, ops
+    from repro_torch.launch.census import Census
+
+    b, v, dtype = MASK10[0]
+    states = torch.from_numpy(rng.integers(
+        0, gc.allowed.shape[0], size=b).astype(np.int32)).to(DEVICE)
+    allowed = torch.nn.functional.pad(gc.allowed,
+                                      (0, v - gc.allowed.shape[1]))
+    logits = torch.randn(b, v, device=DEVICE).to(getattr(torch, dtype))
+    call = lambda: ops.token_mask(states, allowed, logits)
+    census = Census()
+
+    def counted():
+        with census_hooks.recording(census):
+            return call()
+    for _ in range(3):
+        call()
+        counted()
+    times = {"outside": [], "recording": []}
+    for _ in range(DISPATCH10[0]):
+        times["outside"].append(cuda_ms(call, DISPATCH10[1]))
+        times["recording"].append(cuda_ms(counted, DISPATCH10[1]))
+    out, rec = (float(np.median(times[k])) for k in ("outside", "recording"))
+    n = census.kernels["token_mask"]["launches"]
+    check(n == DISPATCH10[0] * DISPATCH10[1] + 3,
+          f"[10] the recording census counted {n} B5 launches")
+    print(f"[10] ops.token_mask B={b} V={v} {dtype}: {out:.5f} ms per call "
+          f"outside a census, {rec:.5f} ms with one recording (median of "
+          f"{DISPATCH10[0]} x {DISPATCH10[1]} calls each, interleaved)")
 
 
 def attn_bound(bh, bh_kv, t, s, d, window):
@@ -874,6 +952,7 @@ def phase12_serving(rng, counts):
         print(f"[12] row {r}: argmax {int(ak[r])} vs {int(ax[r])}; "
               f"blockwise top-2 margin {float(top2[0] - top2[1]):.5f}")
     device_busy(lambda: api.prefill(params, cfg, batch), "[12] prefill")
+    phase22b_prefill_census(params, cfg, batch)
 
     # -- ServingEngine.generate, grammar-constrained, greedy
     n, width, max_new, chunk = SERVE12
@@ -3362,27 +3441,30 @@ def dense_train_flops(cfg, b, t):
     return b * t * per_token * 4 / 3, n_mm
 
 
+def train_opts20():
+    """20(a)'s options: the launcher's (lr 3e-4, 20 warm-up steps: the lr
+    of steps 0-19 does not depend on --steps), TRAIN20's microbatches."""
+    from repro_torch.training import AdamWConfig, TrainOptions
+    return TrainOptions(num_microbatches=TRAIN20[2], optimizer=AdamWConfig(
+        warmup_steps=20, total_steps=CLI20 + 1))
+
+
 def phase20a_train(counts):
     """tinyllama-1.1b at full width trained in this process on the
     launcher's B1-filtered stream: per-step time, tokens/s, flop share,
     loss; the loss falling on one batch; peak memory, the idle share of a
-    profiled step and the filter's decisions against backend='local'.
-    Returns the stream steps' loss, grad_norm and lr."""
+    profiled step and the filter's decisions against backend='local'."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import CorpusConfig, CorpusFilter, generate_documents
     from repro_torch.kernels import dfa_match
     from repro_torch.launch import train as launch_train
-    from repro_torch.training import (AdamWConfig, TrainOptions,
-                                      init_train_state, make_train_step)
+    from repro_torch.training import init_train_state, make_train_step
 
     cfg = get_config(ARCH20)
     b, t, nm = TRAIN20
-    # the launcher's options (lr 3e-4, 20 warm-up steps: the lr of steps
-    # 0-19 does not depend on --steps)
-    opts = TrainOptions(num_microbatches=nm, optimizer=AdamWConfig(
-        warmup_steps=20, total_steps=CLI20 + 1))
+    opts = train_opts20()
     docs, masks = [], []
 
     def source():
@@ -3412,7 +3494,7 @@ def phase20a_train(counts):
           f"{work / BF16_FLOPS_PER_S:.4f} s at 989.4 TFLOP/s")
     step = make_train_step(cfg, None, opts)
     reset_kernel_launches()
-    losses, walls, lines = [], [], []
+    losses, walls = [], []
     for i in range(sum(STEPS20)):
         if i < STEPS20[0]:
             t0 = time.perf_counter()
@@ -3425,7 +3507,6 @@ def phase20a_train(counts):
         check(np.isfinite(loss) and np.isfinite(gnorm),
               f"[20a] step {i}: loss {loss}, grad_norm {gnorm}")
         losses.append(loss)
-        lines.append({"loss": loss, "gnorm": gnorm, "lr": lr})
         walls.append(wall)
         again = (f" (step {STEPS20[0] - 1}'s batch again)"
                  if i >= STEPS20[0] else f", its batch {data_s:.3f} s")
@@ -3468,9 +3549,12 @@ def phase20a_train(counts):
     device_busy(lambda: one(state, part),
                 f"[20a] one step of {b // nm} x {t} (one microbatch)",
                 margin=PROFILE_MARGIN_S, cpu=False)
-    del state, batch, part
+    del part
+    t0 = time.perf_counter()
+    phase22a_train_census(cfg, opts, state, batch, float(np.mean(walls[1:])))
+    print(f"[22a] in {time.perf_counter() - t0:.1f} s")
+    del state, batch
     torch.cuda.empty_cache()
-    return lines[:STEPS20[0]]
 
 
 def launcher_line(line):
@@ -3480,23 +3564,60 @@ def launcher_line(line):
                            for k in ("loss", "gnorm", "lr")}
 
 
-def phase20b_launcher(uninterrupted):
-    """``python -m repro_torch.launch.train`` at (a)'s width for 1 step,
-    checkpointed, then ``--resume`` for the step after it: each printed
-    step against the same step of (a), which ran the launcher's stream,
-    initial state and options uninterrupted in this process, within
-    ``LINE20_TOL``; the saves' blocking times and the restore time."""
+def launcher_reference(cfg, b, t, nm, steps):
+    """The lines (loss, gnorm, lr by step) of ``steps`` steps of the
+    launcher's B1-filtered stream, initial state (seed 0) and options, run
+    uninterrupted in this process on one device."""
+    import torch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training import (AdamWConfig, TrainOptions,
+                                      init_train_state, make_train_step)
+
+    batches, _ = launch_train.corpus_batches(cfg, b, t, RULES20,
+                                             device=torch.device(DEVICE))
+    opts = TrainOptions(num_microbatches=nm, optimizer=AdamWConfig(
+        lr=3e-4, warmup_steps=20, total_steps=steps))
+    state = init_train_state(cfg, 0, device=DEVICE, opts=opts)
+    step = make_train_step(cfg, None, opts)
+    lines = {}
+    for i in range(steps):
+        state, m = step(state, launch_train.batch_to_device(
+            next(batches), DEVICE))
+        lines[i] = {"loss": float(m["loss"]), "gnorm": float(m["grad_norm"]),
+                    "lr": float(m["lr"])}
+    del state, step
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return lines
+
+
+def cli_config():
+    """20(b)'s and 21(d)'s model: ``ARCH20`` at its widths, ``LAYERS_CLI``
+    layers (the launcher's ``--layers``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(ARCH20), n_layers=LAYERS_CLI)
+
+
+def phase20b_launcher():
+    """``python -m repro_torch.launch.train`` at (a)'s widths and
+    ``LAYERS_CLI`` layers for 1 step, checkpointed, then ``--resume`` for
+    the step after it: each printed step against the same step of the
+    launcher's stream, initial state and options run uninterrupted in this
+    process, within ``LINE20_TOL``; the saves' blocking times and the
+    restore time."""
     import shutil
     import tempfile
 
     steps = CLI20
     b, t, nm = TRAIN20
+    uninterrupted = launcher_reference(cli_config(), b, t, nm, steps + 1)
     tmp = tempfile.mkdtemp(prefix="chip_smoke20_")
     ckpt = os.path.join(tmp, "ckpt")
     base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-            ARCH20, "--batch", str(b), "--seq", str(t), "--microbatches",
-            str(nm), "--ckpt-every", str(steps), "--ckpt-dir", ckpt,
-            "--log-every", "1"]
+            ARCH20, "--layers", str(LAYERS_CLI), "--batch", str(b), "--seq",
+            str(t), "--microbatches", str(nm), "--ckpt-every", str(steps),
+            "--ckpt-dir", ckpt, "--log-every", "1"]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     runs = {}
     try:
@@ -3529,11 +3650,12 @@ def phase20b_launcher(uninterrupted):
                    / (uninterrupted[i][k] if k == "lr" else 1)
                    for i in printed) for k in LINE20_TOL}
     check(all(gaps[k] <= LINE20_TOL[k] for k in gaps),
-          f"[20b] the launcher's lines {printed} differ from (a)'s "
-          f"{uninterrupted[:steps + 1]}: gaps {gaps}")
-    print(f"[20b] the launcher's step 0 and, resumed from its step-{steps} "
-          f"checkpoint in a new process, its step {steps} equal (a)'s "
-          f"uninterrupted steps within {LINE20_TOL} (lr relative; gaps "
+          f"[20b] the launcher's lines {printed} differ from one "
+          f"process's {uninterrupted}: gaps {gaps}")
+    print(f"[20b] {LAYERS_CLI} layers at {ARCH20}'s widths: the launcher's "
+          f"step 0 and, resumed from its step-{steps} checkpoint in a new "
+          f"process, its step {steps} equal one process's uninterrupted "
+          f"steps within {LINE20_TOL} (lr relative; gaps "
           + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items()) + ")")
 
 
@@ -3712,14 +3834,231 @@ def phase20_training(counts):
     process, (b) the launcher, its resume and a restart, (c) one step of
     every other family, (d) the card against the CPU."""
     t0 = time.perf_counter()
-    lines = phase20a_train(counts)
+    phase20a_train(counts)
     print(f"[20a] in {time.perf_counter() - t0:.1f} s")
-    for name, fn in (("b", lambda: phase20b_launcher(lines)),
+    for name, fn in (("b", phase20b_launcher),
                      ("b restart", phase20b_restart),
                      ("c", phase20c_families), ("d", phase20d_card_vs_cpu)):
         t0 = time.perf_counter()
         fn()
         print(f"[20{name}] in {time.perf_counter() - t0:.1f} s")
+
+
+# -- phase 22: the analysis tools ---------------------------------------------
+
+# the subprocess of the dry run's fake traces and what it wrote
+TRACES22: dict = {}
+
+
+def phase22_traces_child(out):
+    """``--phase22-traces out``: the dry run's trace of 22(a)'s train step
+    (the card's program on fake CPU tensors, as ``launch.dryrun`` traces
+    every cell; host work only, no card), written to ``out`` as JSON."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+
+    b, t, _ = TRAIN20
+    t0 = time.perf_counter()
+    res = dryrun.trace_one_card(get_config(ARCH20),
+                                ShapeSpec("train", "train", t, b),
+                                opts=train_opts20(), device="cuda")
+    res["host_s"] = time.perf_counter() - t0
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def phase22_start():
+    """Start 22(a)'s fake trace in a subprocess (``--phase22-traces``), at
+    the lowest priority, with one thread and no card visible, so that its
+    ~100 s of host work overlap phases 19 and 20(a) instead of adding to
+    the script's time."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke22_")
+    out = os.path.join(tmp, "traces.json")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    TRACES22.update(tmp=tmp, out=out, proc=subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phase22-traces", out],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, preexec_fn=lambda: os.nice(19)))
+
+
+def phase22_trace():
+    """22(a)'s fake trace, waiting for its subprocess the first time."""
+    if "res" not in TRACES22:
+        proc = TRACES22["proc"]
+        t0 = time.perf_counter()
+        stdout, stderr = proc.communicate(timeout=CHILD22_S)
+        check(proc.returncode == 0, f"[22] the fake trace exited "
+              f"{proc.returncode}: {stdout[-1000:]}{stderr[-3000:]}")
+        with open(TRACES22["out"]) as f:
+            TRACES22["res"] = json.load(f)
+        TRACES22["res"]["wait_s"] = time.perf_counter() - t0
+    return TRACES22["res"]
+
+
+def phase22_stop():
+    """Stop the traces' subprocess if it still runs; remove its files."""
+    import shutil
+    proc = TRACES22.get("proc")
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+    if "tmp" in TRACES22:
+        shutil.rmtree(TRACES22["tmp"], ignore_errors=True)
+
+def census_gap(got, want):
+    """The keys (and for ``ops`` the ops) where two censuses differ."""
+    out = {}
+    for k in sorted(set(got) | set(want)):
+        if got.get(k) != want.get(k):
+            if k == "ops":
+                a, b = got.get(k, {}), want.get(k, {})
+                out[k] = {o: (a.get(o), b.get(o))
+                          for o in sorted(set(a) | set(b))
+                          if a.get(o) != b.get(o)}
+            else:
+                out[k] = (got.get(k), want.get(k))
+    return out
+
+
+def phase22a_train_census(cfg, opts, state, batch, step_s):
+    """22(a): one train step of 20(a)'s shape under the census on 20(a)'s
+    live state, held to the dry run's trace of the same one-card step (the
+    card's program on fake CPU tensors, as ``launch.dryrun`` traces every
+    cell); the predicted peak memory against the measured; the measured
+    step's share of the function's bound; the census's roofline row on
+    H100 constants."""
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import roofline
+    from repro_torch.launch.census import trace_census
+    from repro_torch.training import make_train_step
+
+    b, t = (int(n) for n in batch["tokens"].shape)
+    check((b, t, opts.num_microbatches) == TRAIN20, f"[22a] shape {b, t}")
+    fake = phase22_trace()
+    fc = dict(fake["census"], collectives=fake["collectives"])
+    step = make_train_step(cfg, None, opts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (_, metrics), real = trace_census(step, state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    loss = float(metrics["loss"])
+    check(np.isfinite(loss), f"[22a] loss {loss} under the census")
+    gap = census_gap(real, fc)
+    check(not {"dot_flops", "ops", "kernels", "collectives"} & set(gap),
+          f"[22a] the card's census differs from the fake trace's: "
+          f"{str(gap)[:2000]}")
+    mem = fake["memory"]
+    ratio = mem["peak_bytes"] / peak
+    print(f"[22a] {ARCH20} step of {b} x {t} tokens in "
+          f"{opts.num_microbatches} microbatches under the census: "
+          f"{wall:.3f} s ({step_s:.3f} s without it in 20(a)), loss "
+          f"{loss:.6f}; fake trace {fake['host_s']:.1f} s of host time (its "
+          f"subprocess, beside phases 19 and 20(a); waited for "
+          f"{fake['wait_s']:.1f} s): dot flops {real['dot_flops']:.6e}, "
+          f"{real['n_ops']} ops ({len(real['ops'])} kinds), max multiplier "
+          f"{real['max_multiplier']}, kernels {real['kernels']}, approx HBM "
+          f"bytes {real['approx_hbm_bytes']:.6e}; equal on the card and in "
+          f"the fake trace (keys that differ: {sorted(gap)})")
+    print(f"[22a] peak memory: predicted {mem['peak_bytes']} B "
+          f"(arguments {mem['argument_bytes']}, temporaries "
+          f"{mem['temp_bytes']}), measured max_memory_allocated {peak} B; "
+          f"ratio {ratio:.4f} within {MEM22}")
+    check(MEM22[0] <= ratio <= MEM22[1],
+          f"[22a] predicted / measured peak memory {ratio:.4f} outside "
+          f"{MEM22}")
+    # the function's bound: its flops (20(a)'s count) at the bf16 rate,
+    # against the state read and written once and the batch read once
+    work, _ = dense_train_flops(cfg, b, t)
+    state_b, batch_b = (sum(x.numel() * x.element_size()
+                            for x in tensors(tree)
+                            if isinstance(x, torch.Tensor))
+                        for tree in (state, batch))
+    t_ops = work / BF16_FLOPS_PER_S
+    t_bytes = (2 * state_b + batch_b) / HBM_BYTES_PER_S
+    bound = max(t_ops, t_bytes)
+    print(f"[22a] the step's bound: {work:.4e} flops (20(a)'s count: 6 a "
+          f"matmul parameter and token, causal attention, remat's "
+          f"recompute) at 989.4 TFLOP/s {t_ops:.4f} s against "
+          f"{2 * state_b + batch_b} B (the {state_b} B state read and "
+          f"written once, the batch read) at 3.35 TB/s {t_bytes:.4f} s: "
+          f"{bound:.4f} s, by {'operations' if t_ops >= t_bytes else 'bytes'}"
+          f"; the measured step {step_s:.3f} s reads {bound / step_s:.4f} "
+          f"of it")
+    check(t == SHAPES["train_4k"].seq_len, f"[22a] seq_len {t}")
+    # the row of a train_4k record whose device count gives each device
+    # this step's b x t tokens (the model flops 6 N D of this step)
+    rec = {"arch": ARCH20, "shape": "train_4k", "mesh": "one card",
+           "ok": True, "n_devices": SHAPES["train_4k"].global_batch // b,
+           "census": real, "collectives": real["collectives"],
+           "memory": mem}
+    row = roofline.analyze_record(rec, roofline.count_params(ARCH20))
+    print(f"[22a] the census's roofline row on H100 constants "
+          f"({roofline.PEAK_FLOPS:.4g} flop/s, {roofline.HBM_BW:.4g} B/s, "
+          f"{roofline.LINK_BW:.4g} B/s): t_compute {row['t_compute_s']:.4f} "
+          f"s, t_memory {row['t_memory_s']:.4f} s, t_collective "
+          f"{row['t_collective_s']:.4f} s, {row['dominant']}-dominated; "
+          f"useful {row['useful_ratio']:.4f} (6 N D "
+          f"{row['model_flops_chip']:.4e} over census flops "
+          f"{row['hlo_flops_chip']:.4e}). t_memory is this eager program's "
+          f"traffic (every op's operands read and written once), which "
+          f"grows with the program's own passes: a model of the program, "
+          f"not a bound of the step; the step moves it at "
+          f"{row['t_memory_s'] / step_s:.4f} of 3.35 TB/s")
+    print(roofline.to_markdown([row]))
+
+
+def phase22b_prefill_census(params, cfg, batch):
+    """22(b): one of phase 12's ``api.prefill`` calls under the census: B9
+    launched once a layer, its work as the dry run's trace of the same
+    call counts it (traced here, on fake CPU tensors, launching
+    nothing)."""
+    import torch
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.kernels import flash_attn
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.census import trace_census
+    from repro_torch.models import api
+
+    b, t = (int(n) for n in batch["tokens"].shape)
+    check((b, t) == PREFILL12, f"[22b] shape {b, t}")
+    before = flash_attn.launches["flash_attn"]
+    t0 = time.perf_counter()
+    fake = dryrun.trace_one_card(cfg, ShapeSpec("prefill", "prefill", t, b),
+                                 device="cuda")
+    fake_s = time.perf_counter() - t0
+    check(flash_attn.launches["flash_attn"] == before,
+          "[22b] the fake trace moved B9's launch counter")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (logits, cache), real = trace_census(api.prefill, params, cfg, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = flash_attn.launches["flash_attn"] - before
+    got = real["kernels"].get("flash_attn", {})
+    want = fake["census"]["kernels"].get("flash_attn", {})
+    check(bool(torch.isfinite(logits).all()), "[22b] logits not finite")
+    check(n == cfg.n_layers and got.get("launches") == n
+          and want.get("launches") == n,
+          f"[22b] B9 launches: counter {n}, census {got}, fake trace "
+          f"{want}; expected {cfg.n_layers}")
+    check(got == want, f"[22b] B9's census {got} differs from the fake "
+          f"trace's {want}")
+    check(real["dot_flops"] == fake["census"]["dot_flops"],
+          f"[22b] dot flops {real['dot_flops']} against the fake trace's "
+          f"{fake['census']['dot_flops']}")
+    print(f"[22b] api.prefill B={b} T={t} under the census: {wall:.4f} s, "
+          f"B9 {n} launches (counter and census), {got['flops']:.6e} flops, "
+          f"{got['bytes']:.6e} bytes; dot flops {real['dot_flops']:.6e}; "
+          f"equal to the fake trace's ({fake_s:.2f} s of host time, no "
+          f"launch); predicted peak {fake['memory']['peak_bytes']} B")
+    del cache
 
 
 # -- phase 21: the LM mesh ----------------------------------------------------
@@ -3757,13 +4096,13 @@ def dfas21():
 
 
 def cfg21(train=False, no_drop=False):
-    """granite-moe-1b-a400m; ``train``: cut to ``TRAIN21[3]`` layers;
-    ``no_drop``: capacity factor E / top_k, at which no choice drops."""
+    """granite-moe-1b-a400m at published widths, cut to ``LAYERS21``
+    layers (``train``: to ``TRAIN21[3]``); ``no_drop``: capacity factor
+    E / top_k, at which no choice drops."""
     import dataclasses
     from repro_torch.configs import get_config
-    cfg = get_config(ARCH21)
-    if train:
-        cfg = dataclasses.replace(cfg, n_layers=TRAIN21[3])
+    cfg = dataclasses.replace(get_config(ARCH21), n_layers=TRAIN21[3]
+                              if train else LAYERS21)
     if no_drop:
         cfg = dataclasses.replace(cfg,
                                   capacity_factor=cfg.n_experts / cfg.top_k)
@@ -4077,8 +4416,8 @@ def phase21c_after_restore(tmp):
 
 
 def phase21b_child(mesh, tmp):
-    """(b) granite-moe-1b-a400m at full width and depth under expert
-    parallelism: prefill (B9) at the published capacity factor and at
+    """(b) granite-moe-1b-a400m at full width, ``LAYERS21`` layers, under
+    expert parallelism: prefill (B9) at the published capacity factor and at
     E / top_k, then constrained decode (B5) at the published factor."""
     import torch
     from repro_torch.core import compile_regex
@@ -4307,37 +4646,16 @@ def phase21_references(tmp, rng):
 
 def phase21d_launcher():
     """(d) ``launch.train`` on a (2, 2) mesh under ``torch.distributed.run``
-    (four ranks sharing the card over gloo) at published widths, a small
-    batch, 2 steps; each printed step against the same step of the
-    launcher's stream, initial state and options run in this process on
-    one device (as phase 20(b) holds the one-process launcher to (a))."""
+    (four ranks sharing the card over gloo) at published widths and
+    ``LAYERS_CLI`` layers, a small batch, 2 steps; each printed step
+    against the same step of the launcher's stream, initial state and
+    options run in this process on one device."""
     import shutil
     import socket
     import tempfile
 
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.launch import train as launch_train
-    from repro_torch.training import (AdamWConfig, TrainOptions,
-                                      init_train_state, make_train_step)
-
     b, t, steps = CLI21
-    cfg = get_config(ARCH20)
-    batches, _ = launch_train.corpus_batches(cfg, b, t, RULES20,
-                                             device=torch.device(DEVICE))
-    opts = TrainOptions(optimizer=AdamWConfig(lr=3e-4, warmup_steps=20,
-                                              total_steps=steps))
-    state = init_train_state(cfg, 0, device=DEVICE, opts=opts)
-    step = make_train_step(cfg, None, opts)
-    one = {}
-    for i in range(steps):
-        state, m = step(state, launch_train.batch_to_device(
-            next(batches), DEVICE))
-        one[i] = {"loss": float(m["loss"]), "gnorm": float(m["grad_norm"]),
-                  "lr": float(m["lr"])}
-    del state, step
-    if DEVICE == "cuda":
-        torch.cuda.empty_cache()
+    one = launcher_reference(cli_config(), b, t, 1, steps)
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -4345,7 +4663,8 @@ def phase21d_launcher():
     argv = [sys.executable, "-m", "torch.distributed.run",
             "--nproc-per-node", "4", "--master-port", str(port), "-m",
             "repro_torch.launch.train",
-            "--arch", ARCH20, "--batch", str(b), "--seq", str(t),
+            "--arch", ARCH20, "--layers", str(LAYERS_CLI),
+            "--batch", str(b), "--seq", str(t),
             "--steps", str(steps), "--log-every", "1", "--mesh-data", "2",
             "--mesh-model", "2", "--ckpt-dir", os.path.join(tmp, "ckpt")]
     if DEVICE != "cuda":                  # a rehearsal on the CPU
@@ -4528,7 +4847,8 @@ def phase21_report(reps, ref, oracle_states, after, tmp, counts):
     check(bool(equal.all()), f"[21b] decoded tokens differ from one process "
           f"on blocked_moe21 on rows {np.flatnonzero(~equal)}")
     b = reps[0]["b"]
-    print(f"[21b] granite-moe-1b-a400m, full width and depth, 16 experts a "
+    print(f"[21b] granite-moe-1b-a400m, full width, {LAYERS21} layers, 16 "
+          f"experts a "
           f"model rank: init {b['init_s']:.2f} s; prefill {PREFILL21} "
           f"{b['prefill_s']:.3f} s (rank 0), logits mismatch share (atol "
           f"{MISMATCH21[1]}) {share:.4f} at the published factor against "
@@ -5147,6 +5467,7 @@ def main() -> int:
     print(f"[18] phase 18 in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 19: every model family at full width ---------------------------
+    phase22_start()              # 22(a)'s fake trace, beside phases 19-20(a)
     t0 = time.perf_counter()
     phase19_families(counts)
     print(f"[19] phase 19 in {time.perf_counter() - t0:.1f} s")
@@ -5178,4 +5499,10 @@ if __name__ == "__main__":
         sys.exit(phase21_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--phase21-oracle"]:
         sys.exit(phase21_oracle(sys.argv[2]))
-    sys.exit(main())
+    if sys.argv[1:2] == ["--phase22-traces"]:
+        sys.exit(phase22_traces_child(sys.argv[2]))
+    try:
+        rc = main()
+    finally:
+        phase22_stop()
+    sys.exit(rc)

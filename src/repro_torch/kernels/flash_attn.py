@@ -12,18 +12,27 @@ Operands: q [BH, T, D], k and v [BH / group, S, D], bfloat16, contiguous, on
 one CUDA device; head h attends with kv head h // group, so a GQA caller
 hands over its kv heads without repeating them.  D is 16, 32, 64 or 128.
 Returns [BH, T, D] bfloat16.
+
+``FakeTensor`` operands (a dry run's trace of the card's program,
+``launch.dryrun``: fake CPU tensors inside ``census_hooks.fake_card``, or
+fake CUDA ones) take a path of their own in
+``flash_attn_cuda``: it counts one launch and its work (``flash_work``) in
+the census being taken and returns an empty output of the right shape,
+launching nothing.  Real tensors never take it.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
+from . import census_hooks as _hooks
 
-__all__ = ["flash_attn_cuda", "flash_attn_torch", "flash_plan", "launches",
-           "reset_launches", "HEAD_DIMS"]
+__all__ = ["flash_attn_cuda", "flash_attn_torch", "flash_plan", "flash_work",
+           "launches", "reset_launches", "HEAD_DIMS"]
 
 # kernel launches; incremented only where the kernel launches
 launches = {"flash_attn": 0}
@@ -65,6 +74,19 @@ def flash_plan(t: int, s: int, d: int, *, causal: bool = True,
                 q_blocks=len(tiles), tiles=tiles)
 
 
+def flash_work(q, k, v, *, causal: bool = True, window: int = 0,
+               group: int = 1) -> tuple[float, float]:
+    """(flops, bytes) of one call: 4 * D flops per unmasked (q, k) pair
+    (QK^T and PV), and Q, K, V read once and O written once."""
+    bh, t, s, d = _shapes(q, k, v, group)
+    pos = np.arange(t)
+    hi = np.minimum(pos + 1, s) if causal else np.full(t, s)
+    lo = np.maximum(pos - window + 1, 0) if window > 0 else np.zeros(t, int)
+    pairs = float(np.maximum(hi - lo, 0).sum())
+    n_bytes = q.element_size() * d * (2 * bh * t + 2 * k.shape[0] * s)
+    return 4.0 * d * bh * pairs, float(n_bytes)
+
+
 def _entry():
     fn = _build.load("flash_attn").flash_attn_launch
     if fn.argtypes is None:
@@ -89,14 +111,19 @@ def _shapes(q, k, v, group):
 
 def flash_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, group: int = 1):
-    """B9 on the card -> [BH, T, D] bf16; never synchronises."""
+    """B9 on the card -> [BH, T, D] bf16; never synchronises.  Fake
+    operands launch nothing (see the module's docstring)."""
     dev = q.device
+    fake = _hooks.is_fake(q)
     for x in (q, k, v):
-        if x.device != dev or dev.type != "cuda":
+        if x.device != dev or not _hooks.on_card(x):
             raise ValueError("flash_attn_cuda needs every operand on one "
                              f"CUDA device, got {x.device}")
+        if _hooks.is_fake(x) != fake:
+            raise ValueError("flash_attn_cuda got FakeTensors and real "
+                             "tensors together")
         if x.dtype != torch.bfloat16 or not x.is_contiguous() \
-                or x.data_ptr() % 16:
+                or (not fake and x.data_ptr() % 16):
             raise ValueError("flash_attn_cuda needs contiguous, 16-byte "
                              "aligned bfloat16 operands")
     bh, t, s, d = _shapes(q, k, v, group)
@@ -107,6 +134,10 @@ def flash_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     if s == 0:                  # no key: acc = l = 0, out = 0 / 1e-30
         return out.zero_()
+    if fake:                    # a trace: count the launch, run nothing
+        _hooks.record_kernel("flash_attn", 1, *flash_work(
+            q, k, v, causal=causal, window=window, group=group))
+        return out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),

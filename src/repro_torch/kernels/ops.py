@@ -4,14 +4,21 @@ Each op pads its inputs to kernel-legal shapes and dispatches on the device
 of its tensors: a CPU tensor runs the kernel's plain PyTorch version, a CUDA
 tensor launches the hand-written kernel (or the call raises).  Semantics are
 those of the ``ref.py`` oracles; the return contract is the JAX package's
-``kernels/ops.py``.
+``kernels/ops.py``.  While a census is taken (``launch.census``), each
+launch is counted in it with its work (``census_hooks``).  Of the kernels
+only B9 takes the ``FakeTensor``s of a trace of the card's program
+(``census_hooks.on_card``; ``flash_attn.flash_attn_cuda``); the others
+refuse them.
 """
 
 from __future__ import annotations
 
+import sys
+
 import torch
 import torch.nn.functional as F
 
+from . import census_hooks as _hooks
 from . import dfa_match, flash_attn as _flash_attn, lvec_compose as _lvec
 from . import onehot_match, token_mask as _token_mask
 
@@ -135,11 +142,45 @@ def _pad_merge_chunks(chunks: torch.Tensor, pad_cls: int,
     return chunks.contiguous(), l_blk
 
 
+# kernels whose wrapper has a path for FakeTensors
+_FAKE_PATHS = {"flash_attn"}
+
+
+def _kernel_name(cuda_fn) -> str:
+    return cuda_fn.__name__.removesuffix("_cuda")
+
+
+def _counted_launch(cuda_fn, args, kw):
+    """``cuda_fn(*args, **kw)``, its launches counted in the census being
+    taken with their flops and their operands' bytes read and written
+    once (B9: ``flash_attn.flash_work``)."""
+    name = _kernel_name(cuda_fn)
+    counter = getattr(sys.modules.get(cuda_fn.__module__), "launches", {})
+    before = counter.get(name, 0)
+    out = cuda_fn(*args, **kw)
+    n = counter.get(name, 0) - before
+    if n:
+        if name == "flash_attn":
+            flops, n_bytes = _flash_attn.flash_work(*args, **kw)
+        else:
+            flops, n_bytes = 0.0, float(_hooks.tensor_bytes(args)
+                                        + _hooks.tensor_bytes(out))
+        _hooks.record_kernel(name, n, flops, n_bytes)
+    return out
+
+
 def _dispatch(cuda_fn, torch_fn, x, args, kw,
               cuda_only=("table_in_smem", "carry_in_smem")):
-    """CUDA tensors launch ``cuda_fn``; CPU tensors run the plain
-    ``torch_fn`` without the CUDA-only placement keywords."""
-    if x.device.type == "cuda":
+    """CUDA tensors launch ``cuda_fn`` (counted while a census is taken:
+    ``_counted_launch``); CPU tensors run the plain ``torch_fn`` without
+    the CUDA-only placement keywords."""
+    if _hooks.on_card(x):
+        if _hooks.is_fake(x) and _kernel_name(cuda_fn) not in _FAKE_PATHS:
+            raise ValueError(f"kernel {_kernel_name(cuda_fn)} cannot take "
+                             f"FakeTensors: only {sorted(_FAKE_PATHS)} can "
+                             "be traced without a card")
+        if _hooks.active():
+            return _counted_launch(cuda_fn, args, kw)
         return cuda_fn(*args, **kw)
     if x.device.type == "cpu":
         for name in cuda_only:

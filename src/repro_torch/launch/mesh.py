@@ -34,6 +34,12 @@ each collective's calls and bytes (and its host-clock seconds while
 Without an initialised world, a mesh of one device initialises a world of
 one (a ``file://`` store in a temporary directory: NCCL on a card, gloo on
 the CPU), so ``Matcher(dfas, backend="sharded")`` works in a plain script.
+
+A world of torch's ``fake`` backend (``launch.dryrun``: 256 or 512 ranks in
+one process, ``FakeStore``) carries meshes too: its transport is "fake",
+whose collectives move nothing, and a mesh on it takes the device its
+caller names without asking for a card.  Every collective is also counted
+in the census being taken, if any (``launch.census``).
 """
 
 from __future__ import annotations
@@ -49,6 +55,8 @@ import time
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..kernels import census_hooks as _hooks
 
 __all__ = ["make_matcher_mesh", "factor_matcher_mesh", "matcher_mesh_extents",
            "dp_axes", "mesh_info", "rank_device", "mesh_transport",
@@ -107,12 +115,19 @@ def _init_world_of_one(device: torch.device) -> None:
                             world_size=1, timeout=GROUP_TIMEOUT)
 
 
+def _fake_world() -> bool:
+    """Whether the world is torch's ``fake`` backend (a dry run)."""
+    return dist.is_initialized() and str(dist.get_backend()) == "fake"
+
+
 def _transport(device: torch.device) -> str:
     backend = str(dist.get_backend())
     if device.type == "cuda" and "nccl" in backend:
         return "nccl"
     if "gloo" in backend:
         return "gloo"
+    if backend == "fake":
+        return "fake"
     raise ValueError(f"the world's backend {backend!r} cannot carry a "
                      f"mesh on {device}: initialise it with 'nccl' "
                      "(one card a rank) or 'gloo' (the CPU, or ranks sharing "
@@ -171,7 +186,7 @@ def matcher_mesh_extents(mesh) -> tuple[int, int]:
 
 
 def mesh_transport(mesh) -> str:
-    """"nccl" or "gloo": how the mesh's collectives travel."""
+    """"nccl", "gloo" or "fake": how the mesh's collectives travel."""
     return mesh.transport
 
 
@@ -370,7 +385,8 @@ def make_mesh(shape, names, *, device=None) -> LMMesh:
     device_count``), which also picks the transport of a world this call
     initialises (a world of one, when none exists and the mesh has one
     rank).  NCCL where the world is NCCL and each rank has a card, gloo
-    otherwise (``_transport``)."""
+    otherwise (``_transport``).  On a ``fake`` world the named ``device``
+    is taken as it is: no card is asked for."""
     shape = tuple(int(s) for s in shape)
     names = tuple(names)
     n = math.prod(shape)
@@ -378,10 +394,11 @@ def make_mesh(shape, names, *, device=None) -> LMMesh:
     if n > n_avail:
         raise ValueError(f"mesh {'x'.join(map(str, shape))} needs {n} "
                          f"devices, have {n_avail}")
-    dev = rank_device(device)
+    fake = _fake_world() and device is not None
+    dev = torch.device(device) if fake else rank_device(device)
     if not dist.is_initialized():
         _init_world_of_one(dev)
-    if dev.type == "cuda":
+    if dev.type == "cuda" and not fake:
         torch.cuda.set_device(dev)
     transport = _transport(dev)
     world = dist.distributed_c10d._get_default_group()
@@ -445,6 +462,15 @@ def time_collectives(on: bool) -> None:
     _TIMING[0] = bool(on)
 
 
+def _counted(kind: str, out: torch.Tensor, group, axes) -> None:
+    """Count a collective in the census being taken, if any
+    (``launch.census``): its output ``out`` over ``group``."""
+    if _hooks.active():
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        _hooks.record_collective(kind, out, dist.get_world_size(group),
+                                 axes)
+
+
 class _Timed:
     """Counts a collective in ``MESH_STATS`` under "name axes"."""
 
@@ -498,6 +524,7 @@ def all_gather(x: torch.Tensor, mesh: LMMesh, axes,
                           dtype=src.dtype, device=src.device)
         _ALL_GATHER(out, src, group=group)
         out = out.to(x.device) if staged else out
+    _counted("all-gather", out, group, axes)
     return out.view(x.dtype).movedim(0, dim)
 
 
@@ -513,6 +540,7 @@ def all_reduce(x: torch.Tensor, mesh: LMMesh, axes,
         src = src.clone() if not staged else src
         dist.all_reduce(src, group=group)
         out = src.to(x.device) if staged else src
+    _counted("all-reduce", out, group, axes)
     return out / dist.get_world_size(group) if op == "mean" else out
 
 
@@ -533,6 +561,7 @@ def reduce_scatter(x: torch.Tensor, mesh: LMMesh, axes,
                           dtype=src.dtype, device=src.device)
         _REDUCE_SCATTER(out, src, group=group)
         out = out.to(x.device) if staged else out
+    _counted("reduce-scatter", out, group, axes)
     return out.movedim(0, dim)
 
 
@@ -554,6 +583,7 @@ def all_to_all(x: torch.Tensor, mesh: LMMesh, axis: str, split_dim: int,
         out = torch.empty_like(src)
         dist.all_to_all_single(out, src, group=group)
         out = out.to(x.device) if staged else out
+    _counted("all-to-all", out, group, axis)
     out = out.view(x.dtype)
     parts = out.reshape(n, -1, *out.shape[1:])
     return torch.cat([p.movedim(0, split_dim) for p in parts],
@@ -585,6 +615,7 @@ def permute(x: torch.Tensor, mesh: LMMesh, axis: str,
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
         out = buf.to(x.device) if staged else buf
+    _counted("collective-permute", out, group, axis)
     return out.view(x.dtype)
 
 

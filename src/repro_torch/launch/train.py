@@ -8,7 +8,9 @@ card) -> packed batches -> the microbatched train step -> async checkpoints
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --steps 100 --batch 16 --seq 4096 --microbatches 4
 
-On the CPU, at the reduced smoke width:
+``--layers N`` keeps the arch's widths and cuts its depth to N layers (a
+quick run of the full-width path: ``chip_smoke.py`` drives the launcher
+so).  On the CPU, at the reduced smoke width:
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \\
       --steps 20 --batch 8 --seq 256
@@ -37,6 +39,7 @@ batches an uninterrupted run would.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import os
 import tempfile
@@ -106,6 +109,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model to this many layers at its widths "
+                         "(0: the arch's depth)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
@@ -127,6 +133,8 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduce_for_smoke(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     world = int(os.environ.get("WORLD_SIZE", "1"))
     n_mesh = args.mesh_data * args.mesh_model
     mesh, ours = None, False

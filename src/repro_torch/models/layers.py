@@ -23,6 +23,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..kernels.census_hooks import on_card
 from .attention_core import direct_attention, flash_attention
 
 __all__ = [
@@ -220,16 +221,16 @@ ATTN_ROUTES = ("auto", "kernel", "blockwise")
 def _kernel_route(x, attn_route: str) -> bool:
     """Whether a full-prompt prefill takes the fused kernel B9.
 
-    ``"auto"`` (default) takes B9 for CUDA tensors and the blockwise torch
-    path otherwise; ``"kernel"`` forces B9's route, which on CPU tensors
-    runs B9's plain version (as the JAX package's interpret mode does);
-    ``"blockwise"`` never takes it.
+    ``"auto"`` (default) takes B9 for CUDA tensors (and a trace of the
+    card's program, ``kernels.census_hooks.on_card``) and the blockwise
+    torch path otherwise; ``"kernel"`` forces B9's route, which on CPU
+    tensors runs B9's plain version (as the JAX package's interpret mode
+    does); ``"blockwise"`` never takes it.
     """
     if attn_route not in ATTN_ROUTES:
         raise ValueError(f"attn_route must be one of {ATTN_ROUTES}, got "
                          f"{attn_route!r}")
-    return attn_route == "kernel" or (attn_route == "auto"
-                                      and x.device.type == "cuda")
+    return attn_route == "kernel" or (attn_route == "auto" and on_card(x))
 
 
 def attention(p, x, *, positions, rope_theta: float, window: int = 0,

@@ -40,6 +40,8 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.distributed.sharding\n"
             "import repro_torch.training.optimizer\n"
             "import repro_torch.training.train_loop, repro_torch.launch.train\n"
+            "import repro_torch.launch.roofline, repro_torch.launch.census\n"
+            "import repro_torch.launch.dryrun\n"
             "assert 'msgpack' not in sys.modules, 'msgpack was imported'\n"
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'the JAX package was imported'\n"

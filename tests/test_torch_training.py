@@ -589,3 +589,26 @@ def test_launch_train_and_resume_on_cpu(tmp_path):
     assert again[0].startswith("resumed from step 3 in ")
     assert [ln for ln in again if ln.startswith("step ")] == steps[3:]
     assert again[-1].startswith("done: 5 steps in ")
+
+
+def test_launch_train_layers_cuts_depth(tmp_path):
+    """``--layers`` keeps the widths and cuts the depth: the launcher's
+    step 0 equals one process's step of the same stream on the cut
+    config (and differs from the full depth's)."""
+    lines = _launch("--layers", "3", "--steps", "1", "--batch", "4", "--seq",
+                    "64", "--ckpt-dir", str(tmp_path / "ckpt"),
+                    "--log-every", "1")
+    got = next(ln for ln in lines if ln.startswith("step "))
+    full = tconfigs.reduce_for_smoke(tconfigs.get_config("tinyllama-1.1b"))
+    want = {}
+    for depth in (3, full.n_layers):
+        cfg = dataclasses.replace(full, n_layers=depth)
+        batches, _ = tlaunch.corpus_batches(cfg, 4, 64, [r"SECRET-[0-9]+"],
+                                            device="cpu")
+        opts = TrainOptions(optimizer=AdamWConfig(
+            lr=3e-4, warmup_steps=20, total_steps=1))
+        _, m = make_train_step(cfg, None, opts)(
+            init_train_state(cfg, 0, device="cpu"),
+            tlaunch.batch_to_device(next(batches), "cpu"))
+        want[depth] = f"loss {float(m['loss']):.4f}"
+    assert want[3] in got and want[full.n_layers] not in got, (got, want)
