@@ -217,7 +217,9 @@ Phases (any mismatch raises, so the exit code is non-zero):
      converted state on the card and on the CPU: loss within 1e-3 and
      grad_norm within 2e-2 relative, parameters within 2 lr;
  21. the LM mesh: eight ``--phase21-child`` ranks sharing the card over
-     gloo on ("pod", "data", "model") = (2, 2, 2) (see ``phase21_mesh``);
+     gloo on ("pod", "data", "model") = (2, 2, 2), each running its share
+     of the partitioned program (its rows over the data axes, tensor and
+     expert parallelism over "model"; see ``phase21_mesh``);
  22. the analysis tools (``repro_torch.launch.{census,dryrun,roofline}``),
      run where phases 12 and 20(a) hold their models, so none is
      initialised again: (a) after 20(a)'s steps, one more train step of
@@ -337,6 +339,8 @@ ARCH19 = (("moe", "granite-moe-1b-a400m"), ("vlm", "internvl2-2b"),
 PREFILL19 = {"moe": (2, 2048), "vlm": (2, 2048),  # B, seq_len (vlm: 256
              "encdec": (4, 2048)}        # patches; encdec: 1,024 + 1,024)
 PREFILL19R = (4, 2048)                # 19: hybrid and ssm prefill B, T
+LAYERS19 = {"ssm": 24}                # 19: xlstm-1.3b's depth (of 48; its
+#                                       widths and block pattern kept)
 DECODE19 = 32                         # 19: eager decode steps
 ARCH20 = "tinyllama-1.1b"             # phase 20: the trained model
 TRAIN20 = (8, 4096, 2)                # 20(a), (b): sequences, tokens, microbatches
@@ -356,7 +360,7 @@ MEM22 = (0.85, 1.10)
 CHILD22_S = 900                       # 22: the fake traces' time limit, s
 LEAF20_TOL = 0.1                      # 20(d): a moment leaf's relative L2
 CLI20_S = 600                         # 20(b): each launcher run's time limit, s
-LAYERS_CLI = 4                        # 20(b), 21(d): the launcher's depth
+LAYERS_CLI = 2                        # 20(b), 21(d): the launcher's depth
                                       # (published widths; --layers)
 FAULT20 = (6, 3, 2)                   # 20(b): steps, the failing step, ckpt every
 SMALL20 = (4, 256)                    # 20(b) fault run and (d): batch, seq_len
@@ -374,11 +378,23 @@ RANDOM21 = (512, 16)                  # 21(a): Q, classes (B6)
 PIPE21 = (4, 8, 1024)                 # 21(a): stages, microbatches, width
 ARCH21 = "granite-moe-1b-a400m"       # 21(b), (c)
 PREFILL21 = (8, 2048)                 # 21(b): prompts, tokens (B9)
-LAYERS21 = 8                          # 21(b): granite-moe's depth (of 24)
+LAYERS21 = 4                          # 21(b): granite-moe's depth (of 24)
 PROMPT21 = 64                         # 21(b): generate's prompt bytes
 DECODE21 = 16                         # 21(b): constrained decode steps (B5)
 MISMATCH21 = (0.05, 3e-2)             # 21(b): the reference test's rule
-TRAIN21 = (8, 1024, 2, 2)             # 21(c): rows, tokens, microbatches,
+#                                       (share of entries, atol)
+ARCH21E = "tinyllama-1.1b"            # 21(e): full width and depth
+PREFILL21E = (8, 2048)                # 21(e): prompts, tokens (B9, bf16)
+DECODE21E = 16                        # 21(e): constrained steps (B5)
+# 21(e): the prefill's logits against one process, max |gap| over the
+# largest |logit|: float32 compute (tensor parallelism sums each block's
+# heads and hidden columns in another order), and bf16 (each rank's
+# partial sums round to bf16 before the sum, 2^-8 a rounding, over 22
+# layers; the reference test's rule, share < 0.05 beyond 3e-2, is set for
+# reduced configs: at this depth an H100 run read a share of 0.066)
+F32_21E = 1e-4
+BF16_21E = 5e-2
+TRAIN21 = (8, 512, 2, 2)              # 21(c): rows, tokens, microbatches,
 #                                       layers (depth cut from 24: 8 ranks'
 #                                       expert shards, moments and
 #                                       checkpoint on one card)
@@ -3292,6 +3308,8 @@ def phase19_families(counts):
     route, constrained generate on B5 (moe, vlm), encdec decode against the
     encoded memory, the hybrid and xLSTM prefill and decode with the
     teacher-forced check."""
+    import dataclasses
+
     import torch
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.launch import serve
@@ -3307,6 +3325,8 @@ def phase19_families(counts):
         t_model = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         cfg = get_config(arch)
+        if family in LAYERS19:
+            cfg = dataclasses.replace(cfg, n_layers=LAYERS19[family])
         t0 = time.perf_counter()
         params = api.init(cfg, SEED, device=DEVICE)
         torch.cuda.synchronize()
@@ -4178,6 +4198,11 @@ def blocked_moe21(p, x, *, top_k, capacity_factor, mesh=None):
     return torch.cat(rows, 0), torch.stack(auxes).mean()
 
 
+def cfg21e():
+    from repro_torch.configs import get_config
+    return get_config(ARCH21E)
+
+
 def f32_compute21(fn):
     """``fn()`` with the models' compute dtype float32 (``layers`` and
     ``moe``)."""
@@ -4416,9 +4441,13 @@ def phase21c_after_restore(tmp):
 
 
 def phase21b_child(mesh, tmp):
-    """(b) granite-moe-1b-a400m at full width, ``LAYERS21`` layers, under
-    expert parallelism: prefill (B9) at the published capacity factor and at
-    E / top_k, then constrained decode (B5) at the published factor."""
+    """(b) granite-moe-1b-a400m at full width, ``LAYERS21`` layers, on the
+    partitioned program (tensor-parallel attention, experts under expert
+    parallelism, each rank its rows), in float32 compute (tensor
+    parallelism sums the attention's heads in another order than one
+    process; blockwise attention, B9 takes bf16 only): prefill at the
+    published capacity factor and at E / top_k, then constrained decode
+    (B5) at the published factor."""
     import torch
     from repro_torch.core import compile_regex
     from repro_torch.distributed import sharding as shr
@@ -4428,15 +4457,18 @@ def phase21b_child(mesh, tmp):
 
     cfg = cfg21()
     params, init_s = synced(lambda: api.init(
-        cfg, SEED, device=mesh.device, keep=shr.expert_keep(mesh)))
+        cfg, SEED, device=mesh.device, keep=shr.param_keep(mesh)))
     z = np.load(os.path.join(tmp, "prompts.npz"))
     toks = torch.from_numpy(z["tokens"]).to(mesh.device)
     rep = {"init_s": init_s}
-    (logits, cache), rep["prefill_s"] = synced(lambda: api.prefill(
-        params, cfg, {"tokens": toks}, mesh=mesh))
+    (logits, cache), rep["prefill_s"] = synced(lambda: f32_compute21(
+        lambda: api.prefill(params, cfg, {"tokens": toks}, mesh=mesh,
+                            attn_route="blockwise")))
     del cache
-    (logits_nd, cache), rep["prefill_nodrop_s"] = synced(lambda: api.prefill(
-        params, cfg21(no_drop=True), {"tokens": toks}, mesh=mesh))
+    (logits_nd, cache), rep["prefill_nodrop_s"] = synced(
+        lambda: f32_compute21(lambda: api.prefill(
+            params, cfg21(no_drop=True), {"tokens": toks}, mesh=mesh,
+            attn_route="blockwise")))
     del cache
     if mesh.get_coordinate() == [0, 0, 0]:
         np.savez(os.path.join(tmp, "prefill_mesh.npz"),
@@ -4447,10 +4479,82 @@ def phase21b_child(mesh, tmp):
                            eos_id=None, device=mesh.device)
     eng = ServingEngine(cfg, params, ServeConfig(max_new_tokens=DECODE21),
                         constraint=gc, mesh=mesh)
-    out, rep["generate_s"] = synced(lambda: eng.generate(z["grammar"]))
+    out, rep["generate_s"] = synced(lambda: f32_compute21(
+        lambda: eng.generate(z["grammar"])))
     if mesh.get_coordinate() == [0, 0, 0]:
         np.save(os.path.join(tmp, "generate_mesh.npy"), out)
     rep["peak_gib"] = peak21()
+    return rep
+
+
+def phase21e_child(mesh, tmp):
+    """(e) tinyllama-1.1b at full width and depth on the partitioned
+    program: a bf16 prefill of ``PREFILL21E`` (B9 on the rank's rows and
+    query heads), the same prefill in float32 compute (blockwise), then
+    ``DECODE21E`` constrained greedy steps (B5 on the rank's rows) in
+    float32 compute; the collectives of each and the rank's peak memory
+    over this part."""
+    import torch
+    from repro_torch.core import compile_regex
+    from repro_torch.distributed import sharding as shr
+    from repro_torch.launch import mesh as lm
+    from repro_torch.models import api
+    from repro_torch.serving import (GrammarConstraint, ServeConfig,
+                                     ServingEngine)
+
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    cfg = cfg21e()
+    params, init_s = synced(lambda: api.init(
+        cfg, SEED, device=mesh.device, keep=shr.param_keep(mesh)))
+    z = np.load(os.path.join(tmp, "prompts21e.npz"))
+    batch = {"tokens": torch.from_numpy(z["tokens"]).to(mesh.device)}
+    rep = {"init_s": init_s, "wq": list(params["layers"]["attn"]["wq"]
+                                        .shape)}
+    first = mesh.get_coordinate() == [0, 0, 0]
+    lm.reset_mesh_stats()
+    lm.time_collectives(True)
+    before = all_launches()
+    (logits, cache), rep["prefill_s"] = synced(lambda: api.prefill(
+        params, cfg, batch, mesh=mesh))
+    rep["prefill_launches"] = launch_delta(before)
+    lm.time_collectives(False)
+    rep["prefill_stats"] = stats21()
+    rep["cache"] = list(cache["k"].shape)
+    del cache
+    if first:
+        np.save(os.path.join(tmp, "prefill21e.npy"),
+                logits.float().cpu().numpy())
+    del logits
+    lm.reset_mesh_stats()
+    lm.time_collectives(True)
+    (logits, cache), rep["prefill32_s"] = synced(lambda: f32_compute21(
+        lambda: api.prefill(params, cfg, batch, mesh=mesh,
+                            attn_route="blockwise")))
+    lm.time_collectives(False)
+    rep["prefill32_stats"] = stats21()
+    del cache
+    if first:
+        np.save(os.path.join(tmp, "prefill21e32.npy"), logits.cpu().numpy())
+    del logits
+    gc = GrammarConstraint(compile_regex(GRAMMAR12), cfg.padded_vocab,
+                           eos_id=None, device=mesh.device)
+    eng = ServingEngine(cfg, params, ServeConfig(max_new_tokens=DECODE21E),
+                        constraint=gc, mesh=mesh)
+    lm.reset_mesh_stats()
+    lm.time_collectives(True)
+    before = all_launches()
+    out, rep["generate_s"] = synced(lambda: f32_compute21(
+        lambda: eng.generate(z["grammar"])))
+    rep["generate_launches"] = launch_delta(before)
+    lm.time_collectives(False)
+    rep["generate_stats"] = stats21()
+    if first:
+        np.save(os.path.join(tmp, "generate21e.npy"), out)
+    rep["tokens"] = out.tolist()
+    rep["peak_gib"] = peak21()
+    del params, eng
     return rep
 
 
@@ -4565,13 +4669,15 @@ def phase21_child(argv):
         reset_all_launches()
         for part, fn in (("a", lambda: phase21a_child(mesh, smesh, tmp)),
                          ("b", lambda: phase21b_child(mesh, tmp)),
-                         ("c", lambda: phase21c_child(mesh, tmp))):
+                         ("c", lambda: phase21c_child(mesh, tmp)),
+                         ("e", lambda: phase21e_child(mesh, tmp))):
             before = all_launches()
             t0 = time.perf_counter()
             rep[part] = fn()
             rep[part]["wall_s"] = time.perf_counter() - t0
             rep[part]["launches_total"] = launch_delta(before)
-        rep["peak_gib"] = peak21()
+        # (e) restarts the peak's count: the rank's peak is the larger
+        rep["peak_gib"] = max(peak21(), rep["c"]["peak_gib"])
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
             json.dump(rep, fh)
     finally:
@@ -4591,11 +4697,14 @@ def phase21_oracle(tmp):
 
 
 def phase21_references(tmp, rng):
-    """The one-process card runs the world is held to: (b) prefill logits
-    at the published capacity factor through ``blocked_moe21`` and at
-    E / top_k through the local path, and constrained decode at the
-    published factor through ``blocked_moe21``; (c) one step of the cut
-    model (its parameters and moments saved leaf by leaf)."""
+    """The one-process card runs the world is held to, in float32 compute
+    where tensor parallelism reorders a sum: (b) prefill logits at the
+    published capacity factor through ``blocked_moe21`` and at E / top_k
+    through the local path, and constrained decode at the published factor
+    through ``blocked_moe21``; (c) one step of the cut model (its
+    parameters and moments saved leaf by leaf); (e) tinyllama-1.1b's
+    prefill in bf16 (B9) and in float32 compute, its constrained greedy
+    tokens in float32 compute, and this process's peak memory over (e)."""
     import torch
     from repro_torch.core import compile_regex
     from repro_torch.models import api
@@ -4610,8 +4719,13 @@ def phase21_references(tmp, rng):
     np.savez(os.path.join(tmp, "prompts.npz"), tokens=toks, grammar=gram)
     params = api.init(cfg, SEED, device=DEVICE)
     batch = {"tokens": torch.from_numpy(toks).to(DEVICE)}
-    blocked, _ = blocked21(lambda: api.prefill(params, cfg, batch))
-    plain, _ = api.prefill(params, cfg, batch)
+
+    def prefill(c):
+        return f32_compute21(lambda: api.prefill(params, c, batch,
+                                                 attn_route="blockwise"))
+
+    blocked, _ = blocked21(lambda: prefill(cfg))
+    plain, _ = prefill(cfg)
     # how far the mesh's token blocks move the logits from the local path
     # at the published factor (each block drops its own choices)
     ref = {"logits": blocked.float().cpu().numpy(),
@@ -4619,14 +4733,15 @@ def phase21_references(tmp, rng):
                plain.float(), blocked.float(), rtol=1e-5,
                atol=MISMATCH21[1])).float().mean())}
     del blocked, plain
-    logits, _ = api.prefill(params, cfg21(no_drop=True), batch)
+    logits, _ = prefill(cfg21(no_drop=True))
     ref["nodrop"] = logits.float().cpu().numpy()
     del logits
     gc = GrammarConstraint(compile_regex(GRAMMAR12), cfg.padded_vocab,
                            eos_id=None, device=DEVICE)
     eng = ServingEngine(cfg, params, ServeConfig(max_new_tokens=DECODE21),
                         constraint=gc)
-    ref["tokens"] = blocked21(lambda: eng.generate(gram))
+    ref["tokens"] = blocked21(lambda: f32_compute21(
+        lambda: eng.generate(gram)))
     del params, eng
     tcfg = cfg21(train=True, no_drop=True)
     opts = opts21(aux=0.0)
@@ -4639,6 +4754,30 @@ def phase21_references(tmp, rng):
         "params": state["params"], "m": state["opt"]["m"],
         "v": state["opt"]["v"]})
     del state
+    # (e)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    cfg = cfg21e()
+    b, t = PREFILL21E
+    toks = rng.integers(0, cfg.vocab_size, size=(b, t)).astype(np.int32)
+    gram = grammar_prompts(rng, b, PROMPT21)
+    np.savez(os.path.join(tmp, "prompts21e.npz"), tokens=toks, grammar=gram)
+    params = api.init(cfg, SEED, device=DEVICE)
+    batch = {"tokens": torch.from_numpy(toks).to(DEVICE)}
+    logits, _ = api.prefill(params, cfg, batch)
+    ref["e_bf16"] = logits.float().cpu().numpy()
+    logits, _ = f32_compute21(lambda: api.prefill(
+        params, cfg, batch, attn_route="blockwise"))
+    ref["e_f32"] = logits.cpu().numpy()
+    del logits
+    gc = GrammarConstraint(compile_regex(GRAMMAR12), cfg.padded_vocab,
+                           eos_id=None, device=DEVICE)
+    eng = ServingEngine(cfg, params, ServeConfig(max_new_tokens=DECODE21E),
+                        constraint=gc)
+    ref["e_tokens"] = f32_compute21(lambda: eng.generate(gram))
+    ref["e_peak_gib"] = peak21()
+    del params, eng
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     return ref
@@ -4701,8 +4840,9 @@ def phase21d_launcher():
 def phase21_mesh(counts):
     """The LM mesh on the card: eight ranks sharing it over gloo on
     ("pod", "data", "model") = (2, 2, 2): (a) collectives, (b) serving
-    under expert parallelism, (c) sharded training, then (d) the launcher
-    on a (2, 2) mesh."""
+    granite-moe-1b-a400m under tensor and expert parallelism, (c) sharded
+    training, (e) tinyllama-1.1b served at full width and depth on the
+    partitioned program, then (d) the launcher on a (2, 2) mesh."""
     import shutil
     import tempfile
 
@@ -4722,8 +4862,9 @@ def phase21_mesh(counts):
         t0 = time.perf_counter()
         ref = phase21_references(tmp, rng)
         print(f"[21] one-process references (granite-moe-1b-a400m prefill "
-              f"{PREFILL21}, generate, a train step at {TRAIN21[3]} layers) "
-              f"in {time.perf_counter() - t0:.1f} s")
+              f"{PREFILL21}, generate, a train step at {TRAIN21[3]} layers; "
+              f"{ARCH21E} prefill {PREFILL21E} and generate) in "
+              f"{time.perf_counter() - t0:.1f} s")
         n = int(np.prod(MESH21))
         logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
                 for r in range(n)]
@@ -4771,6 +4912,74 @@ def phase21_mesh(counts):
         print(f"[21d] in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase21e_report(reps, ref, tmp):
+    """Print and check 21(e): every rank launched B9 in its prefill and B5
+    in its decode steps; the prefill's logits within ``F32_21E`` (float32
+    compute) and ``BF16_21E`` (bf16) of one process's, of its largest
+    |logit|, argmax equal in float32; the greedy tokens equal to one
+    process's on every rank."""
+    cfg = cfg21e()
+    e = reps[0]["e"]
+    m = MESH21[2]
+    got16 = np.load(os.path.join(tmp, "prefill21e.npy"))
+    scale16 = float(np.abs(ref["e_bf16"]).max())
+    share = float(np.mean(~np.isclose(got16, ref["e_bf16"],
+                                      atol=MISMATCH21[1])))
+    gap16 = float(np.abs(got16 - ref["e_bf16"]).max())
+    rows16 = int((got16.argmax(-1) == ref["e_bf16"].argmax(-1)).sum())
+    got = np.load(os.path.join(tmp, "prefill21e32.npy"))
+    scale = float(np.abs(ref["e_f32"]).max())
+    gap = float(np.abs(got - ref["e_f32"]).max())
+    print(f"[21e] {ARCH21E}, full width and depth, on the partitioned "
+          f"program: rank 0 holds wq {e['wq']} ({cfg.n_heads // m} of "
+          f"{cfg.n_heads} query heads, d_model over 'data'), its cache "
+          f"{e['cache']} (its {PREFILL21E[0] // (MESH21[0] * MESH21[1])} "
+          f"rows, the kv heads its query heads read); init "
+          f"{e['init_s']:.2f} s")
+    print(f"[21e] bf16 prefill {PREFILL21E} on B9 (launches a rank "
+          f"{[r['e']['prefill_launches'].get('flash_attn', 0) for r in reps]}"
+          f", BH = rows x {cfg.n_heads // m} heads): "
+          f"{min(r['e']['prefill_s'] for r in reps):.3f}-"
+          f"{max(r['e']['prefill_s'] for r in reps):.3f} s a rank; logits "
+          f"against one process: |max| {scale16:.3f}, max |gap| "
+          f"{gap16:.4e} ({gap16 / scale16:.3e}; bound {BF16_21E}), mismatch "
+          f"share (atol {MISMATCH21[1]}) {share:.4f}, rows equal in argmax "
+          f"{rows16}/{got16.shape[0]}; collectives [calls, MB, ms] "
+          f"{e['prefill_stats']}")
+    print(f"[21e] float32-compute prefill (blockwise): "
+          f"{e['prefill32_s']:.3f} s (rank 0); max |gap| {gap:.4e} of |max| "
+          f"{scale:.3f} ({gap / scale:.3e}; bound {F32_21E}); collectives "
+          f"{e['prefill32_stats']}")
+    equal = [np.array_equal(np.array(r["e"]["tokens"]), ref["e_tokens"])
+             for r in reps]
+    print(f"[21e] float32-compute generate, {DECODE21E} constrained greedy "
+          f"steps (B5 on each rank's rows, launches a rank "
+          f"{[r['e']['generate_launches'].get('token_mask', 0) for r in reps]}"
+          f"): {min(r['e']['generate_s'] for r in reps):.3f}-"
+          f"{max(r['e']['generate_s'] for r in reps):.3f} s a rank, tokens "
+          f"equal to one process's on {sum(equal)}/{len(reps)} ranks; "
+          f"collectives {e['generate_stats']}")
+    print(f"[21e] peak memory over (e), GiB: one process "
+          f"{ref['e_peak_gib']:.2f}; a rank " + ", ".join(
+              f"{r['rank']}: {r['e']['peak_gib']:.2f}" for r in reps))
+    for r in reps:
+        check(r["e"]["prefill_launches"].get("flash_attn", 0)
+              == cfg.n_layers, f"[21e] rank {r['rank']} prefill launches "
+              f"{r['e']['prefill_launches']}")
+        check(r["e"]["generate_launches"].get("token_mask", 0) == DECODE21E,
+              f"[21e] rank {r['rank']} generate launches "
+              f"{r['e']['generate_launches']}")
+    check(all(equal), f"[21e] tokens differ from one process's on ranks "
+          f"{[r['rank'] for r, ok in zip(reps, equal) if not ok]}")
+    check(np.isfinite(got16).all() and gap16 <= BF16_21E * scale16,
+          f"[21e] bf16 prefill logits: max |gap| {gap16} of |max| "
+          f"{scale16} against one process (bound {BF16_21E} of it)")
+    check(gap <= F32_21E * scale and np.array_equal(
+        got.argmax(-1), ref["e_f32"].argmax(-1)),
+          f"[21e] float32 prefill logits: max |gap| {gap} of |max| {scale}"
+          f" against one process (bound {F32_21E} of it)")
 
 
 def phase21_report(reps, ref, oracle_states, after, tmp, counts):
@@ -4829,8 +5038,8 @@ def phase21_report(reps, ref, oracle_states, after, tmp, counts):
     share_nd = float(np.mean(~np.isclose(pre["nodrop"], ref["nodrop"],
                                          atol=MISMATCH21[1])))
     gap = np.abs(got - ref["logits"])
-    print(f"[21b] prefill logits at the published capacity factor against "
-          f"one process on blocked_moe21: |max| "
+    print(f"[21b] float32 compute: prefill logits at the published capacity "
+          f"factor against one process on blocked_moe21: |max| "
           f"{np.abs(ref['logits']).max():.3f}, max |gap| {gap.max():.4e}, "
           f"rows equal in argmax "
           f"{int((got.argmax(-1) == ref['logits'].argmax(-1)).sum())}/"
@@ -4847,9 +5056,9 @@ def phase21_report(reps, ref, oracle_states, after, tmp, counts):
     check(bool(equal.all()), f"[21b] decoded tokens differ from one process "
           f"on blocked_moe21 on rows {np.flatnonzero(~equal)}")
     b = reps[0]["b"]
-    print(f"[21b] granite-moe-1b-a400m, full width, {LAYERS21} layers, 16 "
-          f"experts a "
-          f"model rank: init {b['init_s']:.2f} s; prefill {PREFILL21} "
+    print(f"[21b] granite-moe-1b-a400m, full width, {LAYERS21} layers, "
+          f"tensor-parallel attention, 16 experts a model rank, float32 "
+          f"compute: init {b['init_s']:.2f} s; prefill {PREFILL21} "
           f"{b['prefill_s']:.3f} s (rank 0), logits mismatch share (atol "
           f"{MISMATCH21[1]}) {share:.4f} at the published factor against "
           f"one process on blocked_moe21, {share_nd:.4f} at E / top_k "
@@ -4905,14 +5114,15 @@ def phase21_report(reps, ref, oracle_states, after, tmp, counts):
           f"and grad_norm {ar['grad_norm']:.6f} vs {after['grad_norm']:.6f} "
           f"in one process from the same checkpoint, m and v per leaf "
           f"within {restored:.3e} relative L2")
+    phase21e_report(reps, ref, tmp)
     print("[21] peak memory a rank (GiB): " + ", ".join(
         f"{r['rank']}: {r['peak_gib']:.2f}" for r in reps))
-    print("[21] each rank's (a), (b), (c) in s: " + ", ".join(
-        f"{r['rank']}: " + "/".join(f"{r[p]['wall_s']:.1f}" for p in "abc")
+    print("[21] each rank's (a), (b), (c), (e) in s: " + ", ".join(
+        f"{r['rank']}: " + "/".join(f"{r[p]['wall_s']:.1f}" for p in "abce")
         for r in reps))
     total = {}
     for rep in reps:
-        for part in ("a", "b", "c"):
+        for part in ("a", "b", "c", "e"):
             for k, v in rep[part]["launches_total"].items():
                 total[k] = total.get(k, 0) + v
     for name in ("spec_match_merge", "token_mask", "spec_match",

@@ -17,7 +17,10 @@ divide, so one rule set serves all ten architectures and every mesh.
   * stacked layer/group leading dims (``STACK_KEYS``) are never sharded;
   * batches and caches: the batch dim over ("pod", "data").
 They read only the mesh's axis names and extents (a ``launch.mesh
-.MeshLayout`` will do).  ``named`` pairs each spec with its mesh, as
+.MeshLayout`` will do).  ``model_heads``, ``model_vocab`` and ``dp_rows``
+say which heads, vocab rows and batch rows a rank computes with under
+them (the partitioned program of ``models.transformer`` and
+``models.api``).  ``named`` pairs each spec with its mesh, as
 ``distributed.fault_tolerance.reshard_tree`` and ``training.checkpoint
 .restore_checkpoint(shardings=)`` take them.
 
@@ -36,7 +39,8 @@ __all__ = ["param_specs", "opt_state_specs", "batch_specs", "cache_specs",
            "STACK_KEYS", "MOE_EXPERT_KEYS",
            "matcher_table_specs", "matcher_chunk_specs", "matcher_lane_specs",
            "doc_batch_spec", "local_slices", "leaf_placements",
-           "param_keep", "expert_keep"]
+           "param_keep", "model_heads", "model_vocab",
+           "dp_parts", "dp_rows"]
 
 STACK_KEYS = {"layers", "groups", "enc", "dec"}
 MOE_EXPERT_KEYS = {"wi_gate", "wi_up", "wo"}
@@ -283,22 +287,57 @@ def param_keep(mesh):
     return keep
 
 
-def expert_keep(mesh):
-    """A ``keep(path, leaf)`` for ``models.api.init``: the serving layout
-    of expert parallelism.  Expert leaves keep this rank's ``[E / ep, ...]``
-    shard over "model", as ``param_specs`` places them; every other leaf
-    stays whole."""
-    Replicate, _ = _placements_cls()
+# -- what a rank computes with under the LM rules -----------------------------
 
-    def keep(path, leaf):
-        names = list(path)
-        if not ("moe" in names and names[-1] in MOE_EXPERT_KEYS):
-            return leaf
-        full = leaf_placements(names, tuple(leaf.shape), mesh)
-        only = tuple(p if n == "model" else Replicate()
-                     for n, p in zip(_names(mesh), full))
-        return local_block(leaf, only, mesh).clone()
-    return keep
+def model_heads(n_heads: int, n_kv: int, model: int,
+                rank: int) -> tuple[int, int, int, int] | None:
+    """``(q0, nq, k0, nk)``: the query heads ``[q0, q0 + nq)`` that rank
+    ``rank`` of a ``model``-way "model" axis computes where ``param_specs``
+    splits ``wq`` on its heads, and the kv heads ``[k0, k0 + nk)`` they
+    read (query head h reads kv head h // (n_heads // n_kv)).  ``None``
+    where the rules keep the heads whole, or where a rank's query heads
+    neither fill whole kv groups nor fall within one: the layer then
+    computes every head on every rank."""
+    if model <= 1 or n_heads % model or n_heads < model:
+        return None
+    nq = n_heads // model
+    group = n_heads // n_kv
+    q0 = rank * nq
+    if nq % group == 0:
+        return q0, nq, q0 // group, nq // group
+    if group % nq == 0:
+        return q0, nq, q0 // group, 1
+    return None
+
+
+def model_vocab(vocab: int, model: int, rank: int) -> tuple[int, int] | None:
+    """``(v0, nv)``: the vocab rows ``[v0, v0 + nv)`` of the embedding (and
+    columns of the head) that rank ``rank`` of a ``model``-way "model"
+    axis holds under ``param_specs``; ``None`` where they stay whole."""
+    if model <= 1 or vocab % model or vocab < model:
+        return None
+    nv = vocab // model
+    return rank * nv, nv
+
+
+def dp_parts(mesh, batch: int) -> int:
+    """Into how many parts ``batch_specs`` splits a batch of ``batch`` rows
+    on ``mesh`` (the extent of ("pod", "data"), or 1 where it does not
+    split them)."""
+    sizes = _sizes(mesh)
+    axes = _batch_axis(sizes, batch, batch)
+    return 1 if axes is None else math.prod(sizes[a] for a in axes)
+
+
+def dp_rows(mesh, batch: int) -> tuple[int, int] | None:
+    """``(start, rows)``: this rank's rows of a batch of ``batch`` rows
+    where ``batch_specs`` splits them over ("pod", "data") (``mesh`` an
+    ``LMMesh``); ``None`` where every rank takes them all."""
+    parts = dp_parts(mesh, batch)
+    if parts == 1:
+        return None
+    rows = batch // parts
+    return mesh.group_index(_dp(_sizes(mesh))) * rows, rows
 
 
 # -- the matcher's operands --------------------------------------------------

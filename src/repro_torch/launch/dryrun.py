@@ -10,11 +10,13 @@ compiles each cell on 512 forced host devices.  Per cell this driver
      multi-pod) on it, naming rank 0's device instead of probing for it;
   2. makes rank 0's parameter, optimizer and batch leaves as
      ``FakeTensor``s (shapes, no data, nothing drawn): the parameters from
-     ``models.api.param_shapes`` placed by ``distributed.sharding``
-     (training: ``param_specs``, each leaf this rank's block; serving: the
-     expert-parallel layout of ``expert_keep``), the batch from
-     ``models.api.input_specs``.  The port's steps take the whole batch on
-     every rank (SPMD), so the batch leaves are whole;
+     ``models.api.param_shapes``, each leaf this rank's block under
+     ``distributed.sharding.param_specs`` (training and serving alike),
+     the batch from ``models.api.input_specs(cfg, shape, mesh)``.  The
+     port's steps take the whole batch's tokens on every rank (SPMD) and
+     cut this rank's rows themselves, as ``batch_specs`` places them; a
+     decode cell's cache or state is this rank's own (its rows, and the kv
+     heads of ``transformer.cache_heads``), as the prefill leaves it;
   3. runs one *production* step on them inside ``launch.census
      .trace_census``: ``training.make_train_step(cfg, mesh, opts)`` for
      train cells, ``api.prefill`` / ``api.decode(..., mesh=mesh)`` for
@@ -90,7 +92,7 @@ def _tree_map(fn, tree, path=()):
 _FAKE_DEVICE = torch.device("cpu")
 
 
-def _batch(cfg, shape, device) -> dict:
+def _batch(cfg, shape, device, mesh=None) -> dict:
     """Fake batch leaves of ``api.input_specs`` (call under a fake mode);
     a decode cell's position is the cache's last, an int as
     ``api.make_inputs`` gives it."""
@@ -100,7 +102,7 @@ def _batch(cfg, shape, device) -> dict:
         if path == ("pos",):
             return shape.seq_len - 1
         return torch.empty(spec.shape, dtype=spec.dtype, device=device)
-    return _tree_map(leaf, api.input_specs(cfg, shape))
+    return _tree_map(leaf, api.input_specs(cfg, shape, mesh))
 
 
 def _train_state(cfg, mesh, opts, device) -> dict:
@@ -138,21 +140,24 @@ def _train_state(cfg, mesh, opts, device) -> dict:
 
 
 def _serving_params(cfg, mesh, device) -> dict:
-    """Rank 0's serving parameters as fake leaves: whole, but for the
-    expert leaves' ``[E / ep, ...]`` shard over "model" (``expert_keep``,
-    applied to a meta leaf of each drawn entry's shape)."""
+    """Rank 0's serving parameters as fake leaves: each leaf its
+    ``param_specs`` block, as ``api.init(..., keep=sharding.param_keep
+    (mesh))`` keeps it."""
     from ..distributed import sharding as shr
     from ..models import api
 
-    keep = shr.expert_keep(mesh)
+    shapes = api.param_shapes(cfg)
+    specs = shr.param_specs(shapes, mesh)
+    coord = mesh.get_coordinate()
 
     def leaf(path, shape):
-        stacked = any(k in shr.STACK_KEYS for k in path[:-1])
-        own = tuple(shape[1:]) if stacked else tuple(shape)
-        local = tuple(keep(path, torch.empty(own, device="meta")).shape)
-        local = (shape[0],) + local if stacked else local
-        return torch.empty(local, dtype=torch.float32, device=device)
-    return _tree_map(leaf, api.param_shapes(cfg))
+        placements = specs
+        for k in path:
+            placements = placements[k]
+        idx = shr.local_slices(shape, placements, mesh.shape, coord)
+        return torch.empty(tuple(s.stop - s.start for s in idx),
+                           dtype=torch.float32, device=device)
+    return _tree_map(leaf, shapes)
 
 
 def _locals(tree) -> list:
@@ -200,8 +205,12 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool, *,
         extra = {"num_microbatches": nm}
     else:
         from ..models import api
+        # the parameters' placements, drawn on the meta device before the
+        # trace so that its memory holds the step's storages alone
+        api.MeshRows(cfg, mesh, shape.global_batch)
         with fake_mode:
-            args = (_serving_params(cfg, mesh, dev), _batch(cfg, shape, dev))
+            args = (_serving_params(cfg, mesh, dev),
+                    _batch(cfg, shape, dev, mesh))
         if shape.kind == "prefill":
             fn = lambda p, b: api.prefill(p, cfg, b, mesh=mesh)
         else:

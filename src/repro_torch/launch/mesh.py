@@ -27,7 +27,11 @@ exchanged, copied back), over NCCL the exchange runs on the card.  A
 collective over an axis of one rank moves nothing.  The collectives inside
 a differentiated region are ``torch.autograd.Function``s whose backward is
 the adjoint collective (``gather_shards``, ``split``, ``gather``,
-``exchange``, ``sum_grads``, ``replica_mean``).  ``MESH_STATS`` counts
+``exchange``, ``sum_grads``, ``reduce_parts``, ``replica_mean``).  Tensor
+parallelism over "model" takes three of them: ``sum_grads`` at a
+column-parallel product's input (identity forward, sum backward),
+``reduce_parts`` at a row-parallel product's output (sum forward, identity
+backward) and ``gather`` of a vocab-parallel product's slices.  ``MESH_STATS`` counts
 each collective's calls and bytes (and its host-clock seconds while
 ``time_collectives(True)``).
 
@@ -65,7 +69,7 @@ __all__ = ["make_matcher_mesh", "factor_matcher_mesh", "matcher_mesh_extents",
            "make_production_mesh", "make_local_mesh", "all_gather",
            "all_reduce", "reduce_scatter", "all_to_all", "permute",
            "gather_shards", "split", "gather", "exchange", "sum_grads",
-           "replica_mean", "MESH_STATS", "reset_mesh_stats",
+           "reduce_parts", "replica_mean", "MESH_STATS", "reset_mesh_stats",
            "time_collectives", "lm_mesh_of", "whole_on_host", "barrier"]
 
 # how long a collective of the groups this module creates may wait for its
@@ -740,6 +744,27 @@ def sum_grads(x: torch.Tensor, mesh: LMMesh, axes) -> torch.Tensor:
     if mesh.axis_size(axes) == 1:
         return x
     return _SumGrads.apply(x, mesh, axes)
+
+
+class _ReduceParts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return all_reduce(x.float(), mesh, axes).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def reduce_parts(x: torch.Tensor, mesh: LMMesh, axes) -> torch.Tensor:
+    """The sum over ``axes`` of each rank's part of a result (a
+    row-parallel product's partial sums), whole on every rank; summed in
+    float32 and rounded once to ``x``'s dtype.  What follows runs on every
+    rank alike, so the backward passes the gradient through as it is: each
+    rank's part gets the whole sum's gradient."""
+    if mesh.axis_size(axes) == 1:
+        return x
+    return _ReduceParts.apply(x, mesh, axes)
 
 
 class _ReplicaMean(torch.autograd.Function):

@@ -20,16 +20,26 @@ layer's body rematerialised by ``cfg.remat_policy``):
 or on an LM mesh.
 
 ``mesh`` (a ``launch.mesh.LMMesh``; SPMD: every rank passes the same whole
-batch and gets the whole result) reaches the transformer family's MoE
-layers, which then run expert parallelism over its "model" axis; the
-expert leaves of ``params`` are then this rank's shard (``init(...,
-keep=distributed.sharding.expert_keep(mesh))``).  The other families accept
-it and pass it on, as the reference's.
+batch and gets the whole result) runs the partitioned program of the
+reference's sharding rules.  ``params`` are this rank's blocks as
+``distributed.sharding.param_specs`` places them (``init(...,
+keep=distributed.sharding.param_keep(mesh))``, or ``convert
+.params_from_jax(..., mesh=mesh)``).  Each rank computes its rows of the
+batch over ("pod", "data") where ``batch_specs`` splits them (``dp_rows``),
+with its own cache or state of those rows; only the returned logits are
+gathered over those axes.  The transformer families (dense, moe, vlm) run
+tensor parallelism over "model" (their heads, hidden width and vocab; the
+MoE layers' experts under expert parallelism), each layer gathering its
+leaves over "data" just before use (FSDP); their cache holds the rank's
+rows and the kv heads its query heads read (``transformer.cache_heads``).
+The hybrid, ssm and encdec families gather their leaves whole and compute
+every head and channel on every rank of "model".
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -39,12 +49,17 @@ from ..core.engine.plan import resolve_device
 from . import encdec as ED
 from . import recurrent as RG
 from . import transformer as TF
+from . import layers as L
 from . import xlstm as XL
 from .layers import Compute
 from .transformer import lm_loss
 
 __all__ = ["init", "train_logits", "prefill", "decode", "make_inputs",
-           "input_specs", "param_shapes", "lm_loss", "TensorSpec"]
+           "input_specs", "param_shapes", "lm_loss", "TensorSpec",
+           "MeshRows", "TP_FAMILIES"]
+
+# the families whose layers run tensor parallelism over "model"
+TP_FAMILIES = ("dense", "moe", "vlm")
 
 _INIT = {"dense": TF.init_lm, "moe": TF.init_lm, "vlm": TF.init_lm,
          "hybrid": RG.init_hybrid, "ssm": XL.init_xlstm,
@@ -93,6 +108,80 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return _tree_map(lambda x: tuple(x.shape), params)
 
 
+def _tree_paths(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _tree_paths(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+class MeshRows:
+    """How one call of the model runs on an LM mesh: this rank's rows of a
+    batch of ``batch`` rows (``sharding.dp_rows``) and the FSDP gather of
+    its parameters (``weights``).  ``take`` cuts a whole-batch leaf to the
+    rows, ``whole`` gathers a result's rows over the data axes."""
+
+    def __init__(self, cfg: ModelConfig, mesh, batch: int):
+        from ..distributed import sharding as shr
+        from ..launch import mesh as lm
+        self.mesh = mesh
+        self.rows = shr.dp_rows(mesh, batch)
+        self.dp = lm.dp_axes(mesh)
+        self.tp = cfg.family in TP_FAMILIES
+        self.specs = _param_specs(cfg, tuple(mesh.shape),
+                                  tuple(mesh.mesh_dim_names))
+
+    def take(self, x):
+        if self.rows is None or not isinstance(x, torch.Tensor) \
+                or x.dim() == 0:
+            return x
+        return x.narrow(0, *self.rows)
+
+    def whole(self, x):
+        from ..launch import mesh as lm
+        if self.rows is None:
+            return x
+        return lm.all_gather(x, self.mesh, self.dp, 0)
+
+    def _gather(self, path, x, stacked: bool):
+        from ..distributed import sharding as shr
+        from ..launch import mesh as lm
+        if "moe" in path and path[-1] in shr.MOE_EXPERT_KEYS:
+            return x                      # expert parallelism's own shard
+        spec = self.specs
+        for k in path:
+            spec = spec[k]
+        sh = [(a, d - 1 if stacked else d)
+              for a, d in shr.shards_of(spec, self.mesh)
+              if not (self.tp and a == "model")]
+        if not sh:
+            return x
+        if self.tp:       # cast where the layers would: half the bytes
+            x = x.to(L.Compute)
+        return lm.gather_shards(x, self.mesh, sh)
+
+    def weights(self, path: tuple, tree):
+        """The ``weights(path, tree)`` hook of ``transformer.forward``:
+        each leaf gathered over "data" (its "model" shard kept)."""
+        stacked = path[:1] == ("layers",)
+        return _tree_paths(lambda sub, x: self._gather(path + sub, x,
+                                                       stacked), tree)
+
+    def whole_params(self, params: dict) -> dict:
+        """Every leaf of ``params`` gathered whole (the families without
+        tensor parallelism)."""
+        return _tree_paths(lambda path, x: self._gather(path, x, False),
+                           params)
+
+
+@functools.lru_cache(maxsize=None)
+def _param_specs(cfg: ModelConfig, shape: tuple, names: tuple):
+    """``param_specs`` of ``cfg``'s parameters on a mesh of ``shape``
+    (read only: every call of a mesh shape shares it)."""
+    from ..distributed.sharding import param_specs
+    from ..launch.mesh import MeshLayout
+    return param_specs(param_shapes(cfg), MeshLayout(shape, names))
+
+
 def train_logits(params, cfg: ModelConfig, batch: dict, *, mesh=None,
                  weights=None):
     """The training forward pass: (logits, aux_loss), differentiable in
@@ -131,54 +220,81 @@ def prefill(params, cfg: ModelConfig, batch: dict, *, mesh=None,
     ssm families return no state (as the reference).  ``last_only``
     (default) emits the final position's logits only; ``attn_route``
     (``"auto"``, ``"kernel"`` or ``"blockwise"``) picks the attention
-    route (``layers.attention``)."""
+    route (``layers.attention``).  On ``mesh`` (see the module's
+    docstring) the logits are whole and the cache is this rank's."""
+    on = None if mesh is None else MeshRows(cfg, mesh, batch["tokens"]
+                                            .shape[0])
+    weights = None
+    if on is not None:
+        batch = {k: on.take(v) for k, v in batch.items()}
+        if on.tp:
+            weights = on.weights
+        else:
+            params = on.whole_params(params)
     tokens = batch["tokens"]
     b, t = tokens.shape
     if cfg.family in ("dense", "moe", "vlm"):
         prefix = batch["patches"] if cfg.family == "vlm" else None
         n_prefix = 0 if prefix is None else prefix.shape[1]
-        cache = TF.init_cache(cfg, b, t + n_prefix, device=tokens.device)
+        cache = TF.init_cache(cfg, b, t + n_prefix, device=tokens.device,
+                              mesh=mesh)
         logits, cache, _ = TF.forward(params, cfg, tokens,
                                       prefix_embeds=prefix, cache=cache,
                                       last_only=last_only,
-                                      attn_route=attn_route, mesh=mesh)
-        return logits, cache
-    if cfg.family == "hybrid":
+                                      attn_route=attn_route, mesh=mesh,
+                                      weights=weights)
+    elif cfg.family == "hybrid":
         logits, _, _ = RG.forward_hybrid(params, cfg, tokens,
                                          last_only=last_only, mesh=mesh)
-        return logits, None
-    if cfg.family == "ssm":
+        cache = None
+    elif cfg.family == "ssm":
         logits, _, _ = XL.forward_xlstm(params, cfg, tokens,
                                         last_only=last_only, mesh=mesh)
-        return logits, None
-    if cfg.family == "encdec":
+        cache = None
+    elif cfg.family == "encdec":
         cache = ED.init_encdec_cache(cfg, b, t, device=tokens.device)
         logits, cache, _ = ED.forward_encdec(params, cfg, batch["frames"],
                                              tokens, cache=cache,
                                              last_only=last_only,
                                              attn_route=attn_route,
                                              mesh=mesh)
-        return logits, cache
-    raise ValueError(cfg.family)
+    else:
+        raise ValueError(cfg.family)
+    return (logits if on is None else on.whole(logits)), cache
 
 
 def decode(params, cfg: ModelConfig, batch: dict, *, mesh=None):
-    """One decode step; the batch's cache or state is updated in place."""
+    """One decode step; the batch's cache or state is updated in place.
+    On ``mesh`` the tokens are the whole batch's, the cache or state this
+    rank's (``prefill``'s), and the logits whole."""
+    on = None if mesh is None else MeshRows(cfg, mesh, batch["tokens"]
+                                            .shape[0])
+    weights = None
+    tokens = batch["tokens"]
+    memory = batch.get("memory")
+    if on is not None:
+        tokens, memory = on.take(tokens), on.take(memory)
+        if on.tp:
+            weights = on.weights
+        else:
+            params = on.whole_params(params)
     if cfg.family in ("dense", "moe", "vlm"):
-        return TF.decode_step(params, cfg, batch["cache"], batch["tokens"],
-                              batch["pos"], mesh=mesh)
-    if cfg.family == "hybrid":
-        return RG.decode_step_hybrid(params, cfg, batch["state"],
-                                     batch["tokens"], batch["pos"],
-                                     mesh=mesh)
-    if cfg.family == "ssm":
-        return XL.decode_step_xlstm(params, cfg, batch["state"],
-                                    batch["tokens"], batch["pos"], mesh=mesh)
-    if cfg.family == "encdec":
-        return ED.decode_step_encdec(params, cfg, batch["cache"],
-                                     batch["memory"], batch["tokens"],
-                                     batch["pos"], mesh=mesh)
-    raise ValueError(cfg.family)
+        logits, out = TF.decode_step(params, cfg, batch["cache"], tokens,
+                                     batch["pos"], mesh=mesh,
+                                     weights=weights)
+    elif cfg.family == "hybrid":
+        logits, out = RG.decode_step_hybrid(params, cfg, batch["state"],
+                                            tokens, batch["pos"], mesh=mesh)
+    elif cfg.family == "ssm":
+        logits, out = XL.decode_step_xlstm(params, cfg, batch["state"],
+                                           tokens, batch["pos"], mesh=mesh)
+    elif cfg.family == "encdec":
+        logits, out = ED.decode_step_encdec(params, cfg, batch["cache"],
+                                            memory, tokens, batch["pos"],
+                                            mesh=mesh)
+    else:
+        raise ValueError(cfg.family)
+    return (logits if on is None else on.whole(logits)), out
 
 
 # --------------------------------------------------------------------------
@@ -200,8 +316,11 @@ def _specs_of(tree: dict) -> dict:
     return _tree_map(lambda x: TensorSpec(tuple(x.shape), x.dtype), tree)
 
 
-def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
-    """TensorSpec stand-ins for every model input of this cell."""
+def input_specs(cfg: ModelConfig, shape: ShapeSpec, mesh=None) -> dict:
+    """TensorSpec stand-ins for every model input of this cell.  On
+    ``mesh`` a decode cell's cache or state is this rank's, as ``prefill``
+    leaves it (its rows; for the transformer families the kv heads of
+    ``transformer.cache_heads``); every other leaf stays whole (SPMD)."""
     sp = _token_split(cfg, shape)
     b = sp["batch"]
     i32 = torch.int32
@@ -222,7 +341,13 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
 
     # decode shapes: one new token against a seq_len-deep cache/state
     out = {"tokens": TensorSpec((b, 1), i32), "pos": TensorSpec((), i32)}
-    cshape = (cfg.n_layers, b, shape.seq_len, cfg.n_kv_heads, cfg.hd)
+    rows, heads = b, cfg.n_kv_heads
+    if mesh is not None:
+        from ..distributed.sharding import dp_parts
+        rows = b // dp_parts(mesh, b)
+        if cfg.family in TP_FAMILIES:
+            heads = TF.cache_heads(cfg, mesh)
+    cshape = (cfg.n_layers, rows, shape.seq_len, heads, cfg.hd)
     if cfg.family in ("dense", "moe", "vlm", "encdec"):
         out["cache"] = {"k": TensorSpec(cshape, Compute),
                         "v": TensorSpec(cshape, Compute)}
@@ -230,9 +355,11 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
         out["memory"] = TensorSpec((b, cfg.enc_frames_decode, cfg.d_model),
                                    Compute)
     elif cfg.family == "hybrid":
-        out["state"] = _specs_of(RG.init_hybrid_state(cfg, b, device="meta"))
+        out["state"] = _specs_of(RG.init_hybrid_state(cfg, rows,
+                                                      device="meta"))
     elif cfg.family == "ssm":
-        out["state"] = _specs_of(XL.init_xlstm_state(cfg, b, device="meta"))
+        out["state"] = _specs_of(XL.init_xlstm_state(cfg, rows,
+                                                     device="meta"))
     return out
 
 

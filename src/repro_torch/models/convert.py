@@ -7,7 +7,10 @@ the same stacked layout (``[L, ...]`` layers; ``[n_groups, ...]`` groups
 and an unstacked ``tail`` for the hybrid and ssm families; ``enc``/``dec``
 stacks for encdec), float32 tensors on ``device``.  Every family's tree
 goes through it (``api.param_shapes``).  The tests feed both packages the
-same weights through it.
+same weights through it; with ``mesh=`` (an LM mesh) each rank keeps its
+block of each leaf as ``distributed.sharding.param_specs`` places it
+(``local_block``), the layout ``api.init(..., keep=param_keep(mesh))``
+draws.
 
 ``train_state_from_jax(cfg, state)`` does the same for a whole train state
 (``training.init_train_state``'s ``{"params", "opt": {"m", "v", "step"}}``,
@@ -28,10 +31,24 @@ from .api import param_shapes
 __all__ = ["params_from_jax", "train_state_from_jax", "train_state_to_numpy"]
 
 
-def params_from_jax(cfg: ModelConfig, tree: dict, *, device=None) -> dict:
+def params_from_jax(cfg: ModelConfig, tree: dict, *, device=None,
+                    mesh=None) -> dict:
     """The JAX parameter tree of ``cfg`` -> the port's, on ``device``
-    (default: the card).  Raises if a name or a shape does not match."""
+    (default: the card; on ``mesh``, this rank's block of each leaf).
+    Raises if a name or a shape does not match."""
     device = resolve_device(device)
+    specs = None
+    if mesh is not None:
+        from ..distributed.sharding import local_block, param_specs
+        specs = param_specs(param_shapes(cfg), mesh)
+
+    def block(arr, path):
+        if specs is None:
+            return arr
+        spec = specs
+        for k in path.strip("/").split("/"):
+            spec = spec[k]
+        return np.ascontiguousarray(local_block(arr, spec, mesh))
 
     def convert(shapes, node, path):
         if isinstance(shapes, dict):
@@ -45,7 +62,7 @@ def params_from_jax(cfg: ModelConfig, tree: dict, *, device=None) -> dict:
         if arr.shape != tuple(shapes):
             raise ValueError(f"{path}: expected shape {tuple(shapes)}, got "
                              f"{arr.shape}")
-        return torch.from_numpy(arr).to(device)
+        return torch.from_numpy(block(arr, path)).to(device)
 
     return convert(param_shapes(cfg), tree, "")
 

@@ -11,6 +11,16 @@ differ from ``jax.random``; tests share weights through
 Unlike the JAX layers, ``attention`` writes the new keys and values into
 the cache tensors it is given, in place, instead of returning updated
 copies: a decode step then moves one token's K/V, not the whole cache.
+
+Tensor parallelism.  Given an LM mesh's "model" axis (``mesh=``),
+``attention``, ``swiglu_mlp``, ``embed_tp`` and ``logits_tp`` compute with
+the shards ``distributed.sharding.param_specs`` gives a rank on that axis
+(Megatron's layout, which the reference's GSPMD program takes from the same
+rules): query heads and ``wo``'s rows, the MLP's hidden columns and ``wo``'s
+rows, the vocab rows of the table and head.  A column-parallel product's
+input passes ``launch.mesh.sum_grads`` and a row-parallel output
+``launch.mesh.reduce_parts`` (one sum over "model"); vocab-parallel logits
+are gathered.  A leaf given whole computes as on one device.
 """
 
 from __future__ import annotations
@@ -32,7 +42,7 @@ __all__ = [
     "attention", "init_kv_cache_layer", "init_mlp", "swiglu_mlp",
     "truncated_normal", "stack_trees", "index_tree", "unstack_tree",
     "remat", "remat_all", "REMAT_POLICIES", "sigmoid", "silu", "gelu",
-    "keep_tree",
+    "keep_tree", "embed_tp", "logits_tp", "model_size",
 ]
 
 Compute = torch.bfloat16
@@ -176,6 +186,41 @@ def unembed(p, x):
     return torch.matmul(x, p["table"].to(Compute).t())
 
 
+def model_size(mesh) -> int:
+    """The extent of ``mesh``'s "model" axis (1 without a mesh)."""
+    return 1 if mesh is None else mesh.axis_size("model")
+
+
+def embed_tp(p, tokens, *, vocab: int, mesh=None):
+    """``embed`` where ``p``'s table may be this rank's ``[vocab / m, D]``
+    rows over "model": the ids in the rank's range are looked up, the
+    others give zeros, and the parts are summed over "model" (one rank
+    holds each id's row, so the sum is exact)."""
+    if model_size(mesh) == 1 or p["table"].shape[0] == vocab:
+        return embed(p, tokens)
+    from ..distributed.sharding import model_vocab
+    from ..launch import mesh as lm
+    v0, nv = model_vocab(vocab, model_size(mesh), mesh.coordinate("model"))
+    local = tokens.long() - v0
+    hit = (local >= 0) & (local < nv)
+    x = p["table"].to(Compute)[local.clamp(0, nv - 1)]
+    x = torch.where(hit[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                     device=x.device))
+    return lm.reduce_parts(x, mesh, "model")
+
+
+def logits_tp(w, x, *, vocab: int, mesh=None):
+    """``x @ w`` (``w`` [D, V]) where ``w`` may be this rank's ``[D,
+    vocab / m]`` columns over "model": the rank's vocab slice of the
+    logits, all-gathered over "model" into the whole vocab."""
+    w = w.to(Compute)
+    if model_size(mesh) == 1 or w.shape[1] == vocab:
+        return torch.matmul(x, w)
+    from ..launch import mesh as lm
+    local = torch.matmul(lm.sum_grads(x, mesh, "model"), w)
+    return lm.gather(local, mesh, "model", local.dim() - 1)
+
+
 def rope(x, positions, theta: float = 10_000.0):
     """Rotary embedding. x [..., T, H, D]; positions [..., T]."""
     d = x.shape[-1]
@@ -237,7 +282,8 @@ def attention(p, x, *, positions, rope_theta: float, window: int = 0,
               cache: Optional[dict] = None, cache_index: int = 0,
               memory: Optional[torch.Tensor] = None, causal: bool = True,
               q_block: int = 512, kv_block: int = 1024,
-              attn_route: str = "auto"):
+              attn_route: str = "auto", mesh=None,
+              heads: Optional[tuple] = None):
     """GQA attention.
 
     x [B, T, D].  Without ``cache``: causal (or bidirectional) attention
@@ -249,9 +295,21 @@ def attention(p, x, *, positions, rope_theta: float, window: int = 0,
     B9 on the card; other long queries run the blockwise path, short
     (decode) queries the direct path; ``attn_route`` picks the prefill's
     route (``_kernel_route``).  Returns (out [B, T, D], cache).
+
+    ``mesh`` (an LM mesh's "model" axis) with ``heads`` = (n_heads, n_kv,
+    head_dim), the layer's whole counts: tensor parallelism where ``p``'s
+    leaves are this rank's shards (``_model_parallel``): the rank computes
+    its query heads against the kv heads they read, and the cache holds
+    those kv heads only.
     """
     from ..kernels import ops as kops
 
+    split = False
+    if model_size(mesh) > 1 and memory is None:
+        p, split = _model_parallel(p, heads, mesh)
+        if split:
+            from ..launch import mesh as lm
+            x = lm.sum_grads(x, mesh, "model")
     b, t, d = x.shape
     q = torch.einsum("btd,dnh->btnh", x, p["wq"].to(Compute))
     src = memory if memory is not None else x
@@ -295,7 +353,52 @@ def attention(p, x, *, positions, rope_theta: float, window: int = 0,
                                window=window, kv_valid=kv_valid)
     ctx = ctx.reshape(b, t, n_heads, hd)
     out = torch.einsum("btnh,nhd->btd", ctx, p["wo"].to(Compute))
+    if split:
+        from ..launch import mesh as lm
+        out = lm.reduce_parts(out, mesh, "model")
     return out, cache
+
+
+def _model_parallel(p, heads: tuple, mesh) -> tuple[dict, bool]:
+    """(the attention leaves this rank computes with, whether its output
+    is a part to sum over "model").
+
+    Where ``wq`` holds this rank's query heads and they fill whole kv
+    groups or fall within one (``sharding.model_heads``), ``wq`` and
+    ``wo`` are used as they are, and ``wk``/``wv`` keep the kv heads those
+    query heads read: their own shard where the rules split them on the kv
+    heads, else made whole over "model" (from a head_dim split: their
+    gradient is summed, since the ranks read different heads of it) and
+    cut to those heads.  Otherwise every leaf is made whole over "model"
+    and the layer computes every head on every rank (its gradient is this
+    rank's part of identical ones)."""
+    from ..distributed.sharding import model_heads
+    from ..launch import mesh as lm
+
+    n_heads, n_kv, hd = heads
+    m = mesh.axis_size("model")
+    plan = model_heads(n_heads, n_kv, m, mesh.coordinate("model")) \
+        if p["wq"].shape[1] < n_heads else None
+    full = {"wq": (None, n_heads, hd), "wk": (None, n_kv, hd),
+            "wv": (None, n_kv, hd), "wo": (n_heads, hd, None)}
+
+    def whole(k, summed):
+        w = p[k]
+        dims = [i for i, n in enumerate(full[k])
+                if n is not None and w.shape[i] < n]
+        if dims:
+            return lm.gather_shards(w, mesh, [("model", dims[0])],
+                                    summed=("model",) if summed else ())
+        return lm.sum_grads(w, mesh, "model") if summed else w
+
+    if plan is None:
+        return {k: whole(k, False) for k in full}, False
+    _, _, k0, nk = plan
+    out = dict(p)
+    for k in ("wk", "wv"):
+        if p[k].shape[1] * m != n_kv:       # not split on the kv heads
+            out[k] = whole(k, True).narrow(1, k0, nk)
+    return out, True
 
 
 # --------------------------------------------------------------------------
@@ -313,7 +416,15 @@ def init_mlp(gen, d_model: int, d_ff: int, *, device):
     }
 
 
-def swiglu_mlp(p, x):
+def swiglu_mlp(p, x, *, mesh=None, d_ff: int = 0):
+    """SwiGLU.  ``mesh`` (an LM mesh's "model" axis) with ``d_ff`` the
+    whole hidden width: where ``p``'s leaves are this rank's hidden columns
+    (``wi_gate``, ``wi_up``) and rows (``wo``), the output is this rank's
+    part, summed over "model"."""
+    if model_size(mesh) > 1 and p["wi_gate"].shape[1] < d_ff:
+        from ..launch import mesh as lm
+        out = swiglu_mlp(p, lm.sum_grads(x, mesh, "model"))
+        return lm.reduce_parts(out, mesh, "model")
     gate = torch.matmul(x, p["wi_gate"].to(Compute))
     up = torch.matmul(x, p["wi_up"].to(Compute))
     return torch.matmul(silu(gate) * up, p["wo"].to(Compute))

@@ -125,10 +125,14 @@ def moe_mlp(p, x, *, top_k: int, capacity_factor: float = 1.25,
 
     ``mesh`` (a ``launch.mesh.LMMesh``) with an ``expert_axis`` asks for
     expert parallelism (``_moe_sharded``); without one the local path
-    runs.  On a mesh ``x`` is the whole batch on every rank and so is the
-    result; the expert leaves of ``p`` (``wi_gate``, ``wi_up``, ``wo``)
-    are this rank's own ``[E / ep, ...]`` shard, as ``training.train_loop
-    .state_shardings`` places them, and the router is whole.
+    runs.  On a mesh ``x`` is the caller's rows, the same on every rank of
+    the expert axis, and so is the result: the transformer hands its "model"
+    axis alone (its rows already split over the data axes, its attention
+    run tensor-parallel before), and the block split then cuts the sequence
+    over "model"; a mesh with data axes also splits the rows over them.
+    The expert leaves of ``p`` (``wi_gate``, ``wi_up``, ``wo``) are this
+    rank's own ``[E / ep, ...]`` shard, as ``distributed.sharding
+    .param_specs`` places them, and the router is whole.
     """
     if mesh is None or expert_axis not in tuple(mesh.mesh_dim_names or ()):
         return _moe_local(p, x, top_k, capacity_factor)

@@ -10,6 +10,15 @@ training (no cache; each layer's body under ``cfg.remat_policy``,
 returned); ``decode_step`` consumes one token block against the cache, also
 in place.  MoE layers run ``models.moe.moe_mlp``: its local path, or
 expert parallelism on an LM mesh.
+
+On an LM mesh (``mesh=``) the layers run the partitioned program over its
+"model" axis: tensor parallelism of the attention heads, the MLP's hidden
+width and the vocab (``layers``), expert parallelism of the MoE layers,
+each leaf of ``params`` this rank's shard as ``distributed.sharding
+.param_specs`` places it on "model" (a leaf given whole computes as on one
+device).  The rows are the caller's: ``models.api`` and the train step
+split the batch over the data axes before they call in, and ``weights``
+gathers each leaf over "data".
 """
 
 from __future__ import annotations
@@ -23,7 +32,8 @@ from ..configs.base import ModelConfig
 from . import layers as L
 from .moe import init_moe, moe_mlp
 
-__all__ = ["init_lm", "forward", "init_cache", "decode_step", "lm_loss"]
+__all__ = ["init_lm", "forward", "init_cache", "decode_step", "lm_loss",
+           "cache_heads", "model_axis"]
 
 
 def init_layer(cfg: ModelConfig, gen: torch.Generator, *, device) -> dict:
@@ -61,6 +71,26 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, *, device,
     return params
 
 
+def model_axis(mesh):
+    """The "model" axis of an LM mesh as a mesh of its own (``None``
+    without a mesh or without that axis)."""
+    if mesh is None or "model" not in tuple(mesh.mesh_dim_names or ()):
+        return None
+    return mesh if tuple(mesh.mesh_dim_names) == ("model",) \
+        else mesh.submesh(("model",))
+
+
+def cache_heads(cfg: ModelConfig, mesh=None) -> int:
+    """The kv heads a rank's cache holds on ``mesh``'s "model" axis (any
+    mesh, or a ``MeshLayout``): those its query heads read
+    (``sharding.model_heads``; as many on every rank), or all of them where
+    the layer computes every head.  Not ``cache_specs``' head_dim split:
+    the rank attends with whole heads."""
+    from ..distributed.sharding import model_heads
+    plan = model_heads(cfg.n_heads, cfg.n_kv_heads, L.model_size(mesh), 0)
+    return cfg.n_kv_heads if plan is None else plan[3]
+
+
 def _layer_body(cfg: ModelConfig, x, p, *, positions, cache=None,
                 cache_index: int = 0, attn_route: str = "auto", mesh=None,
                 weights=None):
@@ -69,25 +99,32 @@ def _layer_body(cfg: ModelConfig, x, p, *, positions, cache=None,
     h, _ = L.attention(
         p["attn"], L.rms_norm(p["ln1"], x, cfg.norm_eps), positions=positions,
         rope_theta=cfg.rope_theta, window=cfg.attn_window, cache=cache,
-        cache_index=cache_index, attn_route=attn_route)
+        cache_index=cache_index, attn_route=attn_route, mesh=mesh,
+        heads=(cfg.n_heads, cfg.n_kv_heads, cfg.hd))
     x = x + h
     hn = L.rms_norm(p["ln2"], x, cfg.norm_eps)
     if cfg.n_experts:
         h, aux = moe_mlp(p["moe"], hn, top_k=cfg.top_k,
                          capacity_factor=cfg.capacity_factor, mesh=mesh)
     else:
-        h, aux = L.swiglu_mlp(p["mlp"], hn), None
+        h, aux = L.swiglu_mlp(p["mlp"], hn, mesh=mesh, d_ff=cfg.d_ff), None
     return x + h, aux
 
 
-def _logits(params: dict, cfg: ModelConfig, x, weights=None):
+def _embed(params: dict, cfg: ModelConfig, tokens, mesh, weights):
+    p = params["embed"] if weights is None else weights(
+        ("embed",), params["embed"])
+    return L.embed_tp(p, tokens, vocab=cfg.padded_vocab, mesh=mesh)
+
+
+def _logits(params: dict, cfg: ModelConfig, x, weights=None, mesh=None):
     if weights is not None:
         params = {k: weights((k,), params[k]) for k in (
             "final_norm", "embed" if cfg.tie_embeddings else "head")}
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
-    if cfg.tie_embeddings:
-        return L.unembed(params["embed"], x)
-    return L.dense(params["head"], x)
+    w = params["embed"]["table"].t() if cfg.tie_embeddings \
+        else params["head"]["w"]
+    return L.logits_tp(w, x, vocab=cfg.padded_vocab, mesh=mesh)
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -104,17 +141,15 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     attention route (``layers.attention``).  ``aux_loss`` is the MoE
     load-balancing loss summed over layers (0 without experts).
 
-    ``mesh`` (an LM mesh, ``launch.mesh.LMMesh``) reaches the MoE layers
-    only: expert parallelism over its "model" axis (``moe.moe_mlp``).
-    ``weights(path, tree)`` (the sharded train step's ZeRO-3 gather) makes
-    each layer's parameters whole inside its rematerialised body, so the
-    backward pass gathers them again, and the embedding's and head's just
-    before use.
+    ``mesh`` (an LM mesh, ``launch.mesh.LMMesh``): the partitioned program
+    over its "model" axis (see the module's docstring); ``tokens`` are the
+    rows this rank computes.  ``weights(path, tree)`` (the sharded step's
+    and mesh serving's FSDP gather) gathers each layer's parameters over
+    "data" inside its rematerialised body, so the backward pass gathers
+    them again, and the embedding's and head's just before use.
     """
-    embed_p = params["embed"] if weights is None else weights(
-        ("embed",), params["embed"])
-    x = L.embed(embed_p, tokens)
-    del embed_p
+    mesh = model_axis(mesh)
+    x = _embed(params, cfg, tokens, mesh, weights)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     t = x.shape[1]
@@ -131,30 +166,34 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             aux = aux + a
     if last_only:
         x = x[:, -1:]
-    return _logits(params, cfg, x, weights), cache, aux
+    return _logits(params, cfg, x, weights, mesh), cache, aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device) -> dict:
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+               device, mesh=None) -> dict:
+    """A zero cache [L, batch, max_len, K, H]; on ``mesh`` K is the kv
+    heads this rank computes with (``cache_heads``)."""
+    shape = (cfg.n_layers, batch, max_len, cache_heads(cfg, mesh), cfg.hd)
     return {"k": torch.zeros(shape, dtype=L.Compute, device=device),
             "v": torch.zeros(shape, dtype=L.Compute, device=device)}
 
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict,
-                tokens: torch.Tensor, pos: int, *, mesh=None):
+                tokens: torch.Tensor, pos: int, *, mesh=None, weights=None):
     """tokens [B, t] (t small) at position ``pos`` -> (logits, cache); the
-    cache is updated in place.  ``mesh`` as ``forward``'s."""
+    cache is updated in place.  ``mesh`` and ``weights`` as
+    ``forward``'s."""
     pos = int(pos)
-    x = L.embed(params["embed"], tokens)
+    mesh = model_axis(mesh)
+    x = _embed(params, cfg, tokens, mesh, weights)
     t = x.shape[1]
     positions = pos + torch.arange(t, device=x.device)[None, :]
     for i in range(cfg.n_layers):
         x, _ = _layer_body(cfg, x, L.index_tree(params["layers"], i),
                            positions=positions,
                            cache={"k": cache["k"][i], "v": cache["v"][i]},
-                           cache_index=pos, mesh=mesh)
-    return _logits(params, cfg, x), cache
+                           cache_index=pos, mesh=mesh, weights=weights)
+    return _logits(params, cfg, x, weights, mesh), cache
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor,

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..models import api
 from ..models import transformer as TF
 from .constrained import GrammarConstraint
 
@@ -41,10 +42,13 @@ class ServingEngine:
 
     ``params`` live on the device the engine serves from; prompts are moved
     there.  ``constraint`` (if any) must hold its tables on the same device.
-    ``mesh`` (an LM mesh) is passed to the prefill and every decode step:
-    SPMD, every rank serves the same prompts, its MoE layers run expert
-    parallelism, and each rank returns the whole result (``params``' expert
-    leaves are this rank's shard, see ``models.moe.moe_mlp``).
+    ``mesh`` (an LM mesh) runs the partitioned program (``models.api``):
+    SPMD, every rank passes the same prompts and returns the whole result;
+    ``params`` are this rank's blocks (``sharding.param_keep``).  Each rank
+    serves its rows of the batch over ("pod", "data") with its own cache
+    and grammar cursors, and masks (B5) and samples its rows' logits; the
+    layers run tensor parallelism over "model" (the MoE layers expert
+    parallelism).  Only the sampled tokens are gathered, once a step.
     """
 
     def __init__(self, cfg: ModelConfig, params,
@@ -87,19 +91,26 @@ class ServingEngine:
         (``GrammarConstraint.open_decode``): the prompt is fed once and
         never re-scanned.  Pass ``decode_stream`` (a ``DecodeStream``
         already fed with the prompt, e.g. in chunks from a streaming
-        endpoint) to skip the prompt prefill.  The per-token loop advances
-        states with the single-gather ``constraint.advance``, on the device.
+        endpoint) to skip the prompt prefill; on a mesh that splits the
+        rows it holds this rank's rows.  The per-token loop advances states
+        with the single-gather ``constraint.advance``, on the device.
         """
         toks = torch.as_tensor(np.asarray(prompts), dtype=torch.int32).to(
             self.device)
-        b, t_prompt = toks.shape
+        b_all, t_prompt = toks.shape
+        on = weights = None
+        if self.mesh is not None:
+            on = api.MeshRows(self.cfg, self.mesh, b_all)
+            toks, weights = on.take(toks), on.weights
+        b = toks.shape[0]
         max_len = t_prompt + self.serve.max_new_tokens
-        cache = TF.init_cache(self.cfg, b, max_len, device=self.device)
+        cache = TF.init_cache(self.cfg, b, max_len, device=self.device,
+                              mesh=self.mesh)
         # the cache is longer than the prompt, so this prefill takes the
         # blockwise attention path, as the JAX engine's does
         logits, cache, _ = TF.forward(self.params, self.cfg, toks,
                                       cache=cache, last_only=True,
-                                      mesh=self.mesh)
+                                      mesh=self.mesh, weights=weights)
         gen = None
         if self.serve.temperature > 0:
             gen = torch.Generator(device=self.device)
@@ -118,17 +129,18 @@ class ServingEngine:
         elif decode_stream is not None:
             raise ValueError("decode_stream requires a grammar constraint")
 
-        out = np.full((b, self.serve.max_new_tokens), self.serve.eos_id,
+        out = np.full((b_all, self.serve.max_new_tokens), self.serve.eos_id,
                       np.int32)
         last = logits[:, -1:]
-        finished = np.zeros(b, bool)
+        finished = np.zeros(b_all, bool)
         for i in range(self.serve.max_new_tokens):
             step_logits = last
             if states is not None:
                 step_logits = self.constraint.mask_logits(
                     states, step_logits[:, -1]).reshape(step_logits.shape)
             tok = self._sample(step_logits, gen)             # [B]
-            tok_h = tok.cpu().numpy()
+            # every rank sees every row's token: they stop together
+            tok_h = (tok if on is None else on.whole(tok)).cpu().numpy()
             out[:, i] = np.where(finished, self.serve.eos_id, tok_h)
             finished |= tok_h == self.serve.eos_id
             if finished.all():
@@ -137,5 +149,5 @@ class ServingEngine:
                 states = self.constraint.advance(states, tok)
             last, cache = TF.decode_step(self.params, self.cfg, cache,
                                          tok[:, None], t_prompt + i,
-                                         mesh=self.mesh)
+                                         mesh=self.mesh, weights=weights)
         return out

@@ -26,25 +26,29 @@ first.
 On an LM mesh (``launch.mesh.LMMesh``) the state is sharded by
 ``state_shardings`` (``DTensor`` leaves whose local shards sit on the
 rank's card; ``init_train_state_sharded`` builds it leaf by leaf) and the
-step is one SPMD program a rank; every rank passes the same global batch:
+step is one SPMD program a rank, the reference's sharding rules run as its
+GSPMD program runs them; every rank passes the same global batch:
 
   * each rank takes its rows of each microbatch over the dp axes
     ("pod", "data"), as ``batch_specs`` places them;
-  * each layer gathers its non-expert weights whole just before use,
-    inside its rematerialised body, so the backward pass gathers them
-    again (ZeRO-3), and frees them after use; the MoE layers' experts stay
-    this rank's shard, under expert parallelism over "model";
+  * each layer gathers its leaves over "data" just before use, inside its
+    rematerialised body, so the backward pass gathers them again (FSDP),
+    and frees them after use.  The transformer families (dense, moe, vlm)
+    keep each leaf's "model" shard and run tensor parallelism over
+    "model" (``models.layers``: their heads, hidden width and vocab, one
+    sum of partial results a block); their MoE layers' experts stay this
+    rank's shard, under expert parallelism over "model", with the tokens
+    split over it.  The hybrid, ssm and encdec families gather their
+    leaves whole and repeat their dense work on each model rank;
   * gradients are averaged over the dp axes: over "data" each leaf's
     gradient is reduce-scattered to its shard (or averaged, where the
     leaf is whole over "data"), over "pod" averaged, or exchanged in int8
-    (``distributed.compression``) with ``grad_compression="int8"``; along
-    "model" the ranks repeat the dense work, so their gradients are equal
-    and are not summed;
+    (``distributed.compression``) with ``grad_compression="int8"``.  Along
+    "model" a tensor-parallel leaf's gradient is the rank's shard, and a
+    leaf whole over "model" gets equal gradients on every model rank; none
+    is summed there;
   * AdamW updates each shard in place; the global gradient norm counts
     each element once.
-The dense compute along "model" is repeated on each model rank (only the
-MoE layers split their tokens over it); the results are the reference's,
-and the state's memory is sharded as the reference's is.
 """
 
 from __future__ import annotations
@@ -242,6 +246,10 @@ def _make_sharded_step(cfg: ModelConfig, mesh, opts: TrainOptions):
     def expert(path) -> bool:
         return ep and "moe" in path and path[-1] in shr.MOE_EXPERT_KEYS
 
+    # the transformer families keep each leaf's "model" shard (tensor
+    # parallelism); the others gather their leaves whole
+    tp = cfg.family in api.TP_FAMILIES
+
     def rows(batch: dict, i: int) -> dict:
         """This rank's rows of microbatch ``i``."""
         out = {}
@@ -265,16 +273,17 @@ def _make_sharded_step(cfg: ModelConfig, mesh, opts: TrainOptions):
 
         def gathered(path, tree):
             """``tree`` (at ``path``; under a stack key one layer's
-            entries) with every non-expert leaf made whole."""
+            entries) with every non-expert leaf gathered over "data" (and
+            over "model" too outside the tensor-parallel families)."""
             stacked = bool(path) and path[0] in shr.STACK_KEYS
 
             def leaf(sub, x):
                 full = path + sub
                 if expert(full):
                     return x
-                sh = shards[full]
-                if stacked:
-                    sh = tuple((a, d - 1) for a, d in sh)
+                sh = tuple((a, d - 1 if stacked else d)
+                           for a, d in shards[full]
+                           if not (tp and a == "model"))
                 return lmesh.gather_shards(x, mesh, sh, summed=dp)
             return _map_sub(leaf, tree)
 

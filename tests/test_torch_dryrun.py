@@ -317,18 +317,24 @@ def test_dryrun_prefill_cell_on_the_card_route(tmp_path):
     assert rec["ok"], rec.get("error")
     assert rec["n_devices"] == 256 and rec["route"] == "cuda"
     assert rec["memory"]["temp_bytes"] > 0
-    # the hand count: per layer the q, k, v and o projections and the
-    # three MLP products over all 32 x 32,768 tokens (SPMD: each rank runs
-    # the whole batch), then the head on the last position only
-    b, t, d, h, kv, hd, ff, n_layers, vocab = (32, 32_768, 2048, 32, 4, 64,
-                                               5632, 22, 32_000)
+    # the hand count of rank 0's share: its 32 / 16 rows over "data", 32 /
+    # 16 query heads and the 1 of 4 kv heads they read, 5,632 / 16 MLP
+    # columns and 32,000 / 16 vocab columns over "model"; per layer the q,
+    # k, v and o projections and the three MLP products over its 2 x
+    # 32,768 tokens, then the head on the last position only
+    b, t, d, h, kv, hd, ff, n_layers, vocab = (2, 32_768, 2048, 2, 1, 64,
+                                               352, 22, 2_000)
     per_token = 2 * d * (2 * h * hd + 2 * kv * hd + 3 * ff)
     assert rec["census"]["dot_flops"] == n_layers * b * t * per_token \
         + 2 * b * d * vocab
     b9 = rec["census"]["kernels"]["flash_attn"]
     assert b9["launches"] == n_layers
     assert b9["flops"] == n_layers * 4 * hd * b * h * t * (t + 1) / 2
-    assert rec["collectives"]["all-gather"]["count"] == 0
+    # a layer: its 7 leaves over "data", wk and wv (split on head_dim) over
+    # "model"; the table, the head, the logits over "model", their rows
+    # over "data"; two sums over "model" a layer and the embedding's
+    assert rec["collectives"]["all-gather"]["count"] == 9 * n_layers + 4
+    assert rec["collectives"]["all-reduce"]["count"] == 2 * n_layers + 1
 
     from repro_torch.launch import roofline
     row, = roofline.analyze_all(str(tmp_path))
