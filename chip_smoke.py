@@ -219,7 +219,9 @@ Phases (any mismatch raises, so the exit code is non-zero):
  21. the LM mesh: eight ``--phase21-child`` ranks sharing the card over
      gloo on ("pod", "data", "model") = (2, 2, 2), each running its share
      of the partitioned program (its rows over the data axes, tensor and
-     expert parallelism over "model"; see ``phase21_mesh``);
+     expert parallelism over "model"; see ``phase21_mesh``; 21(f) the
+     hybrid, ssm and enc-dec families; ``python3 chip_smoke.py --phase21
+     f`` runs a part alone);
  22. the analysis tools (``repro_torch.launch.{census,dryrun,roofline}``),
      run where phases 12 and 20(a) hold their models, so none is
      initialised again: (a) after 20(a)'s steps, one more train step of
@@ -370,6 +372,7 @@ FAMILIES20 = (("moe", "granite-moe-1b-a400m"), ("vlm", "internvl2-2b"),
 SHAPE20C = {"ssm": (4, 1024)}         # 20(c): B, seq_len (~4,096 tokens; the
 SHAPE20 = (2, 2048)                   # xLSTM's sLSTM loop a step a token)
 MESH21 = (2, 2, 2)                    # 21: ("pod", "data", "model"), gloo
+PARTS21 = "abcdef"                    # 21: every part (--phase21 PARTS: some)
 CHILD21_S = 600                       # 21: each rank's time limit, s
 BYTES21 = 64 << 20                    # 21(a): the class stream, bytes
 NC21 = (4, 64)                        # 21(a): chunks a data-parallel rank
@@ -378,12 +381,14 @@ RANDOM21 = (512, 16)                  # 21(a): Q, classes (B6)
 PIPE21 = (4, 8, 1024)                 # 21(a): stages, microbatches, width
 ARCH21 = "granite-moe-1b-a400m"       # 21(b), (c)
 PREFILL21 = (8, 2048)                 # 21(b): prompts, tokens (B9)
-LAYERS21 = 4                          # 21(b): granite-moe's depth (of 24)
+LAYERS21 = 2                          # 21(b): granite-moe's depth (of 24)
 PROMPT21 = 64                         # 21(b): generate's prompt bytes
 DECODE21 = 16                         # 21(b): constrained decode steps (B5)
 MISMATCH21 = (0.05, 3e-2)             # 21(b): the reference test's rule
 #                                       (share of entries, atol)
-ARCH21E = "tinyllama-1.1b"            # 21(e): full width and depth
+ARCH21E = "tinyllama-1.1b"            # 21(e): full width
+LAYERS21E = 4                         # 21(e): its depth (of 22; cut to make
+#                                       room for 21(f))
 PREFILL21E = (8, 2048)                # 21(e): prompts, tokens (B9, bf16)
 DECODE21E = 16                        # 21(e): constrained steps (B5)
 # 21(e): the prefill's logits against one process, max |gap| over the
@@ -411,6 +416,23 @@ LINE21_TOL = {"loss": 2e-3, "gnorm": 5e-3, "lr": 5e-3}
 # L2 at reduced size on the CPU): loss, grad_norm relative, each moment
 # leaf's relative L2 (a shard on the wrong rank gives ~1)
 F32_21 = {"loss": 1e-4, "gnorm": 1e-4, "leaf": 1e-3}
+# 21(f): the hybrid, ssm and enc-dec families at published widths on the
+# partitioned program, one model at a time, depth cut: recurrentgemma-2b
+# to one stacked (rglru, rglru, attn) group and its 2-block tail (both
+# paths run), xlstm-1.3b to one group (7 mLSTM and its sLSTM),
+# seamless-m4t-medium to 4 encoder and 4 decoder layers
+FAMILIES21F = (("hybrid", "recurrentgemma-2b"), ("ssm", "xlstm-1.3b"),
+               ("encdec", "seamless-m4t-medium"))
+LAYERS21F = {"hybrid": 5, "ssm": 8, "encdec": 4}
+PREFILL21F = {"hybrid": (8, 1024), "ssm": (8, 512), "encdec": (8, 1024)}
+DECODE21F = 4                         # 21(f): float32-compute decode steps
+# 21(f): recurrentgemma-2b's tensor-parallel step (rows, tokens; one
+# microbatch) on the same eight ranks as ("data", "model") = (4, 2): on
+# (2, 2, 2) the pods would each hold a quarter of its 256k-vocab embedding
+# and head with their moments (~10 GiB a rank with the step's gathers, an
+# estimate: 8 ranks past one 80 GB card); (4, 2) holds an eighth
+TRAIN21F = (8, 256)
+MESH21F = (4, 2)
 RESIDUES = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
 
 # one planted occurrence of every PCRE-14 pattern (re.search-verified)
@@ -4129,18 +4151,18 @@ def cfg21(train=False, no_drop=False):
     return cfg
 
 
-def opts21(compression="none", aux=0.01):
+def opts21(compression="none", aux=0.01, nm=TRAIN21[2]):
     from repro_torch.training import AdamWConfig, TrainOptions
-    return TrainOptions(num_microbatches=TRAIN21[2], aux_loss_weight=aux,
+    return TrainOptions(num_microbatches=nm, aux_loss_weight=aux,
                         grad_compression=compression,
                         optimizer=AdamWConfig(lr=3e-4, warmup_steps=20,
                                               total_steps=100))
 
 
-def batch21(cfg, device):
+def batch21(cfg, device, shape=TRAIN21[:2]):
     """The first batch of the launcher's B1-filtered stream."""
     from repro_torch.launch import train as launch_train
-    b, t = TRAIN21[:2]
+    b, t = shape
     batches, _ = launch_train.corpus_batches(cfg, b, t, RULES20,
                                              device=device)
     return launch_train.batch_to_device(next(batches), device)
@@ -4199,8 +4221,10 @@ def blocked_moe21(p, x, *, top_k, capacity_factor, mesh=None):
 
 
 def cfg21e():
+    """tinyllama-1.1b at full width, ``LAYERS21E`` layers."""
+    import dataclasses
     from repro_torch.configs import get_config
-    return get_config(ARCH21E)
+    return dataclasses.replace(get_config(ARCH21E), n_layers=LAYERS21E)
 
 
 def f32_compute21(fn):
@@ -4488,9 +4512,10 @@ def phase21b_child(mesh, tmp):
 
 
 def phase21e_child(mesh, tmp):
-    """(e) tinyllama-1.1b at full width and depth on the partitioned
-    program: a bf16 prefill of ``PREFILL21E`` (B9 on the rank's rows and
-    query heads), the same prefill in float32 compute (blockwise), then
+    """(e) tinyllama-1.1b at full width (``LAYERS21E`` layers) on the
+    partitioned program: a bf16 prefill of ``PREFILL21E`` (B9 on the
+    rank's rows and query heads), the same prefill in float32 compute
+    (blockwise), then
     ``DECODE21E`` constrained greedy steps (B5 on the rank's rows) in
     float32 compute; the collectives of each and the rank's peak memory
     over this part."""
@@ -4641,11 +4666,245 @@ def phase21c_child(mesh, tmp):
     return rep
 
 
+def cfg21f(family):
+    """The 21(f) config of ``family``: published widths, ``LAYERS21F``
+    layers (the enc-dec: as many encoder layers)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(dict(FAMILIES21F)[family])
+    n = LAYERS21F[family]
+    return dataclasses.replace(cfg, n_layers=n, **(
+        {"n_enc_layers": n} if family == "encdec" else {}))
+
+
+def serve21f(family, params, cfg, inputs, mesh=None):
+    """21(f)'s serving of one family, on ``mesh`` or in one process: the
+    bf16 prefill (the enc-dec decoder's self-attention on B9), the
+    float32-compute prefill (blockwise), then ``DECODE21F`` float32-compute
+    decode steps (the enc-dec from the float32 prefill's cache against the
+    one-process encoder memory ``inputs["memory"]``, the hybrid and ssm
+    from their zero state).  Returns ({part: last-position logits as
+    numpy}, {part: seconds}, {part: launches}, {part: collectives})."""
+    import torch
+    from repro_torch.distributed import sharding as shr
+    from repro_torch.launch import mesh as lm
+    from repro_torch.models import api
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import recurrent as RG
+    from repro_torch.models import xlstm as XL
+
+    dev = DEVICE if mesh is None else mesh.device
+    batch = {k: torch.from_numpy(inputs[f"{family}_{k}"]).to(dev)
+             for k in ("tokens", "frames") if f"{family}_{k}" in inputs}
+    logits, secs, launches, stats = {}, {}, {}, {}
+
+    def part(name, fn):
+        lm.reset_mesh_stats()
+        lm.time_collectives(mesh is not None)
+        before = all_launches()
+        out, secs[name] = synced(fn)
+        launches[name] = launch_delta(before)
+        lm.time_collectives(False)
+        stats[name] = stats21()
+        return out
+
+    out, _ = part("bf16", lambda: api.prefill(params, cfg, batch, mesh=mesh))
+    logits["bf16"] = out.float().cpu().numpy()
+    out, cache = part("f32", lambda: f32_compute21(lambda: api.prefill(
+        params, cfg, batch, mesh=mesh, attn_route="blockwise")))
+    logits["f32"] = out.cpu().numpy()
+    b, t = batch["tokens"].shape
+    rows = b if mesh is None else b // shr.dp_parts(mesh, b)
+    dec = torch.from_numpy(inputs[f"{family}_decode"]).to(dev)
+
+    def steps():
+        """The decode steps from the float32 cache or zero state (made in
+        the float32 compute dtype)."""
+        if family == "encdec":
+            state = {"cache": ED.init_encdec_cache(
+                cfg, rows, t + DECODE21F, device=dev, mesh=mesh)}
+            for k in state["cache"]:
+                state["cache"][k][:, :, :t] = cache[k]
+            state["memory"] = torch.from_numpy(inputs["memory"]).to(dev)
+            pos = t
+        else:
+            init = (RG.init_hybrid_state if family == "hybrid"
+                    else XL.init_xlstm_state)
+            state = {"state": init(cfg, rows, device=dev, mesh=mesh)}
+            pos = 0
+        outs = []
+        for i in range(DECODE21F):
+            out, _ = api.decode(params, cfg, {
+                "tokens": dec[:, i:i + 1], "pos": pos + i, **state},
+                mesh=mesh)
+            outs.append(out[:, -1].cpu().numpy())
+        return np.stack(outs)
+
+    logits["decode"] = part("decode", lambda: f32_compute21(steps))
+    return logits, secs, launches, stats
+
+
+def phase21f_references(tmp, rng):
+    """21(f)'s one-process card runs, in this process: each family's
+    inputs (``inputs21f.npz``, with the enc-dec's float32 encoder memory
+    of its frames), its ``serve21f`` logits and peak memory, and
+    recurrentgemma-2b's train step in float32 compute (its loss and norm;
+    its parameters and moments saved leaf by leaf in ``ref21f/``)."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.models import encdec as ED
+    from repro_torch.training import train_loop as TL
+
+    ref, inputs = {}, {}
+    for family, _ in FAMILIES21F:
+        cfg = cfg21f(family)
+        b, t = PREFILL21F[family]
+        inputs[f"{family}_tokens"] = rng.integers(
+            0, cfg.vocab_size, size=(b, t)).astype(np.int32)
+        inputs[f"{family}_decode"] = rng.integers(
+            0, cfg.vocab_size, size=(b, DECODE21F)).astype(np.int32)
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        params = api.init(cfg, SEED, device=DEVICE)
+        if family == "encdec":
+            frames = rng.normal(0, 1, size=(b, t, cfg.d_model))
+            inputs["encdec_frames"] = frames.astype(np.float32)
+            inputs["memory"] = f32_compute21(lambda: ED.encode(
+                params, cfg, torch.from_numpy(inputs["encdec_frames"])
+                .to(DEVICE))).cpu().numpy()
+        logits, secs, _, _ = serve21f(family, params, cfg, inputs)
+        ref[f"f_{family}"] = logits
+        ref[f"f_{family}_s"] = secs
+        ref[f"f_{family}_peak_gib"] = peak21()
+        del params
+    np.savez(os.path.join(tmp, "inputs21f.npz"), **inputs)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    cfg = cfg21f("hybrid")
+    state = TL.init_train_state(cfg, SEED, device=DEVICE)
+    step = TL.make_train_step(cfg, None, opts21(aux=0.0, nm=1))
+    batch = batch21(cfg, torch.device(DEVICE), TRAIN21F)
+    (state, m), ref["f_train_s"] = synced(lambda: f32_compute21(
+        lambda: step(state, batch)))
+    ref["f_train"] = {k: float(v) for k, v in m.items()}
+    ref["f_train_peak_gib"] = peak21()
+    save_leaves21(os.path.join(tmp, "ref21f"), {
+        "params": state["params"], "m": state["opt"]["m"],
+        "v": state["opt"]["v"]})
+    del state
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return ref
+
+
+def block_gaps21f(state, ref_dir, mesh):
+    """Each leaf of a sharded step's parameters and moments against the
+    one-process leaves in ``ref_dir``: a parameter's max |gap|, a moment
+    leaf's relative L2 gap.  Each rank reads and compares only its own
+    block (no leaf is gathered), each element counted once over its
+    replicas; one sum and one max over the mesh.  Collective."""
+    import math
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shr
+
+    keys, sums, worst = [], [], []
+    n = mesh.size()
+    for key, leaf in keyed21({"params": state["params"],
+                              "m": state["opt"]["m"],
+                              "v": state["opt"]["v"]}):
+        placements = tuple(leaf.placements)
+        ref = np.load(os.path.join(ref_dir, key + ".npy"), mmap_mode="r")
+        idx = shr.local_slices(ref.shape, placements, mesh.shape,
+                               mesh.get_coordinate())
+        local = leaf.to_local().detach().double()
+        want = torch.from_numpy(np.ascontiguousarray(ref[idx])).to(
+            local.device).double()
+        diff = local - want
+        share = math.prod(mesh.axis_size(a) for a, _ in
+                          shr.shards_of(placements, mesh)) / n
+        keys.append(key)
+        sums.append([share * float(torch.sum(diff * diff)),
+                     share * float(torch.sum(want * want))])
+        worst.append(float(diff.abs().max()) if diff.numel() else 0.0)
+        del local, want, diff
+    sums, worst = torch.tensor(sums), torch.tensor(worst)
+    group = mesh.group(mesh.mesh_dim_names)
+    dist.all_reduce(sums, group=group)
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX, group=group)
+    return {k: float(worst[i]) if k.startswith("params-") else
+            math.sqrt(float(sums[i, 0])) / max(math.sqrt(float(sums[i, 1])),
+                                               1e-30)
+            for i, k in enumerate(keys)}
+
+
+def phase21f_child(mesh, tmp):
+    """(f) recurrentgemma-2b, xlstm-1.3b and seamless-m4t-medium at
+    published widths (``LAYERS21F`` layers) on the partitioned program,
+    one model at a time (``serve21f``: each rank its rows and its channels
+    or heads), then recurrentgemma-2b's tensor-parallel train step in
+    float32 compute on ``MESH21F``; the peaks, collectives and launches of
+    each."""
+    import torch
+    from repro_torch.distributed import sharding as shr
+    from repro_torch.launch import mesh as lm
+    from repro_torch.models import api
+    from repro_torch.training import train_loop as TL
+
+    inputs = dict(np.load(os.path.join(tmp, "inputs21f.npz")))
+    first = mesh.get_coordinate() == [0, 0, 0]
+    rep = {}
+    for family, _ in FAMILIES21F:
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        cfg = cfg21f(family)
+        params, init_s = synced(lambda: api.init(
+            cfg, SEED, device=mesh.device, keep=shr.param_keep(mesh)))
+        logits, secs, launches, stats = serve21f(family, params, cfg,
+                                                 inputs, mesh)
+        if first:
+            np.savez(os.path.join(tmp, f"f21_{family}.npz"), **logits)
+        rep[family] = {"init_s": init_s, "s": secs, "launches": launches,
+                       "stats": stats, "peak_gib": peak21(),
+                       "argmax": {k: v.argmax(-1).tolist()
+                                  for k, v in logits.items()}}
+        del params, logits
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    tmesh = lm.make_mesh(MESH21F, ("data", "model"),
+                         device=None if DEVICE == "cuda" else DEVICE)
+    cfg = cfg21f("hybrid")
+    opts = opts21(aux=0.0, nm=1)
+    state, init_s = synced(lambda: TL.init_train_state_sharded(
+        cfg, SEED, tmesh, opts))
+    step = TL.make_train_step(cfg, tmesh, opts)
+    batch = batch21(cfg, tmesh.device, TRAIN21F)
+    lm.reset_mesh_stats()
+    lm.time_collectives(True)
+    (state, m), wall = synced(lambda: f32_compute21(
+        lambda: step(state, batch)))
+    lm.time_collectives(False)
+    rep["train"] = {"init_s": init_s, "s": wall, "stats": stats21(),
+                    "peak_gib": peak21(),
+                    **{k: float(v) for k, v in m.items()}}
+    rep["train"]["gaps"] = block_gaps21f(state, os.path.join(tmp, "ref21f"),
+                                         tmesh)
+    del state
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return rep
+
+
 def phase21_child(argv):
     """One rank of phase 21's world (``python3 chip_smoke.py
-    --phase21-child rank world store tmp``): eight processes share the
-    card over gloo on the ("pod", "data", "model") mesh (2, 2, 2).  Writes
-    its measurements as JSON."""
+    --phase21-child rank world store tmp [parts]``): eight processes share
+    the card over gloo on the ("pod", "data", "model") mesh (2, 2, 2).
+    Writes its measurements as JSON."""
     import datetime
 
     import torch
@@ -4655,6 +4914,7 @@ def phase21_child(argv):
 
     rank, world = int(argv[0]), int(argv[1])
     store, tmp = argv[2:4]
+    parts = argv[4] if len(argv) > 4 else PARTS21
     os.environ["LOCAL_RANK"] = str(rank)
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                             world_size=world, timeout=datetime.timedelta(
@@ -4667,17 +4927,23 @@ def phase21_child(argv):
         rep = {"rank": rank, "coordinate": mesh.get_coordinate(),
                "transport": mesh.transport, "device": str(mesh.device)}
         reset_all_launches()
-        for part, fn in (("a", lambda: phase21a_child(mesh, smesh, tmp)),
-                         ("b", lambda: phase21b_child(mesh, tmp)),
-                         ("c", lambda: phase21c_child(mesh, tmp)),
-                         ("e", lambda: phase21e_child(mesh, tmp))):
+        runs = (("a", lambda: phase21a_child(mesh, smesh, tmp)),
+                ("b", lambda: phase21b_child(mesh, tmp)),
+                ("c", lambda: phase21c_child(mesh, tmp)),
+                ("e", lambda: phase21e_child(mesh, tmp)),
+                ("f", lambda: phase21f_child(mesh, tmp)))
+        for part, fn in ((p, fn) for p, fn in runs if p in parts):
             before = all_launches()
             t0 = time.perf_counter()
             rep[part] = fn()
             rep[part]["wall_s"] = time.perf_counter() - t0
             rep[part]["launches_total"] = launch_delta(before)
-        # (e) restarts the peak's count: the rank's peak is the larger
-        rep["peak_gib"] = max(peak21(), rep["c"]["peak_gib"])
+        # (c), (e) and (f) restart the peak's count: the rank's peak is
+        # the largest
+        rep["peak_gib"] = max(
+            [peak21()] + [rep[p]["peak_gib"] for p in "ce" if p in rep]
+            + [v["peak_gib"] for v in rep.get("f", {}).values()
+               if isinstance(v, dict) and "peak_gib" in v])
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
             json.dump(rep, fh)
     finally:
@@ -4696,7 +4962,7 @@ def phase21_oracle(tmp):
     return 0
 
 
-def phase21_references(tmp, rng):
+def phase21_references(tmp, rng, parts=PARTS21):
     """The one-process card runs the world is held to, in float32 compute
     where tensor parallelism reorders a sum: (b) prefill logits at the
     published capacity factor through ``blocked_moe21`` and at E / top_k
@@ -4704,7 +4970,8 @@ def phase21_references(tmp, rng):
     through ``blocked_moe21``; (c) one step of the cut model (its
     parameters and moments saved leaf by leaf); (e) tinyllama-1.1b's
     prefill in bf16 (B9) and in float32 compute, its constrained greedy
-    tokens in float32 compute, and this process's peak memory over (e)."""
+    tokens in float32 compute, and this process's peak memory over (e);
+    (f) ``phase21f_references``.  ``parts``: the parts to make."""
     import torch
     from repro_torch.core import compile_regex
     from repro_torch.models import api
@@ -4712,74 +4979,82 @@ def phase21_references(tmp, rng):
                                      ServingEngine)
     from repro_torch.training import train_loop as TL
 
-    cfg = cfg21()
-    b, t = PREFILL21
-    toks = rng.integers(0, cfg.vocab_size, size=(b, t)).astype(np.int32)
-    gram = grammar_prompts(rng, b, PROMPT21)
-    np.savez(os.path.join(tmp, "prompts.npz"), tokens=toks, grammar=gram)
-    params = api.init(cfg, SEED, device=DEVICE)
-    batch = {"tokens": torch.from_numpy(toks).to(DEVICE)}
+    ref = {}
+    if "b" in parts:
+        cfg = cfg21()
+        b, t = PREFILL21
+        toks = rng.integers(0, cfg.vocab_size,
+                            size=(b, t)).astype(np.int32)
+        gram = grammar_prompts(rng, b, PROMPT21)
+        np.savez(os.path.join(tmp, "prompts.npz"), tokens=toks,
+                 grammar=gram)
+        params = api.init(cfg, SEED, device=DEVICE)
+        batch = {"tokens": torch.from_numpy(toks).to(DEVICE)}
 
-    def prefill(c):
-        return f32_compute21(lambda: api.prefill(params, c, batch,
-                                                 attn_route="blockwise"))
+        def prefill(c):
+            return f32_compute21(lambda: api.prefill(
+                params, c, batch, attn_route="blockwise"))
 
-    blocked, _ = blocked21(lambda: prefill(cfg))
-    plain, _ = prefill(cfg)
-    # how far the mesh's token blocks move the logits from the local path
-    # at the published factor (each block drops its own choices)
-    ref = {"logits": blocked.float().cpu().numpy(),
-           "plain_share": float((~torch.isclose(
-               plain.float(), blocked.float(), rtol=1e-5,
-               atol=MISMATCH21[1])).float().mean())}
-    del blocked, plain
-    logits, _ = prefill(cfg21(no_drop=True))
-    ref["nodrop"] = logits.float().cpu().numpy()
-    del logits
-    gc = GrammarConstraint(compile_regex(GRAMMAR12), cfg.padded_vocab,
-                           eos_id=None, device=DEVICE)
-    eng = ServingEngine(cfg, params, ServeConfig(max_new_tokens=DECODE21),
-                        constraint=gc)
-    ref["tokens"] = blocked21(lambda: f32_compute21(
-        lambda: eng.generate(gram)))
-    del params, eng
-    tcfg = cfg21(train=True, no_drop=True)
-    opts = opts21(aux=0.0)
-    state = TL.init_train_state(tcfg, SEED, device=DEVICE)
-    step = TL.make_train_step(tcfg, None, opts)
-    batch = batch21(tcfg, torch.device(DEVICE))
-    state, m = f32_compute21(lambda: step(state, batch))
-    ref.update({k: float(v) for k, v in m.items()})
-    save_leaves21(os.path.join(tmp, "ref21c"), {
-        "params": state["params"], "m": state["opt"]["m"],
-        "v": state["opt"]["v"]})
-    del state
-    # (e)
-    if DEVICE == "cuda":
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-    cfg = cfg21e()
-    b, t = PREFILL21E
-    toks = rng.integers(0, cfg.vocab_size, size=(b, t)).astype(np.int32)
-    gram = grammar_prompts(rng, b, PROMPT21)
-    np.savez(os.path.join(tmp, "prompts21e.npz"), tokens=toks, grammar=gram)
-    params = api.init(cfg, SEED, device=DEVICE)
-    batch = {"tokens": torch.from_numpy(toks).to(DEVICE)}
-    logits, _ = api.prefill(params, cfg, batch)
-    ref["e_bf16"] = logits.float().cpu().numpy()
-    logits, _ = f32_compute21(lambda: api.prefill(
-        params, cfg, batch, attn_route="blockwise"))
-    ref["e_f32"] = logits.cpu().numpy()
-    del logits
-    gc = GrammarConstraint(compile_regex(GRAMMAR12), cfg.padded_vocab,
-                           eos_id=None, device=DEVICE)
-    eng = ServingEngine(cfg, params, ServeConfig(max_new_tokens=DECODE21E),
-                        constraint=gc)
-    ref["e_tokens"] = f32_compute21(lambda: eng.generate(gram))
-    ref["e_peak_gib"] = peak21()
-    del params, eng
-    if DEVICE == "cuda":
-        torch.cuda.empty_cache()
+        blocked, _ = blocked21(lambda: prefill(cfg))
+        plain, _ = prefill(cfg)
+        # how far the mesh's token blocks move the logits from the local
+        # path at the published factor (each block drops its own choices)
+        ref.update({"logits": blocked.float().cpu().numpy(),
+                    "plain_share": float((~torch.isclose(
+                        plain.float(), blocked.float(), rtol=1e-5,
+                        atol=MISMATCH21[1])).float().mean())})
+        del blocked, plain
+        logits, _ = prefill(cfg21(no_drop=True))
+        ref["nodrop"] = logits.float().cpu().numpy()
+        del logits
+        gc = GrammarConstraint(compile_regex(GRAMMAR12), cfg.padded_vocab,
+                               eos_id=None, device=DEVICE)
+        eng = ServingEngine(cfg, params, ServeConfig(max_new_tokens=DECODE21),
+                            constraint=gc)
+        ref["tokens"] = blocked21(lambda: f32_compute21(
+            lambda: eng.generate(gram)))
+        del params, eng
+    if "c" in parts:
+        tcfg = cfg21(train=True, no_drop=True)
+        opts = opts21(aux=0.0)
+        state = TL.init_train_state(tcfg, SEED, device=DEVICE)
+        step = TL.make_train_step(tcfg, None, opts)
+        batch = batch21(tcfg, torch.device(DEVICE))
+        state, m = f32_compute21(lambda: step(state, batch))
+        ref.update({k: float(v) for k, v in m.items()})
+        save_leaves21(os.path.join(tmp, "ref21c"), {
+            "params": state["params"], "m": state["opt"]["m"],
+            "v": state["opt"]["v"]})
+        del state
+    if "e" in parts:
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        cfg = cfg21e()
+        b, t = PREFILL21E
+        toks = rng.integers(0, cfg.vocab_size, size=(b, t)).astype(np.int32)
+        gram = grammar_prompts(rng, b, PROMPT21)
+        np.savez(os.path.join(tmp, "prompts21e.npz"), tokens=toks,
+                 grammar=gram)
+        params = api.init(cfg, SEED, device=DEVICE)
+        batch = {"tokens": torch.from_numpy(toks).to(DEVICE)}
+        logits, _ = api.prefill(params, cfg, batch)
+        ref["e_bf16"] = logits.float().cpu().numpy()
+        logits, _ = f32_compute21(lambda: api.prefill(
+            params, cfg, batch, attn_route="blockwise"))
+        ref["e_f32"] = logits.cpu().numpy()
+        del logits
+        gc = GrammarConstraint(compile_regex(GRAMMAR12), cfg.padded_vocab,
+                               eos_id=None, device=DEVICE)
+        eng = ServingEngine(cfg, params, ServeConfig(max_new_tokens=DECODE21E),
+                            constraint=gc)
+        ref["e_tokens"] = f32_compute21(lambda: eng.generate(gram))
+        ref["e_peak_gib"] = peak21()
+        del params, eng
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    if "f" in parts:
+        ref.update(phase21f_references(tmp, rng))
     return ref
 
 
@@ -4837,12 +5112,14 @@ def phase21d_launcher():
           + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items()) + ")")
 
 
-def phase21_mesh(counts):
+def phase21_mesh(counts, parts=PARTS21):
     """The LM mesh on the card: eight ranks sharing it over gloo on
     ("pod", "data", "model") = (2, 2, 2): (a) collectives, (b) serving
     granite-moe-1b-a400m under tensor and expert parallelism, (c) sharded
-    training, (e) tinyllama-1.1b served at full width and depth on the
-    partitioned program, then (d) the launcher on a (2, 2) mesh."""
+    training, (e) tinyllama-1.1b served at full width on the
+    partitioned program, (f) the hybrid, ssm and enc-dec families on it,
+    then (d) the launcher on a (2, 2) mesh.  ``parts``: the parts to run
+    (``python3 chip_smoke.py --phase21 f`` runs (f) alone)."""
     import shutil
     import tempfile
 
@@ -4858,12 +5135,15 @@ def phase21_mesh(counts):
         env = {**os.environ, "PYTHONUNBUFFERED": "1"}
         oracle = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--phase21-oracle",
-             tmp], env=env, cwd=ROOT)
+             tmp], env=env, cwd=ROOT) if "a" in parts else None
         t0 = time.perf_counter()
-        ref = phase21_references(tmp, rng)
-        print(f"[21] one-process references (granite-moe-1b-a400m prefill "
-              f"{PREFILL21}, generate, a train step at {TRAIN21[3]} layers; "
-              f"{ARCH21E} prefill {PREFILL21E} and generate) in "
+        ref = phase21_references(tmp, rng, parts)
+        archs = ", ".join(a for _, a in FAMILIES21F)
+        print(f"[21] one-process references of parts {parts} "
+              f"(granite-moe-1b-a400m prefill {PREFILL21}, generate, a "
+              f"train step at {TRAIN21[3]} layers; {ARCH21E} prefill "
+              f"{PREFILL21E} and generate; {archs} served, "
+              f"recurrentgemma-2b's step) in "
               f"{time.perf_counter() - t0:.1f} s")
         n = int(np.prod(MESH21))
         logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
@@ -4871,17 +5151,18 @@ def phase21_mesh(counts):
         t0 = time.perf_counter()
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--phase21-child",
-             str(r), str(n), os.path.join(tmp, "store"), tmp], env=env,
-            cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
+             str(r), str(n), os.path.join(tmp, "store"), tmp, parts],
+            env=env, cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
             for r in range(n)]
+        waited = procs + ([oracle] if oracle is not None else [])
         try:
-            for p in procs + [oracle]:
+            for p in waited:
                 p.wait(timeout=max(CHILD21_S - (time.perf_counter() - t0),
                                    1))
         except subprocess.TimeoutExpired:
             pass
         finally:
-            for p in procs + [oracle]:
+            for p in waited:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
@@ -4892,24 +5173,28 @@ def phase21_mesh(counts):
             log.close()
             check(p.returncode == 0, f"[21] rank {r} exited "
                   f"{p.returncode}:\n" + text[-4000:])
-        check(oracle.returncode == 0, "[21a] the dfa.run oracle failed")
         reps = []
         for r in range(n):
             with open(os.path.join(tmp, f"rank{r}.json")) as fh:
                 reps.append(json.load(fh))
-        with open(os.path.join(tmp, "oracle.json")) as fh:
-            oracle_states = json.load(fh)
+        oracle_states = after = None
+        if oracle is not None:
+            check(oracle.returncode == 0, "[21a] the dfa.run oracle failed")
+            with open(os.path.join(tmp, "oracle.json")) as fh:
+                oracle_states = json.load(fh)
         print(f"[21] {n} ranks on {MESH21} ('pod', 'data', 'model') sharing "
               f"the card over gloo (device tensors staged through host "
               f"memory), spawn to exit {spawn_s:.1f} s")
-        t0 = time.perf_counter()
-        after = phase21c_after_restore(tmp)
-        print(f"[21c] the step after the restore, in one process: "
-              f"{time.perf_counter() - t0:.1f} s")
-        phase21_report(reps, ref, oracle_states, after, tmp, counts)
-        t0 = time.perf_counter()
-        phase21d_launcher()
-        print(f"[21d] in {time.perf_counter() - t0:.1f} s")
+        if "c" in parts:
+            t0 = time.perf_counter()
+            after = phase21c_after_restore(tmp)
+            print(f"[21c] the step after the restore, in one process: "
+                  f"{time.perf_counter() - t0:.1f} s")
+        phase21_report(reps, ref, oracle_states, after, tmp, counts, parts)
+        if "d" in parts:
+            t0 = time.perf_counter()
+            phase21d_launcher()
+            print(f"[21d] in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4932,7 +5217,8 @@ def phase21e_report(reps, ref, tmp):
     got = np.load(os.path.join(tmp, "prefill21e32.npy"))
     scale = float(np.abs(ref["e_f32"]).max())
     gap = float(np.abs(got - ref["e_f32"]).max())
-    print(f"[21e] {ARCH21E}, full width and depth, on the partitioned "
+    print(f"[21e] {ARCH21E}, full width, {cfg.n_layers} layers, on the "
+          f"partitioned "
           f"program: rank 0 holds wq {e['wq']} ({cfg.n_heads // m} of "
           f"{cfg.n_heads} query heads, d_model over 'data'), its cache "
           f"{e['cache']} (its {PREFILL21E[0] // (MESH21[0] * MESH21[1])} "
@@ -4982,15 +5268,98 @@ def phase21e_report(reps, ref, tmp):
           f" against one process (bound {F32_21E} of it)")
 
 
-def phase21_report(reps, ref, oracle_states, after, tmp, counts):
-    """Check and print what the world reported; add its launches to
-    ``counts``."""
-    for rep in reps:
-        check(rep["transport"] == "gloo", f"[21] rank {rep['rank']}: "
-              f"transport {rep['transport']}")
-        check(DEVICE != "cuda" or rep["device"].startswith("cuda"),
-              f"[21] rank {rep['rank']} computed on {rep['device']}")
-    # (a)
+def phase21f_report(reps, ref, tmp):
+    """Print and check 21(f): each family's float32-compute prefill and
+    decode logits within ``F32_21E`` of one process's largest |logit|,
+    argmax equal on every rank; its bf16 prefill within ``BF16_21E``; B9
+    in every rank's enc-dec bf16 prefill (one a decoder layer) and nowhere
+    else in (f); recurrentgemma-2b's step within ``F32_21`` of one
+    process (parameters within 2 lr + 1e-6)."""
+    m = MESH21[2]
+    for family, arch in FAMILIES21F:
+        cfg = cfg21f(family)
+        want = ref[f"f_{family}"]
+        got = np.load(os.path.join(tmp, f"f21_{family}.npz"))
+        gaps = {}
+        for part in ("bf16", "f32", "decode"):
+            scale = float(np.abs(want[part]).max())
+            gaps[part] = (float(np.abs(got[part] - want[part]).max()), scale)
+        for r in reps:
+            for part in ("f32", "decode"):
+                check(np.array_equal(np.array(r["f"][family]["argmax"][part]),
+                                     want[part].argmax(-1)),
+                      f"[21f] {arch} rank {r['rank']}: {part} argmax "
+                      f"differs from one process's")
+            b9 = [r["f"][family]["launches"][p].get("flash_attn", 0)
+                  for p in ("bf16", "f32", "decode")]
+            check(b9 == [cfg.n_layers if family == "encdec" else 0, 0, 0],
+                  f"[21f] {arch} rank {r['rank']}: B9 launches {b9} "
+                  f"(bf16 prefill, float32 prefill, decode)")
+        f = reps[0]["f"][family]
+        b, t = PREFILL21F[family]
+        print(f"[21f] {arch}, published widths, {LAYERS21F[family]} layers"
+              f"{' each side' if family == 'encdec' else ''}, prompts "
+              f"({b}, {t}) on the partitioned program: init "
+              f"{f['init_s']:.2f} s; bf16 prefill "
+              f"{min(r['f'][family]['s']['bf16'] for r in reps):.3f}-"
+              f"{max(r['f'][family]['s']['bf16'] for r in reps):.3f} s a "
+              f"rank (one process {ref[f'f_{family}_s']['bf16']:.3f}), "
+              f"max |gap| {gaps['bf16'][0]:.4e} of |max| "
+              f"{gaps['bf16'][1]:.3f} "
+              f"({gaps['bf16'][0] / gaps['bf16'][1]:.3e}; bound "
+              f"{BF16_21E}); float32 prefill "
+              f"{f['s']['f32']:.3f} s (rank 0), max |gap| "
+              f"{gaps['f32'][0]:.4e} ({gaps['f32'][0] / gaps['f32'][1]:.3e}"
+              f"); {DECODE21F} float32 decode steps {f['s']['decode']:.3f} "
+              f"s (rank 0), max |gap| {gaps['decode'][0]:.4e} "
+              f"({gaps['decode'][0] / gaps['decode'][1]:.3e}); bound "
+              f"{F32_21E}, argmax equal on {len(reps)} ranks")
+        print(f"[21f] {arch} collectives [calls, MB, ms] (rank 0): "
+              + "; ".join(f"{p}: {f['stats'][p]}"
+                          for p in ("bf16", "f32", "decode")))
+        print(f"[21f] {arch} peak memory, GiB: one process "
+              f"{ref[f'f_{family}_peak_gib']:.2f}; a rank " + ", ".join(
+                  f"{r['rank']}: {r['f'][family]['peak_gib']:.2f}"
+                  for r in reps) + f" (m = {m})")
+        for part in ("bf16", "f32", "decode"):
+            bound = BF16_21E if part == "bf16" else F32_21E
+            check(np.isfinite(got[part]).all()
+                  and gaps[part][0] <= bound * gaps[part][1],
+                  f"[21f] {arch} {part} logits: max |gap| {gaps[part][0]} "
+                  f"of |max| {gaps[part][1]} against one process (bound "
+                  f"{bound} of it)")
+    tr = reps[0]["f"]["train"]
+    one = ref["f_train"]
+    gaps = tr["gaps"]
+    worst = max(v for k, v in gaps.items() if k.startswith("params-"))
+    moments = max(v for k, v in gaps.items() if not k.startswith("params-"))
+    tol = 2 * one["lr"] + 1e-6
+    b, t = TRAIN21F
+    print(f"[21f] recurrentgemma-2b train step ({LAYERS21F['hybrid']} "
+          f"layers, {b} x {t} tokens, 1 microbatch, float32 compute) on "
+          f"('data', 'model') = {MESH21F}: {tr['s']:.3f} s (one process "
+          f"{ref['f_train_s']:.3f}), loss {tr['loss']:.6f} vs "
+          f"{one['loss']:.6f}, grad_norm {tr['grad_norm']:.6f} vs "
+          f"{one['grad_norm']:.6f}, m and v per leaf within {moments:.3e} "
+          f"relative L2, worst parameter gap {worst:.3e} (bound {tol:.3e}),"
+          f" each rank comparing its own blocks; collectives {tr['stats']}; "
+          f"peak GiB: one process {ref['f_train_peak_gib']:.2f}, a rank "
+          + ", ".join(f"{r['rank']}: {r['f']['train']['peak_gib']:.2f}"
+                      for r in reps))
+    check(abs(tr["loss"] - one["loss"]) <= F32_21["loss"]
+          and abs(tr["grad_norm"] - one["grad_norm"])
+          <= F32_21["gnorm"] * one["grad_norm"],
+          f"[21f] train step loss {tr['loss']} gnorm {tr['grad_norm']} vs "
+          f"one process {one['loss']} {one['grad_norm']}")
+    check(worst <= tol and moments <= F32_21["leaf"],
+          f"[21f] train step against one process: worst parameter gap "
+          f"{worst} (bound {tol}), worst moment leaf {moments} relative L2 "
+          f"(bound {F32_21['leaf']})")
+
+
+def phase21a_report(reps, oracle_states):
+    """Print and check 21(a): the stream's final states against
+    ``dfa.run``, the merge tiers, the int8 pod mean, the pipeline."""
     for tag in ("pcre", "random"):
         for nc in NC21:
             res = [rep["a"][f"{tag}_{nc}"] for rep in reps]
@@ -5030,7 +5399,11 @@ def phase21_report(reps, ref, oracle_states, after, tmp, counts):
           f"{pl['s']:.4f} s, max |err| vs the sequential stages "
           f"{max(r['a']['pipeline']['err'] for r in reps[:4]):.2e}; "
           f"collectives {pl['stats']}")
-    # (b)
+
+
+def phase21b_report(reps, ref, tmp):
+    """Print and check 21(b): granite-moe-1b-a400m's prefill logits and
+    constrained tokens on the mesh against one process."""
     pre = np.load(os.path.join(tmp, "prefill_mesh.npz"))
     got = pre["logits"]
     share = float(np.mean(~np.isclose(got, ref["logits"],
@@ -5066,7 +5439,11 @@ def phase21_report(reps, ref, oracle_states, after, tmp, counts):
           f"generate at the published factor, {DECODE21} constrained steps "
           f"{b['generate_s']:.3f} s, tokens equal on {int(equal.sum())}/"
           f"{len(equal)} rows")
-    # (c)
+
+
+def phase21c_report(reps, ref, after):
+    """Print and check 21(c): the sharded step, the int8 steps and the
+    step after the restore against one process."""
     c0 = reps[0]["c"]
     nonec = c0["none"]
     check(abs(nonec["loss"] - ref["loss"]) <= F32_21["loss"]
@@ -5114,24 +5491,73 @@ def phase21_report(reps, ref, oracle_states, after, tmp, counts):
           f"and grad_norm {ar['grad_norm']:.6f} vs {after['grad_norm']:.6f} "
           f"in one process from the same checkpoint, m and v per leaf "
           f"within {restored:.3e} relative L2")
-    phase21e_report(reps, ref, tmp)
+
+
+def phase21_report(reps, ref, oracle_states, after, tmp, counts,
+                   parts=PARTS21):
+    """Check and print what the world reported; add its launches to
+    ``counts``."""
+    for rep in reps:
+        check(rep["transport"] == "gloo", f"[21] rank {rep['rank']}: "
+              f"transport {rep['transport']}")
+        check(DEVICE != "cuda" or rep["device"].startswith("cuda"),
+              f"[21] rank {rep['rank']} computed on {rep['device']}")
+    if "a" in parts:
+        phase21a_report(reps, oracle_states)
+    if "b" in parts:
+        phase21b_report(reps, ref, tmp)
+    if "c" in parts:
+        phase21c_report(reps, ref, after)
+    if "e" in parts:
+        phase21e_report(reps, ref, tmp)
+    if "f" in parts:
+        phase21f_report(reps, ref, tmp)
     print("[21] peak memory a rank (GiB): " + ", ".join(
         f"{r['rank']}: {r['peak_gib']:.2f}" for r in reps))
-    print("[21] each rank's (a), (b), (c), (e) in s: " + ", ".join(
-        f"{r['rank']}: " + "/".join(f"{r[p]['wall_s']:.1f}" for p in "abce")
+    ran = [p for p in "abcef" if p in parts]
+    print(f"[21] each rank's ({'), ('.join(ran)}) in s: " + ", ".join(
+        f"{r['rank']}: " + "/".join(f"{r[p]['wall_s']:.1f}" for p in ran)
         for r in reps))
     total = {}
     for rep in reps:
-        for part in ("a", "b", "c", "e"):
+        for part in ran:
             for k, v in rep[part]["launches_total"].items():
                 total[k] = total.get(k, 0) + v
-    for name in ("spec_match_merge", "token_mask", "spec_match",
-                 "lvec_compose", "onehot_block_maps", "flash_attn"):
+    # the kernels each part launches: (a) B6, B8 + B7, (b) B5, (c) and
+    # (f) B1 (the filtered stream), (e) B9 and B5, (f) B9
+    need = {"a": ("spec_match", "lvec_compose", "onehot_block_maps"),
+            "b": ("token_mask",), "c": ("spec_match_merge",),
+            "e": ("token_mask", "flash_attn"),
+            "f": ("spec_match_merge", "flash_attn")}
+    for name in sorted({k for p in ran for k in need[p]}):
         check(total.get(name, 0) > 0, f"[21] the world launched no "
               f"{name}: {total}")
     for k, v in total.items():
         counts[k] = counts.get(k, 0) + v
     print(f"[21] launches over the world's ranks: {total}")
+
+
+def phase21_alone(parts):
+    """``python3 chip_smoke.py --phase21 PARTS``: the card's name and power
+    limit, the build, then phase 21's ``parts`` alone (``f``: 21(f);
+    ``abcdef``: all of it) and the world's launches."""
+    import torch
+    if not torch.cuda.is_available() and DEVICE == "cuda":
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    t0 = time.perf_counter()
+    _build.build_all()
+    print(f"[21] build {time.perf_counter() - t0:.1f} s")
+    counts = {}
+    t0 = time.perf_counter()
+    phase21_mesh(counts, parts)
+    print(f"[21] parts {parts} in {time.perf_counter() - t0:.1f} s; "
+          f"launches {counts}")
+    return 0
 
 
 def main() -> int:
@@ -5709,6 +6135,8 @@ if __name__ == "__main__":
         sys.exit(phase21_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--phase21-oracle"]:
         sys.exit(phase21_oracle(sys.argv[2]))
+    if sys.argv[1:2] == ["--phase21"]:
+        sys.exit(phase21_alone(sys.argv[2]))
     if sys.argv[1:2] == ["--phase22-traces"]:
         sys.exit(phase22_traces_child(sys.argv[2]))
     try:

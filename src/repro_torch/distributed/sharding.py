@@ -17,9 +17,9 @@ divide, so one rule set serves all ten architectures and every mesh.
   * stacked layer/group leading dims (``STACK_KEYS``) are never sharded;
   * batches and caches: the batch dim over ("pod", "data").
 They read only the mesh's axis names and extents (a ``launch.mesh
-.MeshLayout`` will do).  ``model_heads``, ``model_vocab`` and ``dp_rows``
-say which heads, vocab rows and batch rows a rank computes with under
-them (the partitioned program of ``models.transformer`` and
+.MeshLayout`` will do).  ``model_heads``, ``model_vocab``, ``model_span``
+and ``dp_rows`` say which heads, vocab rows, channels and batch rows a
+rank computes with under them (the partitioned program of ``models`` and
 ``models.api``).  ``named`` pairs each spec with its mesh, as
 ``distributed.fault_tolerance.reshard_tree`` and ``training.checkpoint
 .restore_checkpoint(shardings=)`` take them.
@@ -39,7 +39,7 @@ __all__ = ["param_specs", "opt_state_specs", "batch_specs", "cache_specs",
            "STACK_KEYS", "MOE_EXPERT_KEYS",
            "matcher_table_specs", "matcher_chunk_specs", "matcher_lane_specs",
            "doc_batch_spec", "local_slices", "leaf_placements",
-           "param_keep", "model_heads", "model_vocab",
+           "param_keep", "model_heads", "model_vocab", "model_span",
            "dp_parts", "dp_rows"]
 
 STACK_KEYS = {"layers", "groups", "enc", "dec"}
@@ -310,14 +310,23 @@ def model_heads(n_heads: int, n_kv: int, model: int,
     return None
 
 
+def model_span(n: int, model: int, rank: int) -> tuple[int, int] | None:
+    """``(i0, k)``: the entries ``[i0, i0 + k)`` of a dim of ``n`` that
+    rank ``rank`` of a ``model``-way "model" axis holds where
+    ``param_specs`` splits that dim over "model" (a column-parallel
+    leaf's columns, a row-parallel one's rows: the RG-LRU's and the
+    sLSTM's channels); ``None`` where the dim stays whole."""
+    if model <= 1 or n % model or n < model:
+        return None
+    k = n // model
+    return rank * k, k
+
+
 def model_vocab(vocab: int, model: int, rank: int) -> tuple[int, int] | None:
     """``(v0, nv)``: the vocab rows ``[v0, v0 + nv)`` of the embedding (and
     columns of the head) that rank ``rank`` of a ``model``-way "model"
     axis holds under ``param_specs``; ``None`` where they stay whole."""
-    if model <= 1 or vocab % model or vocab < model:
-        return None
-    nv = vocab // model
-    return rank * nv, nv
+    return model_span(vocab, model, rank)
 
 
 def dp_parts(mesh, batch: int) -> int:

@@ -15,8 +15,11 @@ compiles each cell on 512 forced host devices.  Per cell this driver
      the batch from ``models.api.input_specs(cfg, shape, mesh)``.  The
      port's steps take the whole batch's tokens on every rank (SPMD) and
      cut this rank's rows themselves, as ``batch_specs`` places them; a
-     decode cell's cache or state is this rank's own (its rows, and the kv
-     heads of ``transformer.cache_heads``), as the prefill leaves it;
+     decode cell's cache or state is this rank's own (its rows and its
+     part over "model": the kv heads of ``transformer.cache_heads``, the
+     RG-LRU's and the sLSTM's channels, the mLSTM's heads of
+     ``xlstm.state_heads``), as the prefill leaves it.  Every family
+     traces its tensor-parallel program over "model";
   3. runs one *production* step on them inside ``launch.census
      .trace_census``: ``training.make_train_step(cfg, mesh, opts)`` for
      train cells, ``api.prefill`` / ``api.decode(..., mesh=mesh)`` for

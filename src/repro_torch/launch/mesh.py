@@ -27,13 +27,15 @@ exchanged, copied back), over NCCL the exchange runs on the card.  A
 collective over an axis of one rank moves nothing.  The collectives inside
 a differentiated region are ``torch.autograd.Function``s whose backward is
 the adjoint collective (``gather_shards``, ``split``, ``gather``,
-``exchange``, ``sum_grads``, ``reduce_parts``, ``replica_mean``).  Tensor
-parallelism over "model" takes three of them: ``sum_grads`` at a
-column-parallel product's input (identity forward, sum backward),
-``reduce_parts`` at a row-parallel product's output (sum forward, identity
-backward) and ``gather`` of a vocab-parallel product's slices.  ``MESH_STATS`` counts
-each collective's calls and bytes (and its host-clock seconds while
-``time_collectives(True)``).
+``exchange``, ``sum_grads``, ``reduce_parts``, ``scatter_parts``,
+``replica_mean``).  Tensor parallelism over "model" takes four of them:
+``sum_grads`` at a column-parallel product's input (identity forward, sum
+backward), ``reduce_parts`` at a row-parallel product's output (sum
+forward, identity backward), ``scatter_parts`` where that output stays
+split over the ranks' channels (reduce-scatter forward, all-gather
+backward) and ``gather`` of a vocab-parallel product's slices.
+``MESH_STATS`` counts each collective's calls and bytes (and its
+host-clock seconds while ``time_collectives(True)``).
 
 Without an initialised world, a mesh of one device initialises a world of
 one (a ``file://`` store in a temporary directory: NCCL on a card, gloo on
@@ -69,8 +71,9 @@ __all__ = ["make_matcher_mesh", "factor_matcher_mesh", "matcher_mesh_extents",
            "make_production_mesh", "make_local_mesh", "all_gather",
            "all_reduce", "reduce_scatter", "all_to_all", "permute",
            "gather_shards", "split", "gather", "exchange", "sum_grads",
-           "reduce_parts", "replica_mean", "MESH_STATS", "reset_mesh_stats",
-           "time_collectives", "lm_mesh_of", "whole_on_host", "barrier"]
+           "reduce_parts", "scatter_parts", "replica_mean", "MESH_STATS",
+           "reset_mesh_stats", "time_collectives", "lm_mesh_of",
+           "whole_on_host", "barrier"]
 
 # how long a collective of the groups this module creates may wait for its
 # peers before it fails (a dead or diverged rank raises instead of hanging)
@@ -500,9 +503,13 @@ class _Timed:
 
 def _raw(x: torch.Tensor) -> torch.Tensor:
     """A view for pure data movement: 2-byte floats as bytes (every
-    transport moves bytes; gloo has no bfloat16 all-to-all)."""
+    transport moves bytes; gloo has no bfloat16 all-to-all).  Flattened
+    first: a tensor whose size-1 dims leave its last stride above 1 is
+    contiguous to torch, and ``view`` of another element size refuses
+    it."""
     if x.dtype in (torch.bfloat16, torch.float16) and x.dim():
-        return x.contiguous().view(torch.uint8)
+        return x.contiguous().reshape(-1).view(torch.uint8).view(
+            *x.shape[:-1], -1)
     return x
 
 
@@ -765,6 +772,30 @@ def reduce_parts(x: torch.Tensor, mesh: LMMesh, axes) -> torch.Tensor:
     if mesh.axis_size(axes) == 1:
         return x
     return _ReduceParts.apply(x, mesh, axes)
+
+
+class _ScatterParts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return reduce_scatter(x.float(), mesh, axes, dim).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.mesh, ctx.axes, ctx.dim), \
+            None, None, None
+
+
+def scatter_parts(x: torch.Tensor, mesh: LMMesh, axes,
+                  dim: int) -> torch.Tensor:
+    """This rank's part along ``dim`` of the sum over ``axes`` of each
+    rank's partial result (a row-parallel product whose output stays split,
+    as the rank's channels); summed in float32 and rounded once to ``x``'s
+    dtype, as ``reduce_parts``.  Backward: each rank's part of the gradient
+    all-gathered, since every rank's partial sum fed every part."""
+    if mesh.axis_size(axes) == 1:
+        return x
+    return _ScatterParts.apply(x, mesh, axes, dim % x.dim())
 
 
 class _ReplicaMean(torch.autograd.Function):

@@ -27,13 +27,18 @@ keep=distributed.sharding.param_keep(mesh))``, or ``convert
 .params_from_jax(..., mesh=mesh)``).  Each rank computes its rows of the
 batch over ("pod", "data") where ``batch_specs`` splits them (``dp_rows``),
 with its own cache or state of those rows; only the returned logits are
-gathered over those axes.  The transformer families (dense, moe, vlm) run
-tensor parallelism over "model" (their heads, hidden width and vocab; the
-MoE layers' experts under expert parallelism), each layer gathering its
-leaves over "data" just before use (FSDP); their cache holds the rank's
-rows and the kv heads its query heads read (``transformer.cache_heads``).
-The hybrid, ssm and encdec families gather their leaves whole and compute
-every head and channel on every rank of "model".
+gathered over those axes.  Every family runs tensor parallelism over
+"model" (heads, hidden width and vocab; the MoE layers' experts under
+expert parallelism; the RG-LRU's and the sLSTM's channels, the mLSTM's
+heads), each layer gathering its leaves over "data" just before use
+(FSDP) and keeping its "model" shard.  A cache or state holds the rank's
+rows and its part over "model": the kv heads its query heads read
+(``transformer.cache_heads``: the transformer's and the enc-dec decoder's
+cache, the hybrid's ring), the RG-LRU's d_rnn / m and the sLSTM's D / m
+channels, the mLSTM's heads (``xlstm.state_heads``).  Where a layer's
+heads do not divide "model", its leaves are made whole over "model" and
+every rank computes every head (``layers._model_parallel``, the mLSTM's
+head_dim split).
 """
 
 from __future__ import annotations
@@ -56,10 +61,7 @@ from .transformer import lm_loss
 
 __all__ = ["init", "train_logits", "prefill", "decode", "make_inputs",
            "input_specs", "param_shapes", "lm_loss", "TensorSpec",
-           "MeshRows", "TP_FAMILIES"]
-
-# the families whose layers run tensor parallelism over "model"
-TP_FAMILIES = ("dense", "moe", "vlm")
+           "MeshRows"]
 
 _INIT = {"dense": TF.init_lm, "moe": TF.init_lm, "vlm": TF.init_lm,
          "hybrid": RG.init_hybrid, "ssm": XL.init_xlstm,
@@ -126,7 +128,6 @@ class MeshRows:
         self.mesh = mesh
         self.rows = shr.dp_rows(mesh, batch)
         self.dp = lm.dp_axes(mesh)
-        self.tp = cfg.family in TP_FAMILIES
         self.specs = _param_specs(cfg, tuple(mesh.shape),
                                   tuple(mesh.mesh_dim_names))
 
@@ -151,26 +152,22 @@ class MeshRows:
         for k in path:
             spec = spec[k]
         sh = [(a, d - 1 if stacked else d)
-              for a, d in shr.shards_of(spec, self.mesh)
-              if not (self.tp and a == "model")]
+              for a, d in shr.shards_of(spec, self.mesh) if a != "model"]
         if not sh:
             return x
-        if self.tp:       # cast where the layers would: half the bytes
-            x = x.to(L.Compute)
-        return lm.gather_shards(x, self.mesh, sh)
+        # cast where the layers would: half the bytes (the leaves the
+        # layers read in float32, norms and the RG-LRU's ``lam``, are never
+        # split over "data")
+        return lm.gather_shards(x.to(L.Compute), self.mesh, sh)
 
     def weights(self, path: tuple, tree):
-        """The ``weights(path, tree)`` hook of ``transformer.forward``:
-        each leaf gathered over "data" (its "model" shard kept)."""
-        stacked = path[:1] == ("layers",)
+        """The ``weights(path, tree)`` hook of every family's forward and
+        decode step: each leaf gathered over "data" (its "model" shard
+        kept); under a stack key, ``tree`` is one entry of the stack."""
+        from ..distributed.sharding import STACK_KEYS
+        stacked = bool(path) and path[0] in STACK_KEYS
         return _tree_paths(lambda sub, x: self._gather(path + sub, x,
                                                        stacked), tree)
-
-    def whole_params(self, params: dict) -> dict:
-        """Every leaf of ``params`` gathered whole (the families without
-        tensor parallelism)."""
-        return _tree_paths(lambda path, x: self._gather(path, x, False),
-                           params)
 
 
 @functools.lru_cache(maxsize=None)
@@ -227,10 +224,7 @@ def prefill(params, cfg: ModelConfig, batch: dict, *, mesh=None,
     weights = None
     if on is not None:
         batch = {k: on.take(v) for k, v in batch.items()}
-        if on.tp:
-            weights = on.weights
-        else:
-            params = on.whole_params(params)
+        weights = on.weights
     tokens = batch["tokens"]
     b, t = tokens.shape
     if cfg.family in ("dense", "moe", "vlm"):
@@ -245,19 +239,22 @@ def prefill(params, cfg: ModelConfig, batch: dict, *, mesh=None,
                                       weights=weights)
     elif cfg.family == "hybrid":
         logits, _, _ = RG.forward_hybrid(params, cfg, tokens,
-                                         last_only=last_only, mesh=mesh)
+                                         last_only=last_only, mesh=mesh,
+                                         weights=weights)
         cache = None
     elif cfg.family == "ssm":
         logits, _, _ = XL.forward_xlstm(params, cfg, tokens,
-                                        last_only=last_only, mesh=mesh)
+                                        last_only=last_only, mesh=mesh,
+                                        weights=weights)
         cache = None
     elif cfg.family == "encdec":
-        cache = ED.init_encdec_cache(cfg, b, t, device=tokens.device)
+        cache = ED.init_encdec_cache(cfg, b, t, device=tokens.device,
+                                     mesh=mesh)
         logits, cache, _ = ED.forward_encdec(params, cfg, batch["frames"],
                                              tokens, cache=cache,
                                              last_only=last_only,
                                              attn_route=attn_route,
-                                             mesh=mesh)
+                                             mesh=mesh, weights=weights)
     else:
         raise ValueError(cfg.family)
     return (logits if on is None else on.whole(logits)), cache
@@ -274,24 +271,23 @@ def decode(params, cfg: ModelConfig, batch: dict, *, mesh=None):
     memory = batch.get("memory")
     if on is not None:
         tokens, memory = on.take(tokens), on.take(memory)
-        if on.tp:
-            weights = on.weights
-        else:
-            params = on.whole_params(params)
+        weights = on.weights
     if cfg.family in ("dense", "moe", "vlm"):
         logits, out = TF.decode_step(params, cfg, batch["cache"], tokens,
                                      batch["pos"], mesh=mesh,
                                      weights=weights)
     elif cfg.family == "hybrid":
         logits, out = RG.decode_step_hybrid(params, cfg, batch["state"],
-                                            tokens, batch["pos"], mesh=mesh)
+                                            tokens, batch["pos"], mesh=mesh,
+                                            weights=weights)
     elif cfg.family == "ssm":
         logits, out = XL.decode_step_xlstm(params, cfg, batch["state"],
-                                           tokens, batch["pos"], mesh=mesh)
+                                           tokens, batch["pos"], mesh=mesh,
+                                           weights=weights)
     elif cfg.family == "encdec":
         logits, out = ED.decode_step_encdec(params, cfg, batch["cache"],
                                             memory, tokens, batch["pos"],
-                                            mesh=mesh)
+                                            mesh=mesh, weights=weights)
     else:
         raise ValueError(cfg.family)
     return (logits if on is None else on.whole(logits)), out
@@ -319,8 +315,8 @@ def _specs_of(tree: dict) -> dict:
 def input_specs(cfg: ModelConfig, shape: ShapeSpec, mesh=None) -> dict:
     """TensorSpec stand-ins for every model input of this cell.  On
     ``mesh`` a decode cell's cache or state is this rank's, as ``prefill``
-    leaves it (its rows; for the transformer families the kv heads of
-    ``transformer.cache_heads``); every other leaf stays whole (SPMD)."""
+    leaves it or ``decode`` takes it (its rows and its part over "model";
+    see the module's docstring); every other leaf stays whole (SPMD)."""
     sp = _token_split(cfg, shape)
     b = sp["batch"]
     i32 = torch.int32
@@ -341,13 +337,12 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec, mesh=None) -> dict:
 
     # decode shapes: one new token against a seq_len-deep cache/state
     out = {"tokens": TensorSpec((b, 1), i32), "pos": TensorSpec((), i32)}
-    rows, heads = b, cfg.n_kv_heads
+    rows = b
     if mesh is not None:
         from ..distributed.sharding import dp_parts
         rows = b // dp_parts(mesh, b)
-        if cfg.family in TP_FAMILIES:
-            heads = TF.cache_heads(cfg, mesh)
-    cshape = (cfg.n_layers, rows, shape.seq_len, heads, cfg.hd)
+    cshape = (cfg.n_layers, rows, shape.seq_len, TF.cache_heads(cfg, mesh),
+              cfg.hd)
     if cfg.family in ("dense", "moe", "vlm", "encdec"):
         out["cache"] = {"k": TensorSpec(cshape, Compute),
                         "v": TensorSpec(cshape, Compute)}
@@ -356,10 +351,12 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec, mesh=None) -> dict:
                                    Compute)
     elif cfg.family == "hybrid":
         out["state"] = _specs_of(RG.init_hybrid_state(cfg, rows,
-                                                      device="meta"))
+                                                      device="meta",
+                                                      mesh=mesh))
     elif cfg.family == "ssm":
         out["state"] = _specs_of(XL.init_xlstm_state(cfg, rows,
-                                                     device="meta"))
+                                                     device="meta",
+                                                     mesh=mesh))
     return out
 
 

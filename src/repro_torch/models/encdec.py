@@ -11,6 +11,14 @@ and directly in decode.  Layers are stacked ``[L, ...]`` under ``enc`` and
 ``dec``; a Python loop takes the place of ``lax.scan``, and the decoder's
 cache is filled in place.  Training rematerialises each layer's body
 (``layers.remat_all``) unless ``cfg.remat_policy`` is ``"none"``.
+
+On an LM mesh (``mesh=``) every layer runs tensor parallelism over its
+"model" axis as the transformer's does (``layers.attention``'s heads,
+``swiglu_mlp``'s hidden columns, the vocab of the embedding and the
+head), with the shards ``distributed.sharding.param_specs`` gives a rank
+there.  Cross-attention splits its heads too: every rank holds the
+encoder memory whole and projects the K/V of its own heads from it.  The
+decoder's cache holds the rank's kv heads (``transformer.cache_heads``).
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import layers as L
+from .transformer import attn_heads, cache_heads, embed_tokens, model_axis
 
 __all__ = ["init_encdec", "forward_encdec", "encode", "init_encdec_cache",
            "decode_step_encdec"]
@@ -77,14 +86,17 @@ def init_encdec(cfg: ModelConfig, gen: torch.Generator, *, device,
 
 
 def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor,
-           weights=None) -> torch.Tensor:
+           weights=None, mesh=None) -> torch.Tensor:
     """frames [B, T_enc, D] (stubbed frontend output) -> memory [B, T_enc,
-    D] (bf16).  ``weights`` as ``forward_encdec``'s."""
+    D] (bf16), whole on every rank of ``mesh``.  ``weights`` and ``mesh``
+    as ``forward_encdec``'s."""
+    mesh = model_axis(mesh)
     x = frames.to(L.Compute)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     body = L.remat_all(functools.partial(
         _enc_layer, cfg, gather=None if weights is None
-        else functools.partial(weights, ("enc",))), cfg.remat_policy)
+        else functools.partial(weights, ("enc",)), mesh=mesh),
+        cfg.remat_policy)
     for p in L.unstack_tree(params["enc"]):
         x = body(x, p, positions)
     norm = params["enc_norm"] if weights is None else weights(
@@ -92,30 +104,39 @@ def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor,
     return L.rms_norm(norm, x, cfg.norm_eps)
 
 
-def _enc_layer(cfg, x, p, positions, gather=None):
+def _enc_layer(cfg, x, p, positions, gather=None, mesh=None):
     if gather is not None:
         p = gather(p)
     h, _ = L.attention(p["attn"], L.rms_norm(p["ln1"], x, cfg.norm_eps),
                        positions=positions, rope_theta=cfg.rope_theta,
-                       causal=False)
+                       causal=False, mesh=mesh, heads=attn_heads(cfg))
     x = x + h
-    return x + L.swiglu_mlp(p["mlp"], L.rms_norm(p["ln2"], x, cfg.norm_eps))
+    return x + L.swiglu_mlp(p["mlp"], L.rms_norm(p["ln2"], x, cfg.norm_eps),
+                            mesh=mesh, d_ff=cfg.d_ff)
 
 
 def _dec_layer(cfg, p, x, memory, *, positions, cache=None,
-               cache_index: int = 0, attn_route: str = "auto", gather=None):
+               cache_index: int = 0, attn_route: str = "auto", gather=None,
+               mesh=None):
     if gather is not None:
         p = gather(p)
     h, _ = L.attention(p["self"], L.rms_norm(p["ln1"], x, cfg.norm_eps),
                        positions=positions, rope_theta=cfg.rope_theta,
                        cache=cache, cache_index=cache_index,
-                       attn_route=attn_route)
+                       attn_route=attn_route, mesh=mesh, heads=attn_heads(cfg))
     x = x + h
     h, _ = L.attention(p["cross"], L.rms_norm(p["ln_x"], x, cfg.norm_eps),
                        positions=positions, rope_theta=cfg.rope_theta,
-                       memory=memory, causal=False)
+                       memory=memory, causal=False, mesh=mesh,
+                       heads=attn_heads(cfg))
     x = x + h
-    return x + L.swiglu_mlp(p["mlp"], L.rms_norm(p["ln2"], x, cfg.norm_eps))
+    return x + L.swiglu_mlp(p["mlp"], L.rms_norm(p["ln2"], x, cfg.norm_eps),
+                            mesh=mesh, d_ff=cfg.d_ff)
+
+
+def _logits(top: dict, cfg: ModelConfig, x, mesh):
+    return L.logits_tp(top["head"]["w"], x, vocab=cfg.padded_vocab,
+                       mesh=mesh)
 
 
 def forward_encdec(params: dict, cfg: ModelConfig, frames: torch.Tensor,
@@ -123,23 +144,24 @@ def forward_encdec(params: dict, cfg: ModelConfig, frames: torch.Tensor,
                    cache: Optional[dict] = None, last_only: bool = False,
                    attn_route: str = "auto", mesh=None, weights=None):
     """Teacher-forced training / prefill.  Returns (logits, cache, aux).
-    ``mesh`` is accepted and unused, as the reference's (it reaches the
-    transformer family's MoE layers only).  ``weights(path, tree)`` (the
-    sharded train step's ZeRO-3 gather) makes each layer's parameters whole
-    inside its rematerialised body, and the embedding's, the norms' and the
-    head's just before use.
-    With ``cache`` ([L, B, S, K, H] leaves, zero) the decoder's K/V fill
-    its first T positions in place; ``attn_route`` picks the route of the
-    decoder's prefill self-attention (``layers.attention``)."""
-    memory = encode(params, cfg, frames, weights)
-    embed_p = params["embed"] if weights is None else weights(
-        ("embed",), params["embed"])
-    x = L.embed(embed_p, dec_tokens)
-    del embed_p
+    ``mesh`` (an LM mesh): tensor parallelism over its "model" axis (see
+    the module's docstring); ``frames`` and ``dec_tokens`` are the rows
+    this rank computes.  ``weights(path, tree)`` (the FSDP gather of mesh
+    serving and the sharded train step) gathers each layer's parameters
+    over "data" inside its rematerialised body, and the embedding's, the
+    norms' and the head's just before use.
+    With ``cache`` ([L, B, S, K, H] leaves, zero; K the rank's kv heads on
+    ``mesh``) the decoder's K/V fill its first T positions in place;
+    ``attn_route`` picks the route of the decoder's prefill
+    self-attention (``layers.attention``)."""
+    mesh = model_axis(mesh)
+    memory = encode(params, cfg, frames, weights, mesh)
+    x = embed_tokens(params, cfg, dec_tokens, mesh, weights)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     body = L.remat_all(functools.partial(
         _dec_layer, cfg, gather=None if weights is None
-        else functools.partial(weights, ("dec",))), cfg.remat_policy)
+        else functools.partial(weights, ("dec",)), mesh=mesh),
+        cfg.remat_policy)
     for i, p in enumerate(L.unstack_tree(params["dec"])):
         c = None if cache is None else {"k": cache["k"][i],
                                         "v": cache["v"][i]}
@@ -150,29 +172,38 @@ def forward_encdec(params: dict, cfg: ModelConfig, frames: torch.Tensor,
     x = L.rms_norm(top["final_norm"], x, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
-    return (L.dense(top["head"], x), cache,
+    return (_logits(top, cfg, x, mesh), cache,
             torch.zeros((), device=x.device))
 
 
 def init_encdec_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-                      device) -> dict:
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+                      device, mesh=None) -> dict:
+    """A zero decoder cache [L, batch, max_len, K, H]; on ``mesh`` K is the
+    kv heads this rank computes with (``transformer.cache_heads``)."""
+    shape = (cfg.n_layers, batch, max_len, cache_heads(cfg, mesh), cfg.hd)
     return {"k": torch.zeros(shape, dtype=L.Compute, device=device),
             "v": torch.zeros(shape, dtype=L.Compute, device=device)}
 
 
 def decode_step_encdec(params: dict, cfg: ModelConfig, cache: dict,
                        memory: torch.Tensor, tokens: torch.Tensor, pos: int,
-                       *, mesh=None):
+                       *, mesh=None, weights=None):
     """One-token decode against the self cache (updated in place) and the
-    precomputed encoder memory.  Returns (logits, cache)."""
+    precomputed encoder memory.  Returns (logits, cache).  ``mesh`` and
+    ``weights`` as ``forward_encdec``'s; the cache is this rank's
+    (``init_encdec_cache(..., mesh=)``), ``memory`` its rows, whole."""
     pos = int(pos)
-    x = L.embed(params["embed"], tokens)
+    mesh = model_axis(mesh)
+    x = embed_tokens(params, cfg, tokens, mesh, weights)
     positions = pos + torch.arange(x.shape[1], device=x.device)[None, :]
+    gather = None if weights is None else functools.partial(weights,
+                                                            ("dec",))
     for i in range(cfg.n_layers):
         x = _dec_layer(cfg, L.index_tree(params["dec"], i), x, memory,
                        positions=positions,
                        cache={"k": cache["k"][i], "v": cache["v"][i]},
-                       cache_index=pos)
-    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return L.dense(params["head"], x), cache
+                       cache_index=pos, gather=gather, mesh=mesh)
+    top = params if weights is None else {
+        k: weights((k,), params[k]) for k in ("final_norm", "head")}
+    x = L.rms_norm(top["final_norm"], x, cfg.norm_eps)
+    return _logits(top, cfg, x, mesh), cache

@@ -300,16 +300,20 @@ def attention(p, x, *, positions, rope_theta: float, window: int = 0,
     head_dim), the layer's whole counts: tensor parallelism where ``p``'s
     leaves are this rank's shards (``_model_parallel``): the rank computes
     its query heads against the kv heads they read, and the cache holds
-    those kv heads only.
+    those kv heads only.  Cross-attention splits the same way: ``memory``
+    is whole on every rank, and the rank projects the K/V of its heads
+    from it.
     """
     from ..kernels import ops as kops
 
     split = False
-    if model_size(mesh) > 1 and memory is None:
+    if model_size(mesh) > 1:
         p, split = _model_parallel(p, heads, mesh)
         if split:
             from ..launch import mesh as lm
             x = lm.sum_grads(x, mesh, "model")
+            if memory is not None:
+                memory = lm.sum_grads(memory, mesh, "model")
     b, t, d = x.shape
     q = torch.einsum("btd,dnh->btnh", x, p["wq"].to(Compute))
     src = memory if memory is not None else x

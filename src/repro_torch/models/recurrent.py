@@ -16,6 +16,19 @@ Decode state: RG-LRU hidden [B, d_rnn] + causal-conv tail [B, 3, d_rnn] per
 recurrent layer; a ring buffer of ``attn_window`` K/V slots per attention
 layer.  ``decode_step_hybrid`` updates the state tensors in place and
 returns them, as the transformer's decode step does its cache.
+
+On an LM mesh (``mesh=``) the blocks run tensor parallelism over its
+"model" axis with the shards ``distributed.sharding.param_specs`` gives a
+rank there.  The RG-LRU block is channel-parallel: ``wx``, ``wgate``,
+``conv_w``, ``conv_b`` and ``lam`` hold the rank's d_rnn / m channels, and
+the row-parallel gates ``w_r``/``w_i`` give partial pre-activations over
+all channels, reduce-scattered to the rank's (``launch.mesh
+.scatter_parts``, one collective for both), so the conv, the scan and the
+state [B, d_rnn / m] stay on the rank's channels; ``wo`` is row-parallel
+(one sum over "model").  The attention block splits its query heads as
+``layers.attention`` does, its ring holding the kv heads they read
+(``transformer.cache_heads``); the MLPs, the embedding and the head are
+the transformer's.  A leaf given whole computes as on one device.
 """
 
 from __future__ import annotations
@@ -27,6 +40,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from . import layers as L
+from .transformer import (attn_heads, cache_heads, embed_tokens,
+                          head_logits, model_axis)
 
 __all__ = ["init_hybrid", "forward_hybrid", "init_hybrid_state",
            "decode_step_hybrid", "rglru_block", "attn_block",
@@ -58,10 +73,19 @@ def init_rglru_block(gen, d_model: int, d_rnn: int, d_ff: int, *, device):
     }
 
 
-def _rglru_coeffs(p, u):
-    """Per-step gate coefficients: h_t = a_t * h_{t-1} + b_t."""
-    r = torch.sigmoid(torch.matmul(u, p["w_r"].to(L.Compute)).float())
-    i = torch.sigmoid(torch.matmul(u, p["w_i"].to(L.Compute)).float())
+def _rglru_coeffs(p, u, mesh=None):
+    """Per-step gate coefficients: h_t = a_t * h_{t-1} + b_t.  ``mesh``:
+    ``u`` holds the rank's channels and ``w_r``/``w_i`` their rows, so
+    both gates' partial pre-activations are reduce-scattered to those
+    channels in one collective."""
+    pre_r = torch.matmul(u, p["w_r"].to(L.Compute))
+    pre_i = torch.matmul(u, p["w_i"].to(L.Compute))
+    if mesh is not None:
+        from ..launch import mesh as lm
+        pre_r, pre_i = lm.scatter_parts(torch.stack([pre_r, pre_i]), mesh,
+                                        "model", -1).unbind(0)
+    r = torch.sigmoid(pre_r.float())
+    i = torch.sigmoid(pre_i.float())
     log_a = -8.0 * F.softplus(p["lam"]) * r               # [B,T,d_rnn] fp32
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
@@ -111,15 +135,22 @@ def _causal_conv(p, u, tail=None):
     return out + p["conv_b"].to(u.dtype), ext[:, -(CONV_W - 1):]
 
 
-def rglru_block(p, x, *, eps: float, state=None):
+def rglru_block(p, x, *, eps: float, state=None, mesh=None, d_ff: int = 0):
     """x [B,T,D] -> (y, state).  state = {"h": [B,d], "conv": [B,3,d]}
-    (decode, T == 1: updated in place)."""
+    (decode, T == 1: updated in place).  ``mesh`` (an LM mesh's "model"
+    axis) with ``d_ff`` the MLP's whole hidden width: channel-parallel
+    where ``p``'s leaves hold the rank's channels (d = d_rnn / m in the
+    state; see the module's docstring)."""
+    from ..launch import mesh as lm
+    split = L.model_size(mesh) > 1 and p["wx"].shape[1] < p["w_r"].shape[1]
     xn = L.rms_norm(p["ln"], x, eps)
+    if split:
+        xn = lm.sum_grads(xn, mesh, "model")
     u = torch.matmul(xn, p["wx"].to(L.Compute))
     gate = torch.matmul(xn, p["wgate"].to(L.Compute))
     u, conv_tail = _causal_conv(p, u, None if state is None
                                 else state["conv"])
-    a, b = _rglru_coeffs(p, u)
+    a, b = _rglru_coeffs(p, u, mesh if split else None)
     if state is None:
         h = _chunked_linear_scan(a, b)
     else:
@@ -129,8 +160,11 @@ def rglru_block(p, x, *, eps: float, state=None):
         h = h[:, None]
     y = torch.matmul(h.to(L.Compute) * L.gelu(gate),
                      p["wo"].to(L.Compute))
+    if split:
+        y = lm.reduce_parts(y, mesh, "model")
     x = x + y
-    x = x + L.swiglu_mlp(p["mlp"], L.rms_norm(p["ln2"], x, eps))
+    x = x + L.swiglu_mlp(p["mlp"], L.rms_norm(p["ln2"], x, eps), mesh=mesh,
+                         d_ff=d_ff)
     return x, state
 
 
@@ -148,26 +182,39 @@ def init_attn_block(gen, cfg: ModelConfig, *, device):
     }
 
 
-def attn_block(p, x, cfg: ModelConfig, *, positions):
+def attn_block(p, x, cfg: ModelConfig, *, positions, mesh=None):
     h, _ = L.attention(p["attn"], L.rms_norm(p["ln"], x, cfg.norm_eps),
                        positions=positions, rope_theta=cfg.rope_theta,
-                       window=cfg.attn_window)
+                       window=cfg.attn_window, mesh=mesh,
+                       heads=attn_heads(cfg))
     x = x + h
-    return x + L.swiglu_mlp(p["mlp"], L.rms_norm(p["ln2"], x, cfg.norm_eps))
+    return x + L.swiglu_mlp(p["mlp"], L.rms_norm(p["ln2"], x, cfg.norm_eps),
+                            mesh=mesh, d_ff=cfg.d_ff)
 
 
-def init_ring_cache(cfg: ModelConfig, batch: int, *, lead=(), device):
-    shape = (*lead, batch, cfg.attn_window, cfg.n_kv_heads, cfg.hd)
+def init_ring_cache(cfg: ModelConfig, batch: int, *, lead=(), device,
+                    mesh=None):
+    """A zero ring [*lead, batch, window, K, H]; on ``mesh`` K is the kv
+    heads this rank's query heads read (``transformer.cache_heads``)."""
+    shape = (*lead, batch, cfg.attn_window, cache_heads(cfg, mesh), cfg.hd)
     return {"k": torch.zeros(shape, dtype=L.Compute, device=device),
             "v": torch.zeros(shape, dtype=L.Compute, device=device)}
 
 
-def attn_block_decode(p, x, cfg: ModelConfig, ring: dict, pos: int):
+def attn_block_decode(p, x, cfg: ModelConfig, ring: dict, pos: int, *,
+                      mesh=None):
     """Single-token local attention against the ring buffer (written in
-    place at slot ``pos % w``)."""
+    place at slot ``pos % w``).  ``mesh``: the heads split as
+    ``layers.attention`` splits them, the ring holding the kv heads the
+    rank's query heads read."""
+    from ..launch import mesh as lm
     w = cfg.attn_window
     xn = L.rms_norm(p["ln"], x, cfg.norm_eps)
-    ap = p["attn"]
+    ap, split = p["attn"], False
+    if L.model_size(mesh) > 1:
+        ap, split = L._model_parallel(ap, attn_heads(cfg), mesh)
+        if split:
+            xn = lm.sum_grads(xn, mesh, "model")
     q = torch.einsum("btd,dnh->btnh", xn, ap["wq"].to(L.Compute))
     k = torch.einsum("btd,dkh->btkh", xn, ap["wk"].to(L.Compute))
     v = torch.einsum("btd,dkh->btkh", xn, ap["wv"].to(L.Compute))
@@ -193,10 +240,13 @@ def attn_block_decode(p, x, cfg: ModelConfig, ring: dict, pos: int):
                          torch.tensor(-1e30, device=x.device))
     probs = torch.softmax(logits, dim=-1).to(L.Compute)
     ctx = torch.einsum("bkgts,bskh->btkgh", probs, ring["v"])
-    h = torch.einsum("btnh,nhd->btd", ctx.reshape(b, t, cfg.n_heads, hd),
+    h = torch.einsum("btnh,nhd->btd", ctx.reshape(b, t, q.shape[2], hd),
                      ap["wo"].to(L.Compute))
+    if split:
+        h = lm.reduce_parts(h, mesh, "model")
     x = x + h
-    x = x + L.swiglu_mlp(p["mlp"], L.rms_norm(p["ln2"], x, cfg.norm_eps))
+    x = x + L.swiglu_mlp(p["mlp"], L.rms_norm(p["ln2"], x, cfg.norm_eps),
+                         mesh=mesh, d_ff=cfg.d_ff)
     return x, ring
 
 
@@ -248,71 +298,68 @@ def init_hybrid(cfg: ModelConfig, gen: torch.Generator, *, device,
     return params
 
 
-def _head(params: dict, cfg: ModelConfig, x, weights=None):
-    if weights is not None:
-        params = {k: weights((k,), params[k]) for k in (
-            "final_norm", "embed" if cfg.tie_embeddings else "head")}
-    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return (L.unembed(params["embed"], x) if cfg.tie_embeddings
-            else L.dense(params["head"], x))
-
-
 def _groups(cfg: ModelConfig, tree: dict):
-    """(group tree, pattern) of every group in order: the stacked groups,
-    then the tail."""
+    """(group tree, pattern, its ``weights`` path) of every group in
+    order: the stacked groups, then the tail."""
     _, tail = _pattern_layout(cfg)
     for gp in L.unstack_tree(tree["groups"]):
-        yield gp, _pattern(cfg)
+        yield gp, _pattern(cfg), ("groups",)
     if tail:
-        yield tree["tail"], tail
+        yield tree["tail"], tail, ("tail",)
 
 
 def _run_pattern(cfg: ModelConfig, x, gp: dict, pattern, positions,
-                 gather=None):
+                 gather=None, mesh=None):
     if gather is not None:
         gp = gather(gp)
     for i, kind in enumerate(pattern):
         p = gp[f"b{i}_{kind}"]
         if kind == "rglru":
-            x, _ = rglru_block(p, x, eps=cfg.norm_eps)
+            x, _ = rglru_block(p, x, eps=cfg.norm_eps, mesh=mesh,
+                               d_ff=cfg.d_ff)
         else:
-            x = attn_block(p, x, cfg, positions=positions)
+            x = attn_block(p, x, cfg, positions=positions, mesh=mesh)
     return x
 
 
 def forward_hybrid(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                    last_only: bool = False, mesh=None, weights=None):
-    """Training / prefill forward. Returns (logits, None, aux=0); ``mesh``
-    is accepted and unused, as the reference's.  Each
+    """Training / prefill forward. Returns (logits, None, aux=0).  Each
     stacked group's body is rematerialised unless ``cfg.remat_policy`` is
     ``"none"``, the tail's never (as the reference's scan body).
-    ``weights(path, tree)`` (the sharded train step's ZeRO-3 gather) makes
-    each group's parameters whole inside its rematerialised body, and the
-    embedding's, the tail's and the head's just before use."""
-    embed_p = params["embed"] if weights is None else weights(
-        ("embed",), params["embed"])
-    x = L.embed(embed_p, tokens)
-    del embed_p
+    ``mesh`` (an LM mesh): tensor parallelism over its "model" axis (see
+    the module's docstring); ``tokens`` are the rows this rank computes.
+    ``weights(path, tree)`` (the FSDP gather of mesh serving and the
+    sharded train step) gathers each group's parameters over "data" inside
+    its rematerialised body, and the embedding's, the tail's and the
+    head's just before use."""
+    mesh = model_axis(mesh)
+    x = embed_tokens(params, cfg, tokens, mesh, weights)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     group = L.remat_all(functools.partial(
         _run_pattern, cfg, gather=None if weights is None
-        else functools.partial(weights, ("groups",))), cfg.remat_policy)
+        else functools.partial(weights, ("groups",)), mesh=mesh),
+        cfg.remat_policy)
     for gp in L.unstack_tree(params["groups"]):
         x = group(x, gp, _pattern(cfg), positions)
     _, tail = _pattern_layout(cfg)
     if tail:
         x = _run_pattern(cfg, x, params["tail"], tail, positions,
                          gather=None if weights is None
-                         else functools.partial(weights, ("tail",)))
+                         else functools.partial(weights, ("tail",)),
+                         mesh=mesh)
     if last_only:
         x = x[:, -1:]
-    return (_head(params, cfg, x, weights), None,
+    return (head_logits(params, cfg, x, weights, mesh), None,
             torch.zeros((), device=x.device))
 
 
 def _group_state(cfg: ModelConfig, batch: int, pattern, *, lead=(),
-                 device) -> dict:
+                 device, mesh=None) -> dict:
+    from ..distributed.sharding import model_span
     d_rnn = cfg.rglru_dim or cfg.d_model
+    span = model_span(d_rnn, L.model_size(mesh), 0)
+    d_rnn = d_rnn if span is None else span[1]
     st = {}
     for i, kind in enumerate(pattern):
         if kind == "rglru":
@@ -324,32 +371,46 @@ def _group_state(cfg: ModelConfig, batch: int, pattern, *, lead=(),
             }
         else:
             st[f"b{i}_{kind}"] = init_ring_cache(cfg, batch, lead=lead,
-                                                 device=device)
+                                                 device=device, mesh=mesh)
     return st
 
 
-def init_hybrid_state(cfg: ModelConfig, batch: int, *, device) -> dict:
+def init_hybrid_state(cfg: ModelConfig, batch: int, *, device,
+                      mesh=None) -> dict:
+    """The zero decode state of ``batch`` rows; on ``mesh`` (any mesh, or a
+    ``MeshLayout``) a rank's: the RG-LRU's d_rnn / m channels where the
+    rules split them, the ring's kv heads of ``transformer.cache_heads``
+    (the rows are the caller's)."""
     n_groups, tail = _pattern_layout(cfg)
     state = {"groups": _group_state(cfg, batch, _pattern(cfg),
-                                    lead=(n_groups,), device=device)}
+                                    lead=(n_groups,), device=device,
+                                    mesh=mesh)}
     if tail:
-        state["tail"] = _group_state(cfg, batch, tail, device=device)
+        state["tail"] = _group_state(cfg, batch, tail, device=device,
+                                     mesh=mesh)
     return state
 
 
 def decode_step_hybrid(params: dict, cfg: ModelConfig, state: dict,
-                       tokens: torch.Tensor, pos: int, *, mesh=None):
+                       tokens: torch.Tensor, pos: int, *, mesh=None,
+                       weights=None):
     """One-token decode: O(window + d_rnn) state, O(1) in sequence length.
-    Returns (logits, state); the state is updated in place."""
+    Returns (logits, state); the state is updated in place.  ``mesh`` and
+    ``weights`` as ``forward_hybrid``'s; the state is this rank's
+    (``init_hybrid_state(..., mesh=)``)."""
     pos = int(pos)
-    x = L.embed(params["embed"], tokens)
-    for (gp, pattern), (st, _) in zip(_groups(cfg, params),
-                                      _groups(cfg, state)):
+    mesh = model_axis(mesh)
+    x = embed_tokens(params, cfg, tokens, mesh, weights)
+    for (gp, pattern, path), (st, _, _) in zip(_groups(cfg, params),
+                                               _groups(cfg, state)):
+        if weights is not None:
+            gp = weights(path, gp)
         for i, kind in enumerate(pattern):
             key = f"b{i}_{kind}"
             if kind == "rglru":
                 x, _ = rglru_block(gp[key], x, eps=cfg.norm_eps,
-                                   state=st[key])
+                                   state=st[key], mesh=mesh, d_ff=cfg.d_ff)
             else:
-                x, _ = attn_block_decode(gp[key], x, cfg, st[key], pos)
-    return _head(params, cfg, x), state
+                x, _ = attn_block_decode(gp[key], x, cfg, st[key], pos,
+                                         mesh=mesh)
+    return head_logits(params, cfg, x, weights, mesh), state

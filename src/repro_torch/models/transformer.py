@@ -33,7 +33,8 @@ from . import layers as L
 from .moe import init_moe, moe_mlp
 
 __all__ = ["init_lm", "forward", "init_cache", "decode_step", "lm_loss",
-           "cache_heads", "model_axis"]
+           "cache_heads", "model_axis", "embed_tokens", "head_logits",
+           "attn_heads"]
 
 
 def init_layer(cfg: ModelConfig, gen: torch.Generator, *, device) -> dict:
@@ -80,6 +81,12 @@ def model_axis(mesh):
         else mesh.submesh(("model",))
 
 
+def attn_heads(cfg: ModelConfig) -> tuple:
+    """(n_heads, n_kv_heads, head_dim): an attention layer's whole counts,
+    as ``layers.attention(heads=)`` takes them."""
+    return cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+
 def cache_heads(cfg: ModelConfig, mesh=None) -> int:
     """The kv heads a rank's cache holds on ``mesh``'s "model" axis (any
     mesh, or a ``MeshLayout``): those its query heads read
@@ -100,7 +107,7 @@ def _layer_body(cfg: ModelConfig, x, p, *, positions, cache=None,
         p["attn"], L.rms_norm(p["ln1"], x, cfg.norm_eps), positions=positions,
         rope_theta=cfg.rope_theta, window=cfg.attn_window, cache=cache,
         cache_index=cache_index, attn_route=attn_route, mesh=mesh,
-        heads=(cfg.n_heads, cfg.n_kv_heads, cfg.hd))
+        heads=attn_heads(cfg))
     x = x + h
     hn = L.rms_norm(p["ln2"], x, cfg.norm_eps)
     if cfg.n_experts:
@@ -111,13 +118,20 @@ def _layer_body(cfg: ModelConfig, x, p, *, positions, cache=None,
     return x + h, aux
 
 
-def _embed(params: dict, cfg: ModelConfig, tokens, mesh, weights):
+def embed_tokens(params: dict, cfg: ModelConfig, tokens, mesh=None,
+                 weights=None):
+    """The embedding of ``tokens`` (vocab-parallel on ``mesh``'s "model"
+    axis, ``layers.embed_tp``); every family's."""
     p = params["embed"] if weights is None else weights(
         ("embed",), params["embed"])
     return L.embed_tp(p, tokens, vocab=cfg.padded_vocab, mesh=mesh)
 
 
-def _logits(params: dict, cfg: ModelConfig, x, weights=None, mesh=None):
+def head_logits(params: dict, cfg: ModelConfig, x, weights=None,
+                mesh=None):
+    """The final norm and the head (the tied table where
+    ``cfg.tie_embeddings``), the vocab gathered whole over ``mesh``'s
+    "model" axis (``layers.logits_tp``); the decoder-only families'."""
     if weights is not None:
         params = {k: weights((k,), params[k]) for k in (
             "final_norm", "embed" if cfg.tie_embeddings else "head")}
@@ -149,7 +163,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     them again, and the embedding's and head's just before use.
     """
     mesh = model_axis(mesh)
-    x = _embed(params, cfg, tokens, mesh, weights)
+    x = embed_tokens(params, cfg, tokens, mesh, weights)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     t = x.shape[1]
@@ -166,7 +180,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             aux = aux + a
     if last_only:
         x = x[:, -1:]
-    return _logits(params, cfg, x, weights, mesh), cache, aux
+    return head_logits(params, cfg, x, weights, mesh), cache, aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -185,7 +199,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     ``forward``'s."""
     pos = int(pos)
     mesh = model_axis(mesh)
-    x = _embed(params, cfg, tokens, mesh, weights)
+    x = embed_tokens(params, cfg, tokens, mesh, weights)
     t = x.shape[1]
     positions = pos + torch.arange(t, device=x.device)[None, :]
     for i in range(cfg.n_layers):
@@ -193,7 +207,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
                            positions=positions,
                            cache={"k": cache["k"][i], "v": cache["v"][i]},
                            cache_index=pos, mesh=mesh, weights=weights)
-    return _logits(params, cfg, x, weights, mesh), cache
+    return head_logits(params, cfg, x, weights, mesh), cache
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor,

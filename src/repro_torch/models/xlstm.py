@@ -17,6 +17,20 @@ reference does.
 Block pattern: 7 mLSTM : 1 sLSTM (``cfg.block_pattern``), d_ff = 0 — the
 cells hold their own projections, there is no separate FFN.  The decode
 state is updated in place and returned.
+
+On an LM mesh (``mesh=``) the blocks run tensor parallelism over its
+"model" axis with the shards ``distributed.sharding.param_specs`` gives a
+rank there.  mLSTM: where the rules split ``wq``/``wk``/``wv`` and
+``wi``/``wf`` on the heads, the rank runs the cell for its N / m heads
+(state ``C``/``n`` of those heads), whose outputs are its D / m columns of
+``h``; where they split q/k/v on head_dim (the heads do not divide m),
+q/k/v are gathered over "model" and every rank runs every head, then
+keeps its D / m columns of ``h``.  Either way those columns meet the
+rank's ``wog`` columns and ``wo`` rows (one sum over "model").  sLSTM:
+``wz``/``wi``/``wf``/``wo_gate`` are column-parallel, so the recurrence
+runs on the rank's D / m channels (state [B, D / m]) with no collective
+inside the loop, and ``wo`` is row-parallel (one sum).  A leaf given
+whole computes as on one device.
 """
 
 from __future__ import annotations
@@ -27,10 +41,11 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import layers as L
+from .transformer import embed_tokens, head_logits, model_axis
 
 __all__ = ["init_xlstm", "forward_xlstm", "init_xlstm_state",
-           "decode_step_xlstm", "mlstm_block", "slstm_block", "CHUNK",
-           "GATE_CLAMP"]
+           "decode_step_xlstm", "mlstm_block", "slstm_block", "state_heads",
+           "CHUNK", "GATE_CLAMP"]
 
 CHUNK = 256
 GATE_CLAMP = 8.0
@@ -104,12 +119,44 @@ def _mlstm_chunk(C, n, qj, kj, vj, ij, fj):
     return ftot[..., None] * C + kv, ftot * n + ksum, h
 
 
-def mlstm_block(p, x, *, n_heads: int, eps: float, state=None):
+def _mlstm_model_parallel(p, xn, n_heads: int, mesh):
+    """(the leaves this rank computes with, ``xn``, this rank's D / m
+    columns of ``h`` or ``None``) on ``mesh``'s "model" axis: ``p`` as it
+    is where its heads are split (the rank's heads give its columns);
+    where they are not, q/k/v and the gates made whole over "model" (the
+    gradient summed: each rank's columns read every head) and the columns
+    cut from every head's ``h``.  ``None`` and ``p`` as it is where
+    ``wog`` is whole (no leaf split over "model")."""
+    from ..distributed.sharding import model_span
+    from ..launch import mesh as lm
+    d = xn.shape[-1]
+    m = L.model_size(mesh)
+    if m == 1 or p["wog"].shape[1] == d:
+        return p, xn, None
+    xn = lm.sum_grads(xn, mesh, "model")
+    cols = model_span(d, m, mesh.coordinate("model"))
+    if p["wq"].shape[1] < n_heads:
+        return p, xn, None
+    p = dict(p)
+    for k in ("wq", "wk", "wv", "wi", "wf"):
+        dims = [i for i, n in ((1, n_heads), (2, d // n_heads))
+                if i < p[k].dim() and p[k].shape[i] < n]
+        p[k] = (lm.gather_shards(p[k], mesh, [("model", dims[0])],
+                                 summed=("model",)) if dims
+                else lm.sum_grads(p[k], mesh, "model"))
+    return p, xn, cols
+
+
+def mlstm_block(p, x, *, n_heads: int, eps: float, state=None, mesh=None):
     """x [B,T,D].  state = {"C": [B,N,h,h], "n": [B,N,h]} for decode
-    (T == 1; updated in place)."""
+    (T == 1; updated in place).  ``mesh`` (an LM mesh's "model" axis):
+    tensor parallelism where ``p``'s leaves are this rank's shards (see the
+    module's docstring); N in the state is the heads the rank runs."""
     b, t, d = x.shape
     hd = d // n_heads
     xn = L.rms_norm(p["ln"], x, eps)
+    p, xn, cols = _mlstm_model_parallel(p, xn, n_heads, mesh)
+    nh = p["wq"].shape[1]                    # the heads this rank runs
     q = _proj(xn, p["wq"]) * hd ** -0.5
     k = _proj(xn, p["wk"])
     v = _proj(xn, p["wv"])
@@ -130,10 +177,9 @@ def mlstm_block(p, x, *, n_heads: int, eps: float, state=None):
     else:  # chunkwise-parallel prefill
         ck = min(CHUNK, t)
         assert t % ck == 0, (t, CHUNK)
-        C = torch.zeros((b, n_heads, hd, hd), dtype=torch.float32,
+        C = torch.zeros((b, nh, hd, hd), dtype=torch.float32,
                         device=x.device)
-        n = torch.zeros((b, n_heads, hd), dtype=torch.float32,
-                        device=x.device)
+        n = torch.zeros((b, nh, hd), dtype=torch.float32, device=x.device)
         hs = []
         for lo in range(0, t, ck):
             sl = slice(lo, lo + ck)
@@ -142,8 +188,14 @@ def mlstm_block(p, x, *, n_heads: int, eps: float, state=None):
             hs.append(hj)
         h = torch.cat(hs, dim=1) if len(hs) > 1 else hs[0]
 
+    h = h.reshape(b, -1, nh * hd)
+    if cols is not None:
+        h = h.narrow(-1, *cols)
     og = L.sigmoid(_proj(xn, p["wog"]))
-    y = _proj(h.reshape(b, -1, d).to(L.Compute) * og, p["wo"])
+    y = _proj(h.to(L.Compute) * og, p["wo"])
+    if p["wog"].shape[1] < d:
+        from ..launch import mesh as lm
+        y = lm.reduce_parts(y, mesh, "model")
     return x + y, state
 
 
@@ -164,10 +216,16 @@ def init_slstm_block(gen, d_model: int, *, device):
     }
 
 
-def slstm_block(p, x, *, eps: float, state=None):
+def slstm_block(p, x, *, eps: float, state=None, mesh=None):
     """Sequential scalar-memory cell.  state = {"c": [B,D], "n": [B,D]}
-    (decode; updated in place)."""
+    (decode; updated in place).  ``mesh`` (an LM mesh's "model" axis):
+    channel-parallel where ``p``'s gates hold the rank's D / m columns
+    (the state's D is then D / m)."""
+    from ..launch import mesh as lm
+    split = L.model_size(mesh) > 1 and p["wz"].shape[1] < x.shape[-1]
     xn = L.rms_norm(p["ln"], x, eps)
+    if split:
+        xn = lm.sum_grads(xn, mesh, "model")
     z = torch.tanh(_proj(xn, p["wz"]).float())
     i = torch.exp(torch.clamp(_proj(xn, p["wi"]).float(), -GATE_CLAMP,
                               GATE_CLAMP))
@@ -181,7 +239,7 @@ def slstm_block(p, x, *, eps: float, state=None):
         state["c"].copy_(c)
         state["n"].copy_(n)
     else:
-        b, t, d = x.shape
+        b, t, d = z.shape
         c = torch.zeros((b, d), dtype=torch.float32, device=x.device)
         n = torch.zeros_like(c)
         hs = []
@@ -191,6 +249,8 @@ def slstm_block(p, x, *, eps: float, state=None):
             hs.append(c / torch.clamp(n, min=1.0))
         h = torch.stack(hs, dim=1)
     y = _proj(h.to(L.Compute) * o, p["wo"])
+    if split:
+        y = lm.reduce_parts(y, mesh, "model")
     return x + y, state
 
 
@@ -238,16 +298,16 @@ def init_xlstm(cfg: ModelConfig, gen: torch.Generator, *, device,
 
 
 def _groups(cfg: ModelConfig, tree: dict):
-    """(group tree, pattern) of every group in order: the stacked groups,
-    then the tail."""
+    """(group tree, pattern, its ``weights`` path) of every group in
+    order: the stacked groups, then the tail."""
     _, pat, tail = _pattern_layout(cfg)
     for gp in L.unstack_tree(tree["groups"]):
-        yield gp, pat
+        yield gp, pat, ("groups",)
     if tail:
-        yield tree["tail"], tail
+        yield tree["tail"], tail, ("tail",)
 
 
-def _run_pattern(cfg, x, gp, pattern, states=None, gather=None):
+def _run_pattern(cfg, x, gp, pattern, states=None, gather=None, mesh=None):
     if gather is not None:
         gp = gather(gp)
     for i, kind in enumerate(pattern):
@@ -255,84 +315,104 @@ def _run_pattern(cfg, x, gp, pattern, states=None, gather=None):
         st = states[key] if states is not None else None
         if kind == "mlstm":
             x, _ = mlstm_block(gp[key], x, n_heads=cfg.n_heads,
-                               eps=cfg.norm_eps, state=st)
+                               eps=cfg.norm_eps, state=st, mesh=mesh)
         else:
-            x, _ = slstm_block(gp[key], x, eps=cfg.norm_eps, state=st)
+            x, _ = slstm_block(gp[key], x, eps=cfg.norm_eps, state=st,
+                               mesh=mesh)
     return x
 
 
-def _head(params: dict, cfg: ModelConfig, x, weights=None):
-    if weights is not None:
-        params = {k: weights((k,), params[k]) for k in (
-            "final_norm", "embed" if cfg.tie_embeddings else "head")}
-    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return (L.unembed(params["embed"], x) if cfg.tie_embeddings
-            else L.dense(params["head"], x))
+def _gather(weights, path):
+    return None if weights is None else functools.partial(weights, path)
 
 
 def forward_xlstm(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                   last_only: bool = False, mesh=None, weights=None):
-    """Training / prefill forward. Returns (logits, None, aux=0); ``mesh``
-    is accepted and unused, as the reference's.  Each
+    """Training / prefill forward. Returns (logits, None, aux=0).  Each
     stacked group's body is rematerialised unless ``cfg.remat_policy`` is
     ``"none"``, the tail's never (as the reference's scan body).
-    ``weights(path, tree)`` (the sharded train step's ZeRO-3 gather) makes
-    each group's parameters whole inside its rematerialised body, and the
-    embedding's, the tail's and the head's just before use."""
-    embed_p = params["embed"] if weights is None else weights(
-        ("embed",), params["embed"])
-    x = L.embed(embed_p, tokens)
-    del embed_p
+    ``mesh`` (an LM mesh): tensor parallelism over its "model" axis (see
+    the module's docstring); ``tokens`` are the rows this rank computes.
+    ``weights(path, tree)`` (the FSDP gather of mesh serving and the
+    sharded train step) gathers each group's parameters over "data" inside
+    its rematerialised body, and the embedding's, the tail's and the
+    head's just before use."""
+    mesh = model_axis(mesh)
+    x = embed_tokens(params, cfg, tokens, mesh, weights)
     group = L.remat_all(functools.partial(
-        _run_pattern, cfg, gather=None if weights is None
-        else functools.partial(weights, ("groups",))), cfg.remat_policy)
+        _run_pattern, cfg, gather=_gather(weights, ("groups",)), mesh=mesh),
+        cfg.remat_policy)
     _, pat, tail = _pattern_layout(cfg)
     for gp in L.unstack_tree(params["groups"]):
         x = group(x, gp, pat)
     if tail:
         x = _run_pattern(cfg, x, params["tail"], tail,
-                         gather=None if weights is None
-                         else functools.partial(weights, ("tail",)))
+                         gather=_gather(weights, ("tail",)), mesh=mesh)
     if last_only:
         x = x[:, -1:]
-    return (_head(params, cfg, x, weights), None,
+    return (head_logits(params, cfg, x, weights, mesh), None,
             torch.zeros((), device=x.device))
 
 
+def state_heads(cfg: ModelConfig, mesh=None) -> int:
+    """The mLSTM heads a rank runs on ``mesh``'s "model" axis (any mesh,
+    or a ``MeshLayout``): N / m where the rules split the heads, else all
+    of them.  Not ``state_specs``' split of the state's last dim: the rank
+    runs whole heads."""
+    from ..distributed.sharding import model_span
+    span = model_span(cfg.n_heads, L.model_size(mesh), 0)
+    return cfg.n_heads if span is None else span[1]
+
+
 def _group_state(cfg: ModelConfig, batch: int, pattern, *, lead=(),
-                 device) -> dict:
+                 device, mesh=None) -> dict:
+    from ..distributed.sharding import model_span
     hd = cfg.d_model // cfg.n_heads
+    nh = state_heads(cfg, mesh)
+    span = model_span(cfg.d_model, L.model_size(mesh), 0)
+    d = cfg.d_model if span is None else span[1]
     f32 = dict(dtype=torch.float32, device=device)
     st = {}
     for i, kind in enumerate(pattern):
         if kind == "mlstm":
             st[f"b{i}_{kind}"] = {
-                "C": torch.zeros((*lead, batch, cfg.n_heads, hd, hd), **f32),
-                "n": torch.zeros((*lead, batch, cfg.n_heads, hd), **f32),
+                "C": torch.zeros((*lead, batch, nh, hd, hd), **f32),
+                "n": torch.zeros((*lead, batch, nh, hd), **f32),
             }
         else:
             st[f"b{i}_{kind}"] = {
-                "c": torch.zeros((*lead, batch, cfg.d_model), **f32),
-                "n": torch.zeros((*lead, batch, cfg.d_model), **f32),
+                "c": torch.zeros((*lead, batch, d), **f32),
+                "n": torch.zeros((*lead, batch, d), **f32),
             }
     return st
 
 
-def init_xlstm_state(cfg: ModelConfig, batch: int, *, device) -> dict:
+def init_xlstm_state(cfg: ModelConfig, batch: int, *, device,
+                     mesh=None) -> dict:
+    """The zero decode state of ``batch`` rows; on ``mesh`` (any mesh, or a
+    ``MeshLayout``) a rank's: the mLSTM heads of ``state_heads``, the
+    sLSTM's D / m channels where the rules split them (the rows are the
+    caller's)."""
     n_groups, pat, tail = _pattern_layout(cfg)
     state = {"groups": _group_state(cfg, batch, pat, lead=(n_groups,),
-                                    device=device)}
+                                    device=device, mesh=mesh)}
     if tail:
-        state["tail"] = _group_state(cfg, batch, tail, device=device)
+        state["tail"] = _group_state(cfg, batch, tail, device=device,
+                                     mesh=mesh)
     return state
 
 
 def decode_step_xlstm(params: dict, cfg: ModelConfig, state: dict,
-                      tokens: torch.Tensor, pos: int, *, mesh=None):
+                      tokens: torch.Tensor, pos: int, *, mesh=None,
+                      weights=None):
     """One-token decode; returns (logits, state), the state updated in
-    place.  ``pos`` is unused (the cells keep no positions)."""
-    x = L.embed(params["embed"], tokens)
-    for (gp, pattern), (st, _) in zip(_groups(cfg, params),
-                                      _groups(cfg, state)):
-        x = _run_pattern(cfg, x, gp, pattern, states=st)
-    return _head(params, cfg, x), state
+    place.  ``pos`` is unused (the cells keep no positions).  ``mesh`` and
+    ``weights`` as ``forward_xlstm``'s; the state is this rank's
+    (``init_xlstm_state(..., mesh=)``)."""
+    mesh = model_axis(mesh)
+    x = embed_tokens(params, cfg, tokens, mesh, weights)
+    for (gp, pattern, path), (st, _, _) in zip(_groups(cfg, params),
+                                               _groups(cfg, state)):
+        x = _run_pattern(cfg, x, gp, pattern, states=st,
+                         gather=_gather(weights, path), mesh=mesh)
+    return head_logits(params, cfg, x, weights, mesh), state

@@ -33,13 +33,12 @@ GSPMD program runs them; every rank passes the same global batch:
     ("pod", "data"), as ``batch_specs`` places them;
   * each layer gathers its leaves over "data" just before use, inside its
     rematerialised body, so the backward pass gathers them again (FSDP),
-    and frees them after use.  The transformer families (dense, moe, vlm)
-    keep each leaf's "model" shard and run tensor parallelism over
-    "model" (``models.layers``: their heads, hidden width and vocab, one
-    sum of partial results a block); their MoE layers' experts stay this
-    rank's shard, under expert parallelism over "model", with the tokens
-    split over it.  The hybrid, ssm and encdec families gather their
-    leaves whole and repeat their dense work on each model rank;
+    and frees them after use.  Every family keeps each leaf's "model"
+    shard and runs tensor parallelism over "model" (``models.layers``:
+    heads, hidden width and vocab; the RG-LRU's and the sLSTM's channels,
+    the mLSTM's heads; one sum of partial results a block); the MoE
+    layers' experts stay this rank's shard, under expert parallelism over
+    "model", with the tokens split over it;
   * gradients are averaged over the dp axes: over "data" each leaf's
     gradient is reduce-scattered to its shard (or averaged, where the
     leaf is whole over "data"), over "pod" averaged, or exchanged in int8
@@ -246,10 +245,6 @@ def _make_sharded_step(cfg: ModelConfig, mesh, opts: TrainOptions):
     def expert(path) -> bool:
         return ep and "moe" in path and path[-1] in shr.MOE_EXPERT_KEYS
 
-    # the transformer families keep each leaf's "model" shard (tensor
-    # parallelism); the others gather their leaves whole
-    tp = cfg.family in api.TP_FAMILIES
-
     def rows(batch: dict, i: int) -> dict:
         """This rank's rows of microbatch ``i``."""
         out = {}
@@ -273,8 +268,8 @@ def _make_sharded_step(cfg: ModelConfig, mesh, opts: TrainOptions):
 
         def gathered(path, tree):
             """``tree`` (at ``path``; under a stack key one layer's
-            entries) with every non-expert leaf gathered over "data" (and
-            over "model" too outside the tensor-parallel families)."""
+            entries) with every non-expert leaf gathered over "data", its
+            "model" shard kept (tensor parallelism)."""
             stacked = bool(path) and path[0] in shr.STACK_KEYS
 
             def leaf(sub, x):
@@ -282,8 +277,7 @@ def _make_sharded_step(cfg: ModelConfig, mesh, opts: TrainOptions):
                 if expert(full):
                     return x
                 sh = tuple((a, d - 1 if stacked else d)
-                           for a, d in shards[full]
-                           if not (tp and a == "model"))
+                           for a, d in shards[full] if a != "model")
                 return lmesh.gather_shards(x, mesh, sh, summed=dp)
             return _map_sub(leaf, tree)
 

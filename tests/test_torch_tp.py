@@ -10,20 +10,28 @@ sides and the JAX side compiled without XLA's excess precision
 (``tests/test_torch_families.py``'s ``_strict``):
 
   * ``api.prefill`` (every position's logits) and the last-token logits of
-    4 decode steps from its cache, against the JAX package's unsharded
-    ``api.prefill`` / ``api.decode``, within 1e-5 of the largest |logit|
-    and with equal argmax tokens: tinyllama-1.1b's family with 2 kv heads
-    (split over "model"), with 1 kv head (``wk``/``wv`` split on head_dim
-    and gathered, each rank keeping the kv head its query heads read), and
+    4 decode steps, against the JAX package's unsharded ``api.prefill`` /
+    ``api.decode``, within 1e-5 of the largest |logit| and with equal
+    argmax tokens: tinyllama-1.1b's family with 2 kv heads (split over
+    "model"), with 1 kv head (``wk``/``wv`` split on head_dim and
+    gathered, each rank keeping the kv head its query heads read),
     granite-moe-1b-a400m (tensor-parallel attention, experts under expert
-    parallelism, capacity factor E / top_k);
-  * ``api.prefill`` of recurrentgemma-2b and seamless-m4t-medium (their
-    rows over the data axes, their weights gathered whole), likewise;
+    parallelism, capacity factor E / top_k), recurrentgemma-2b (the
+    RG-LRU's channels split over "model", its attention's query heads;
+    with 3 query heads, ``hybrid_h3``, the attention's leaves made whole
+    and every head run on every rank), xlstm-1.3b (the mLSTM's heads and
+    the sLSTM's channels; with 1 head, ``ssm_h1``, q/k/v split on head_dim,
+    gathered, and ``h`` cut to the rank's columns) and seamless-m4t-medium
+    (encoder, decoder and cross-attention heads).  The transformer and
+    enc-dec decode from the prefill's cache (the enc-dec against a random
+    encoder memory), the hybrid and ssm from their zero state;
   * each rank's shapes: the cache [L, B / dp, S, local kv heads, H], the
     query heads N / m of ``wq`` and ``wo``, the MLP's hidden columns and
-    the vocab rows;
-  * the tensor-parallel train step of reduced tinyllama-1.1b and
-    granite-moe-1b-a400m against the JAX package's unsharded
+    the vocab rows; the RG-LRU's d_rnn / m channels in its leaves and
+    state, the mLSTM's N / m heads, the sLSTM's D / m channels;
+  * the tensor-parallel train step of reduced tinyllama-1.1b,
+    granite-moe-1b-a400m, recurrentgemma-2b, xlstm-1.3b and
+    seamless-m4t-medium against the JAX package's unsharded
     ``make_train_step`` at ``tests/test_torch_mesh.py``'s tolerances (loss
     1e-5, grad_norm 5e-5 relative, each moment leaf 1e-4 of its L2 norm,
     each parameter 2 lr + 1e-6);
@@ -32,7 +40,10 @@ sides and the JAX side compiled without XLA's excess precision
     engine's tokens and the port's one-process tokens.
 
 And without a spawn: the (16, 16) dry run of tinyllama-1.1b
-``prefill_32k`` and ``decode_32k`` peaks below 80 GiB a rank.
+``prefill_32k`` and ``decode_32k`` peaks below 80 GiB a rank; the rank's
+decode state or cache that ``api.input_specs`` gives the hybrid, ssm and
+enc-dec families on (16, 16); and ``launch.mesh.scatter_parts``'
+gradient against the adjoint of its sum, on a stand-in axis of 4 ranks.
 """
 
 from __future__ import annotations
@@ -54,15 +65,22 @@ import torch.distributed as dist
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 WORLD = 8
 MESH = (2, 2, 2)
-CHILD_S = 240
-# the serving cases: (name, arch, n_kv override or 0)
-CASES = {"dense": ("tinyllama-1.1b", 0), "dense_kv1": ("tinyllama-1.1b", 1),
-         "moe": ("granite-moe-1b-a400m", 0)}
-# the families that gather their weights whole and split only their rows:
-# prefill alone
-WHOLE = {"hybrid": ("recurrentgemma-2b", 0),
-         "encdec": ("seamless-m4t-medium", 0)}
-TRAIN = {"dense": "tinyllama-1.1b", "moe": "granite-moe-1b-a400m"}
+# the spawn's limit: the JAX subprocess's strict compiles (8 serving cases,
+# 5 train steps) are its longest part, ~60 s alone and ~190 s beside five
+# other pytest workers
+CHILD_S = 420
+# the serving cases: name -> (arch, config overrides)
+CASES = {"dense": ("tinyllama-1.1b", {}),
+         "dense_kv1": ("tinyllama-1.1b", {"n_kv_heads": 1}),
+         "moe": ("granite-moe-1b-a400m", {}),
+         "hybrid": ("recurrentgemma-2b", {}),
+         "hybrid_h3": ("recurrentgemma-2b", {"n_heads": 3}),
+         "ssm": ("xlstm-1.3b", {}),
+         "ssm_h1": ("xlstm-1.3b", {"n_heads": 1, "n_kv_heads": 1}),
+         "encdec": ("seamless-m4t-medium", {})}
+TRAIN = {"dense": "tinyllama-1.1b", "moe": "granite-moe-1b-a400m",
+         "hybrid": "recurrentgemma-2b", "ssm": "xlstm-1.3b",
+         "encdec": "seamless-m4t-medium"}
 PREFILL = (8, 24)            # rows, prompt tokens (dp = 4: 2 rows a rank)
 DECODE = 4
 GENERATE = (8, 16, 6)        # rows, prompt bytes, new tokens
@@ -93,14 +111,12 @@ def _unflat(flat: dict) -> dict:
     return out
 
 
-def _cfg(arch: str, n_kv: int, torch_side: bool):
+def _cfg(arch: str, over: dict, torch_side: bool):
     if torch_side:
         from repro_torch.configs import get_config, reduce_for_smoke
     else:
         from repro.configs import get_config, reduce_for_smoke
-    cfg = reduce_for_smoke(get_config(arch))
-    if n_kv:
-        cfg = dataclasses.replace(cfg, n_kv_heads=n_kv)
+    cfg = dataclasses.replace(reduce_for_smoke(get_config(arch)), **over)
     if cfg.n_experts:             # E / top_k: no choice drops
         cfg = dataclasses.replace(cfg, capacity_factor=float(
             cfg.n_experts // cfg.top_k))
@@ -146,8 +162,8 @@ def _make_inputs(path: pathlib.Path) -> None:
 
     rng = np.random.default_rng(0)
     out = {}
-    for name, (arch, n_kv) in {**CASES, **WHOLE}.items():
-        cfg = _cfg(arch, n_kv, False)
+    for name, (arch, over) in CASES.items():
+        cfg = _cfg(arch, over, False)
         params = jax.tree.map(np.asarray, japi.init(
             cfg, jax.random.PRNGKey(1)))
         for k, v in _flat(params).items():
@@ -158,11 +174,14 @@ def _make_inputs(path: pathlib.Path) -> None:
         if cfg.family == "encdec":
             out[f"{name}_frames"] = rng.normal(
                 0, 1, size=(b, t, cfg.d_model)).astype(np.float32)
+            out[f"{name}_memory"] = rng.normal(
+                0, 1, size=(b, cfg.enc_frames_decode, cfg.d_model)
+            ).astype(np.float32)
         out[f"{name}_decode"] = rng.integers(
             0, cfg.vocab_size, size=(b, DECODE)).astype(np.int32)
     rows, tokens, _ = STEP_BATCH
     for name, arch in TRAIN.items():
-        cfg = _cfg(arch, 0, False)
+        cfg = _cfg(arch, {}, False)
         state = jax.tree.map(np.asarray, init_train_state(
             cfg, jax.random.PRNGKey(2)))
         for k, v in _flat(state).items():
@@ -172,6 +191,9 @@ def _make_inputs(path: pathlib.Path) -> None:
         labels = rng.integers(0, cfg.vocab_size, size=(rows, tokens))
         labels[:, :3] = -1                       # ignored positions
         out[f"train_{name}_labels"] = labels.astype(np.int32)
+        if cfg.family == "encdec":
+            out[f"train_{name}_frames"] = rng.normal(
+                0, 1, size=(rows, tokens, cfg.d_model)).astype(np.float32)
     b, t, _ = GENERATE
     out["prompts"] = _grammar_prompts(np.random.default_rng(3), b, t)
     np.savez(path, **out)
@@ -202,33 +224,35 @@ def _jax_reference(inp_path: str, out_path: str) -> None:
     _f32_compute(True)
     z = np.load(inp_path)
     out = {}
-    for name, (arch, n_kv) in WHOLE.items():
-        cfg = _cfg(arch, n_kv, False)
+    for name, (arch, over) in CASES.items():
+        cfg = _cfg(arch, over, False)
+        params = _tree(z, f"{name}_params")
         batch = {k: jnp.asarray(z[f"{name}_{k}"]) for k in ("tokens",
                                                             "frames")
                  if f"{name}_{k}" in z.files}
-        logits, _ = _strict(lambda p, b: japi.prefill(
-            p, cfg, b, last_only=False), _tree(z, f"{name}_params"), batch)
-        out[f"{name}_prefill"] = np.asarray(logits)
-    for name, (arch, n_kv) in CASES.items():
-        cfg = _cfg(arch, n_kv, False)
-        params = _tree(z, f"{name}_params")
-        toks = jnp.asarray(z[f"{name}_tokens"])
         logits, cache = _strict(lambda p, b: japi.prefill(
-            p, cfg, b, last_only=False), params, {"tokens": toks})
+            p, cfg, b, last_only=False), params, batch)
         out[f"{name}_prefill"] = np.asarray(logits)
-        t = toks.shape[1]
-        cache = {k: jnp.pad(v, ((0, 0), (0, 0), (0, DECODE), (0, 0),
-                                (0, 0))) for k, v in cache.items()}
+        t = batch["tokens"].shape[1]
+        if cache is None:          # the hybrid and ssm: their zero state
+            state, pos = _zero_state(cfg), 0
+        else:
+            state = {"cache": {k: jnp.pad(v, ((0, 0), (0, 0), (0, DECODE),
+                                              (0, 0), (0, 0)))
+                               for k, v in cache.items()}}
+            pos = t
+            if f"{name}_memory" in z.files:
+                state["memory"] = jnp.asarray(z[f"{name}_memory"])
         dec = z[f"{name}_decode"]
         step = None
         for i in range(DECODE):
             batch = {"tokens": jnp.asarray(dec[:, i:i + 1]),
-                     "pos": jnp.int32(t + i), "cache": cache}
+                     "pos": jnp.int32(pos + i), **state}
             if step is None:
                 step = _strict_compiled(lambda p, b: japi.decode(p, cfg, b),
                                         params, batch)
-            logits, cache = step(params, batch)
+            logits, new = step(params, batch)
+            state["cache" if "cache" in state else "state"] = new
             out[f"{name}_decode{i}"] = np.asarray(logits[:, -1])
         if name == "dense":
             b, _, n = GENERATE
@@ -239,14 +263,15 @@ def _jax_reference(inp_path: str, out_path: str) -> None:
                 constraint=gc).generate(z["prompts"]))
     rows, tokens, nm = STEP_BATCH
     for name, arch in TRAIN.items():
-        cfg = _cfg(arch, 0, False)
+        cfg = _cfg(arch, {}, False)
         opts = TrainOptions(num_microbatches=nm,
                             aux_loss_weight=0.0 if name == "moe" else 0.01,
                             optimizer=AdamWConfig(**OPT))
         state = _tree(z, f"train_{name}_state")
         state["opt"]["step"] = np.int32(state["opt"]["step"])
-        batch = {"tokens": jnp.asarray(z[f"train_{name}_tokens"]),
-                 "labels": jnp.asarray(z[f"train_{name}_labels"])}
+        batch = {k: jnp.asarray(z[f"train_{name}_{k}"])
+                 for k in ("tokens", "labels", "frames")
+                 if f"train_{name}_{k}" in z.files}
         step = _strict_compiled(make_train_step(cfg, None, opts), state,
                                 batch)
         new, metrics = step(state, batch)
@@ -255,6 +280,14 @@ def _jax_reference(inp_path: str, out_path: str) -> None:
         for k in ("loss", "grad_norm", "lr"):
             out[f"train_{name}_{k}"] = np.asarray(metrics[k])
     np.savez(out_path, **out)
+
+
+def _zero_state(cfg) -> dict:
+    """The JAX package's zero decode state of the hybrid or ssm family."""
+    from repro.models import recurrent, xlstm
+    init = (recurrent.init_hybrid_state if cfg.family == "hybrid"
+            else xlstm.init_xlstm_state)
+    return {"state": init(cfg, PREFILL[0])}
 
 
 def _strict_compiled(fn, *args):
@@ -274,7 +307,10 @@ def _child_cases(rank: int, z) -> dict:
     from repro_torch.distributed.fault_tolerance import reshard_tree
     from repro_torch.launch import mesh as lm
     from repro_torch.models import api, convert
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import recurrent as RG
     from repro_torch.models import transformer as TF
+    from repro_torch.models import xlstm as XL
     from repro_torch.serving import (GrammarConstraint, ServeConfig,
                                      ServingEngine)
     from repro_torch.training import AdamWConfig, TrainOptions
@@ -283,44 +319,42 @@ def _child_cases(rank: int, z) -> dict:
     _f32_compute(False)
     mesh = lm.make_mesh(MESH, ("pod", "data", "model"), device="cpu")
     out = {"coordinate": np.array(mesh.get_coordinate())}
-    for name, (arch, n_kv) in WHOLE.items():
-        cfg = _cfg(arch, n_kv, True)
-        params = convert.params_from_jax(cfg, _tree(z, f"{name}_params"),
-                                         device="cpu", mesh=mesh)
-        batch = {k: torch.from_numpy(z[f"{name}_{k}"]) for k in (
-            "tokens", "frames") if f"{name}_{k}" in z.files}
-        logits, _ = api.prefill(params, cfg, batch, mesh=mesh,
-                                last_only=False)
-        out[f"{name}_prefill"] = logits.numpy()
-    for name, (arch, n_kv) in CASES.items():
-        cfg = _cfg(arch, n_kv, True)
+    for name, (arch, over) in CASES.items():
+        cfg = _cfg(arch, over, True)
         tree = _tree(z, f"{name}_params")
         params = convert.params_from_jax(cfg, tree, device="cpu", mesh=mesh)
         lm.reset_mesh_stats()
-        toks = torch.from_numpy(z[f"{name}_tokens"])
-        logits, cache = api.prefill(params, cfg, {"tokens": toks},
-                                    mesh=mesh, last_only=False)
+        batch = {k: torch.from_numpy(z[f"{name}_{k}"]) for k in (
+            "tokens", "frames") if f"{name}_{k}" in z.files}
+        logits, cache = api.prefill(params, cfg, batch, mesh=mesh,
+                                    last_only=False)
         out[f"{name}_prefill"] = logits.numpy()
-        out[f"{name}_cache_shape"] = np.array(cache["k"].shape)
         out[f"{name}_stats"] = np.array(json.dumps(lm.MESH_STATS))
-        layer = params["layers"]
+        b, t = batch["tokens"].shape
+        rows = b // shr.dp_parts(mesh, b)
+        if cache is None:                 # the hybrid and ssm: zero state
+            init = (RG.init_hybrid_state if cfg.family == "hybrid"
+                    else XL.init_xlstm_state)
+            state = {"state": init(cfg, rows, device="cpu", mesh=mesh)}
+            pos = 0
+        else:
+            init = (ED.init_encdec_cache if cfg.family == "encdec"
+                    else TF.init_cache)
+            big = init(cfg, rows, t + DECODE, device="cpu", mesh=mesh)
+            for k in big:
+                big[k][:, :, :t] = cache[k]
+            state, pos = {"cache": big}, t
+            if f"{name}_memory" in z.files:
+                state["memory"] = torch.from_numpy(z[f"{name}_memory"])
         out[f"{name}_shapes"] = np.array(json.dumps({
-            "wq": layer["attn"]["wq"].shape, "wk": layer["attn"]["wk"].shape,
-            "wo": layer["attn"]["wo"].shape,
-            "table": params["embed"]["table"].shape,
-            "head": params["head"]["w"].shape,
-            **({"wi_gate": layer["mlp"]["wi_gate"].shape}
-               if "mlp" in layer else
-               {"experts": layer["moe"]["wi_gate"].shape})}))
-        t = toks.shape[1]
-        big = TF.init_cache(cfg, cache["k"].shape[1], t + DECODE,
-                            device="cpu", mesh=mesh)
-        for k in big:
-            big[k][:, :, :t] = cache[k]
+            k: list(v.shape) for k, v in {
+                **_flat(params, "params"),
+                **_flat(state.get("state", state.get("cache")), "state"),
+            }.items()}))
         dec = torch.from_numpy(z[f"{name}_decode"])
         for i in range(DECODE):
-            logits, big = api.decode(params, cfg, {
-                "tokens": dec[:, i:i + 1], "pos": t + i, "cache": big},
+            logits, new = api.decode(params, cfg, {
+                "tokens": dec[:, i:i + 1], "pos": pos + i, **state},
                 mesh=mesh)
             out[f"{name}_decode{i}"] = logits[:, -1].numpy()
         if name == "dense":
@@ -337,15 +371,16 @@ def _child_cases(rank: int, z) -> dict:
                     constraint=gc).generate(z["prompts"])
     rows, _, nm = STEP_BATCH
     for name, arch in TRAIN.items():
-        cfg = _cfg(arch, 0, True)
+        cfg = _cfg(arch, {}, True)
         opts = TrainOptions(num_microbatches=nm,
                             aux_loss_weight=0.0 if name == "moe" else 0.01,
                             optimizer=AdamWConfig(**OPT))
         whole = convert.train_state_from_jax(
             cfg, _tree(z, f"train_{name}_state"), device="cpu")
         state = reshard_tree(whole, TL.state_shardings(whole, mesh))
-        batch = {"tokens": torch.from_numpy(z[f"train_{name}_tokens"]),
-                 "labels": torch.from_numpy(z[f"train_{name}_labels"])}
+        batch = {k: torch.from_numpy(z[f"train_{name}_{k}"])
+                 for k in ("tokens", "labels", "frames")
+                 if f"train_{name}_{k}" in z.files}
         step = TL.jit_train_step(cfg, mesh, state,
                                  shr.batch_specs(batch, mesh, rows), opts)
         lm.reset_mesh_stats()
@@ -439,7 +474,7 @@ def test_children_import_no_jax(world):
     assert [list(o["foreign"]) for o in outs] == [[]] * WORLD
 
 
-@pytest.mark.parametrize("case", sorted(CASES) + sorted(WHOLE))
+@pytest.mark.parametrize("case", sorted(CASES))
 def test_prefill_matches_jax(world, case):
     """Every position's logits of the partitioned prefill, on every rank
     (each returns the whole batch's), against the unsharded JAX
@@ -453,7 +488,8 @@ def test_prefill_matches_jax(world, case):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_decode_matches_jax(world, case):
     """The last-token logits of 4 decode steps from the prefill's cache
-    (each rank's rows and kv heads) against the unsharded JAX decode."""
+    or the zero state (each rank's rows and its part over "model") against
+    the unsharded JAX decode."""
     outs, want, _ = world
     for r, got in enumerate(outs):
         for i in range(DECODE):
@@ -461,53 +497,136 @@ def test_decode_matches_jax(world, case):
                           f"{case} step {i} rank {r}")
 
 
+def _kinds(cfg) -> list:
+    """The block kinds of a hybrid or ssm config, layer by layer."""
+    pat = cfg.block_pattern
+    n_groups = cfg.n_layers // len(pat)
+    return list(pat) * n_groups + list(pat[:cfg.n_layers
+                                           - n_groups * len(pat)])
+
+
+def _model_sums(case: str, cfg) -> tuple[int, int]:
+    """(all-reduces, reduce-scatters) over "model" of one prefill: the
+    embedding's sum and one a row-parallel output (the MoE's: its aux
+    loss's mean over the token blocks); the RG-LRU's gates' reduce-scatter;
+    no attention sum where every rank runs every head (``hybrid_h3``)."""
+    if cfg.family == "hybrid":
+        n_rglru = _kinds(cfg).count("rglru")
+        n_attn = cfg.n_layers - n_rglru
+        per_attn = 1 if case == "hybrid_h3" else 2
+        return 1 + 2 * n_rglru + per_attn * n_attn, n_rglru
+    if cfg.family == "ssm":
+        return 1 + cfg.n_layers, 0
+    if cfg.family == "encdec":
+        return 1 + 2 * cfg.n_enc_layers + 3 * cfg.n_layers, 0
+    return 1 + 2 * cfg.n_layers, 0
+
+
+def _expected_shapes(case: str, cfg) -> dict:
+    """The shapes of a rank's leaves on (2, 2, 2), by the path
+    ``_child_cases`` records ("params/...", "state/..."): d_model over
+    "data", heads, hidden columns, channels and vocab over "model", the
+    rows over ("pod", "data")."""
+    pod, data, m = MESH
+    b, t = PREFILL
+    rows, d_loc, hd = b // (pod * data), cfg.d_model // data, cfg.hd
+    out = {"params/embed/table": [cfg.padded_vocab // m, d_loc],
+           "params/head/w": [d_loc, cfg.padded_vocab // m]}
+    if cfg.family in ("dense", "moe"):
+        n = cfg.n_layers
+        lay = "params/layers/"
+        out[lay + "attn/wq"] = [n, d_loc, cfg.n_heads // m, hd]
+        out[lay + "attn/wo"] = [n, cfg.n_heads // m, hd, d_loc]
+        # one kv head: split on head_dim, as the rules place it
+        out[lay + "attn/wk"] = ([n, d_loc, 1, hd // m]
+                                if cfg.n_kv_heads == 1 else
+                                [n, d_loc, cfg.n_kv_heads // m, hd])
+        if cfg.n_experts:
+            out[lay + "moe/wi_gate"] = [n, cfg.n_experts // m, cfg.d_model,
+                                        cfg.d_ff]
+        else:
+            out[lay + "mlp/wi_gate"] = [n, d_loc, cfg.d_ff // m]
+        kv = 1 if cfg.n_kv_heads == 1 else cfg.n_kv_heads // m
+        out["state/k"] = [n, rows, t + DECODE, kv, hd]
+    elif cfg.family == "hybrid":
+        r = cfg.rglru_dim // m
+        g = "params/groups/b0_rglru/"
+        out.update({g + "wx": [1, d_loc, r], g + "wgate": [1, d_loc, r],
+                    g + "conv_w": [1, 4, r], g + "conv_b": [1, r],
+                    g + "lam": [1, r],
+                    g + "w_r": [1, r, cfg.rglru_dim // data],
+                    g + "w_i": [1, r, cfg.rglru_dim // data],
+                    g + "wo": [1, r, d_loc],
+                    g + "mlp/wi_gate": [1, d_loc, cfg.d_ff // m],
+                    "params/tail/b0_rglru/wx": [d_loc, r],
+                    "state/groups/b0_rglru/h": [1, rows, r],
+                    "state/groups/b0_rglru/conv": [1, rows, 3, r],
+                    "state/tail/b1_rglru/h": [rows, r]})
+        a = "params/groups/b2_attn/attn/"
+        if cfg.n_heads % m:        # 3 heads: split on head_dim, made whole
+            out[a + "wq"] = [1, d_loc, cfg.n_heads, hd // m]
+        else:
+            out[a + "wq"] = [1, d_loc, cfg.n_heads // m, hd]
+        out[a + "wk"] = [1, d_loc, 1, hd // m]
+        out["state/groups/b2_attn/k"] = [1, rows, cfg.attn_window, 1, hd]
+    elif cfg.family == "ssm":
+        hd = cfg.d_model // cfg.n_heads
+        g = "params/groups/b0_mlstm/"
+        nh = cfg.n_heads // m if cfg.n_heads % m == 0 else cfg.n_heads
+        out.update({g + "wog": [1, d_loc, cfg.d_model // m],
+                    g + "wo": [1, cfg.d_model // m, d_loc],
+                    g + "wi": [1, d_loc, nh],
+                    "params/groups/b7_slstm/wz": [1, d_loc, cfg.d_model // m],
+                    "params/groups/b7_slstm/wo": [1, cfg.d_model // m, d_loc],
+                    "state/groups/b0_mlstm/C": [1, rows, nh, hd, hd],
+                    "state/groups/b7_slstm/c": [1, rows, cfg.d_model // m],
+                    "state/tail/b1_mlstm/n": [rows, nh, hd]})
+        out[g + "wq"] = ([1, d_loc, nh, hd] if nh < cfg.n_heads
+                         else [1, d_loc, cfg.n_heads, hd // m])
+    else:                                                       # encdec
+        n, k = cfg.n_layers, cfg.n_kv_heads // m
+        out.update({"params/enc/attn/wq": [cfg.n_enc_layers, d_loc,
+                                           cfg.n_heads // m, hd],
+                    "params/dec/self/wq": [n, d_loc, cfg.n_heads // m, hd],
+                    "params/dec/cross/wk": [n, d_loc, k, hd],
+                    "params/dec/cross/wo": [n, cfg.n_heads // m, hd, d_loc],
+                    "params/dec/mlp/wi_gate": [n, d_loc, cfg.d_ff // m],
+                    "state/k": [n, rows, t + DECODE, k, hd]})
+    return out
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_each_rank_holds_its_rows_and_heads(world, case):
-    """B / dp rows and the local kv heads in the cache; N / m query heads,
-    the MLP's hidden columns and the vocab rows in the weights (data
-    shards on d_model beside them); one sum over "model" a block."""
+    """B / dp rows and the rank's part over "model" in the cache or state
+    (kv heads; the RG-LRU's d_rnn / m channels, the mLSTM's N / m heads,
+    the sLSTM's D / m channels); N / m query heads, the MLP's hidden
+    columns, the channels and the vocab rows in the weights (data shards
+    on d_model beside them); one sum over "model" a row-parallel block;
+    and ``api.input_specs`` gives a decode cell the same cache or
+    state."""
     from repro_torch.configs import ShapeSpec
     from repro_torch.launch.mesh import MeshLayout
     from repro_torch.models import api as tapi
 
     outs, _, _ = world
-    arch, n_kv = CASES[case]
-    cfg = _cfg(arch, n_kv, True)
-    pod, data, m = MESH
-    b, t = PREFILL
-    kv_local = n_kv or cfg.n_kv_heads // m
-    for got in outs:
-        assert tuple(got[f"{case}_cache_shape"]) == (
-            cfg.n_layers, b // (pod * data), t, kv_local, cfg.hd)
+    arch, over = CASES[case]
+    cfg = _cfg(arch, over, True)
+    want = _expected_shapes(case, cfg)
+    sums, scatters = _model_sums(case, cfg)
+    for r, got in enumerate(outs):
         shapes = json.loads(str(got[f"{case}_shapes"]))
-        d_loc = cfg.d_model // data
-        assert shapes["wq"] == [cfg.n_layers, d_loc, cfg.n_heads // m,
-                                cfg.hd]
-        assert shapes["wo"] == [cfg.n_layers, cfg.n_heads // m, cfg.hd,
-                                d_loc]
-        # one kv head: split on head_dim, as the rules place it
-        assert shapes["wk"] == ([cfg.n_layers, d_loc, 1, cfg.hd // m]
-                                if n_kv == 1 else
-                                [cfg.n_layers, d_loc, cfg.n_kv_heads // m,
-                                 cfg.hd])
-        assert shapes["table"] == [cfg.padded_vocab // m, d_loc]
-        assert shapes["head"] == [d_loc, cfg.padded_vocab // m]
-        if cfg.n_experts:
-            assert shapes["experts"] == [cfg.n_layers, cfg.n_experts // m,
-                                         cfg.d_model, cfg.d_ff]
-        else:
-            assert shapes["wi_gate"] == [cfg.n_layers, d_loc, cfg.d_ff // m]
+        assert {k: shapes[k] for k in want} == want, r
         stats = json.loads(str(got[f"{case}_stats"]))
-        # the embedding's sum over "model" and two a layer: the attention
-        # output's and the MLP's (the MoE's: its aux loss's mean over the
-        # token blocks)
-        assert stats["all_reduce model"][0] == 2 * cfg.n_layers + 1
+        assert stats["all_reduce model"][0] == sums
+        assert stats.get("reduce_scatter model", [0])[0] == scatters
         assert stats["all_gather pod,data"][0] == 1     # the logits' rows
-    # what the dry run places: the same cache for a decode cell
-    spec = tapi.input_specs(cfg, ShapeSpec("d", "decode", t, b),
+    # what the dry run places for a decode cell: the same cache or state
+    b, t = PREFILL
+    spec = tapi.input_specs(cfg, ShapeSpec("d", "decode", t + DECODE, b),
                             MeshLayout(MESH, ("pod", "data", "model")))
-    assert spec["cache"]["k"].shape == (cfg.n_layers, b // (pod * data), t,
-                                        kv_local, cfg.hd)
+    state = spec["state"] if "state" in spec else spec["cache"]
+    assert {"state" + k: list(v.shape) for k, v in _flat(state).items()} \
+        == {k: v for k, v in shapes.items() if k.startswith("state/")}
 
 
 @pytest.mark.parametrize("family", sorted(TRAIN))
@@ -534,12 +653,13 @@ def test_train_step_matches_jax(world, family):
             assert int(got[k]) == int(want[k]) == 1
         else:
             assert _rel_l2(got[k], want[k]) <= leaf_tol, k
-    # the dense layers ran tensor-parallel: sums over "model" in both
-    # passes' forward, no gradient summed over it
+    # the layers ran tensor-parallel: sums over "model" in both passes'
+    # forward; the RG-LRU's gates reduce-scattered over it; no gradient
+    # summed over it where every leaf splits on its heads
     stats = json.loads(str(got[f"{name}_stats"]))
     assert stats["all_reduce model"][0] > 0
-    assert not any(k.startswith("reduce_scatter") and "model" in k
-                   for k in stats)
+    scatters = stats.get("reduce_scatter model", [0])[0]
+    assert (scatters > 0) == (family == "hybrid")
 
 
 def test_generate_on_the_mesh_gives_one_process_tokens(world):
@@ -570,6 +690,106 @@ def test_dryrun_production_mesh_fits_a_card(tmp_path, shape):
     assert rec["memory"]["peak_bytes"] < 80 * 2 ** 30
     # the tokens' rows over "data", the heads over "model"
     assert rec["collectives"]["all-reduce"]["count"] == 2 * 22 + 1
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-1.3b",
+                                  "seamless-m4t-medium"])
+def test_input_specs_give_the_rank_its_state_on_the_production_mesh(arch):
+    """``decode_32k`` on (16, 16): 8 of 128 rows a rank and its part over
+    "model": recurrentgemma-2b's d_rnn / 16 RG-LRU channels and its one kv
+    head in the ring (10 query heads do not split 16 ways: every rank runs
+    all of them); xlstm-1.3b's sLSTM D / 16 channels and all 4 mLSTM heads
+    (q/k/v split on head_dim, made whole); seamless-m4t-medium's 1 of 16
+    kv heads in the decoder cache."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.mesh import MeshLayout
+    from repro_torch.models import api as tapi
+
+    cfg = get_config(arch)
+    spec = tapi.input_specs(cfg, SHAPES["decode_32k"],
+                            MeshLayout((16, 16), ("data", "model")))
+    got = {k: v.shape for k, v in _flat(spec).items()
+           if k.startswith(("/state", "/cache"))}
+    rows, s = 128 // 16, 32_768
+    if arch == "recurrentgemma-2b":
+        r = 2560 // 16
+        want = {"/state/groups/b0_rglru/h": (8, rows, r),
+                "/state/groups/b1_rglru/conv": (8, rows, 3, r),
+                "/state/groups/b2_attn/k": (8, rows, 2048, 1, 256),
+                "/state/tail/b1_rglru/h": (rows, r)}
+    elif arch == "xlstm-1.3b":
+        want = {"/state/groups/b0_mlstm/C": (6, rows, 4, 512, 512),
+                "/state/groups/b6_mlstm/n": (6, rows, 4, 512),
+                "/state/groups/b7_slstm/c": (6, rows, 2048 // 16)}
+    else:
+        want = {"/cache/k": (12, rows, s, 1, 64),
+                "/cache/v": (12, rows, s, 1, 64)}
+    assert {k: got[k] for k in want} == want
+
+
+def test_byte_view_of_a_tensor_whose_last_stride_is_not_one():
+    """A bf16 collective's byte view (``launch.mesh._raw``) of a tensor
+    that torch counts contiguous although its size-1 dims leave its last
+    stride above 1 (one row's logits moved to dim 0, as a vocab-parallel
+    gather of a batch of one does)."""
+    from repro_torch.launch import mesh as lm
+
+    x = torch.arange(8, dtype=torch.bfloat16).reshape(1, 1, 8).movedim(2, 0)
+    assert x.is_contiguous() and x.stride(-1) > 1
+    raw = lm._raw(x)
+    assert raw.dtype == torch.uint8 and raw.shape == (8, 1, 2)
+    assert torch.equal(raw.view(torch.bfloat16), x)
+
+
+class _StandInAxis:
+    """A "model" axis of ``n`` ranks inside one process: rank ``rank``'s
+    collectives read the other ranks' tensors from ``xs`` (forward) and
+    ``gs`` (backward)."""
+
+    def __init__(self, xs, gs):
+        self.xs, self.gs, self.rank = xs, gs, 0
+
+    def axis_size(self, axes) -> int:
+        return len(self.xs)
+
+
+def _stand_in_reduce_scatter(x, mesh, axes, dim=0):
+    parts = [x if j == mesh.rank else xj.float()
+             for j, xj in enumerate(mesh.xs)]
+    return sum(parts).chunk(len(parts), dim)[mesh.rank]
+
+
+def _stand_in_all_gather(g, mesh, axes, dim=0):
+    return torch.cat([g if j == mesh.rank else gj
+                      for j, gj in enumerate(mesh.gs)], dim)
+
+
+def test_scatter_parts_gradient_is_the_adjoint_of_its_sum(monkeypatch):
+    """Each of 4 ranks holds x_j [2, 3, 8]; ``scatter_parts`` gives rank r
+    its quarter (along the last dim) of the sum of all x_j, and rank j's
+    gradient must be that of sum_r <y_r, G_r> with respect to x_j: every
+    rank's G_r all-gathered.  A backward that kept the rank's own part, or
+    passed its G through, fails."""
+    from repro_torch.launch import mesh as lm
+
+    monkeypatch.setattr(lm, "reduce_scatter", _stand_in_reduce_scatter)
+    monkeypatch.setattr(lm, "all_gather", _stand_in_all_gather)
+    gen = torch.Generator().manual_seed(0)
+    n = 4
+    xs = [torch.randn(2, 3, 8, generator=gen) for _ in range(n)]
+    gs = [torch.randn(2, 3, 8 // n, generator=gen) for _ in range(n)]
+    axis = _StandInAxis(xs, gs)
+    leaves = [x.clone().requires_grad_() for x in xs]
+    total = sum(torch.sum(y * g) for y, g in zip(
+        torch.stack(leaves).sum(0).chunk(n, -1), gs))
+    want = torch.autograd.grad(total, leaves)
+    for r in range(n):
+        axis.rank = r
+        x = xs[r].clone().requires_grad_()
+        y = lm.scatter_parts(x, axis, "model", -1)
+        torch.testing.assert_close(y, sum(xs).chunk(n, -1)[r])
+        (got,) = torch.autograd.grad(torch.sum(y * gs[r]), x)
+        torch.testing.assert_close(got, want[r], rtol=0, atol=1e-6)
 
 
 if __name__ == "__main__":
