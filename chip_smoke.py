@@ -148,7 +148,7 @@ Phases (any mismatch raises, so the exit code is non-zero):
      kernel lowerings of the old block dropped), B1 after it, finals equal
      before and after, an untuned matcher's and ``backend="local"``'s, and
      the warm call before and after; (b) ``CorpusFilter`` with 7 secret and
-     PII rules over 8,192 generated documents of 2,048 bytes: ``filter()``
+     PII rules over 4,096 generated documents of 2,048 bytes: ``filter()``
      at batch sizes 64 and 1,024, ``data_stream`` into packed batches,
      ``scan_stream`` over 256 concurrent downloads in 1,024-byte chunks and
      ``document_ok`` over 256 documents (B6, or B8 + B7), each keep-mask
@@ -220,8 +220,9 @@ Phases (any mismatch raises, so the exit code is non-zero):
      gloo on ("pod", "data", "model") = (2, 2, 2), each running its share
      of the partitioned program (its rows over the data axes, tensor and
      expert parallelism over "model"; see ``phase21_mesh``; 21(f) the
-     hybrid, ssm and enc-dec families; ``python3 chip_smoke.py --phase21
-     f`` runs a part alone);
+     hybrid, ssm and enc-dec families; the train steps of (c), (d) and
+     (f) reduce the loss over "model" and gather no logits there;
+     ``python3 chip_smoke.py --phase21 f`` runs a part alone);
  22. the analysis tools (``repro_torch.launch.{census,dryrun,roofline}``),
      run where phases 12 and 20(a) hold their models, so none is
      initialised again: (a) after 20(a)'s steps, one more train step of
@@ -325,7 +326,7 @@ RULES17 = (r"SECRET-[0-9]+", r"key=[A-Za-z0-9]{8}",
            r"[0-9]{3}-[0-9]{2}-[0-9]{4}", r"-----BEGIN [A-Z]+ PRIVATE KEY-----",
            r"(password|passwd)=[^ ]+",
            r"[0-9]{4} [0-9]{4} [0-9]{4} [0-9]{4}")   # 17: secret/PII rules
-CORPUS17 = (8192, 2048)              # 17(b): documents, bytes each (16 MiB)
+CORPUS17 = (4096, 2048)              # 17(b): documents, bytes each (8 MiB)
 BATCH17 = (64, 1024)                 # 17(b): filter() batch sizes
 LOADER17 = (8, 2048)                 # 17(b): data_stream batch, seq_len
 STREAM17 = (256, 1024, 64, 8)        # 17(b): open downloads, chunk bytes,
@@ -390,7 +391,7 @@ ARCH21E = "tinyllama-1.1b"            # 21(e): full width
 LAYERS21E = 4                         # 21(e): its depth (of 22; cut to make
 #                                       room for 21(f))
 PREFILL21E = (8, 2048)                # 21(e): prompts, tokens (B9, bf16)
-DECODE21E = 16                        # 21(e): constrained steps (B5)
+DECODE21E = 8                         # 21(e): constrained steps (B5)
 # 21(e): the prefill's logits against one process, max |gap| over the
 # largest |logit|: float32 compute (tensor parallelism sums each block's
 # heads and hidden columns in another order), and bf16 (each rank's
@@ -425,7 +426,7 @@ FAMILIES21F = (("hybrid", "recurrentgemma-2b"), ("ssm", "xlstm-1.3b"),
                ("encdec", "seamless-m4t-medium"))
 LAYERS21F = {"hybrid": 5, "ssm": 8, "encdec": 4}
 PREFILL21F = {"hybrid": (8, 1024), "ssm": (8, 512), "encdec": (8, 1024)}
-DECODE21F = 4                         # 21(f): float32-compute decode steps
+DECODE21F = 2                         # 21(f): float32-compute decode steps
 # 21(f): recurrentgemma-2b's tensor-parallel step (rows, tokens; one
 # microbatch) on the same eight ranks as ("data", "model") = (4, 2): on
 # (2, 2, 2) the pods would each hold a quarter of its 256k-vocab embedding
@@ -433,6 +434,17 @@ DECODE21F = 4                         # 21(f): float32-compute decode steps
 # estimate: 8 ranks past one 80 GB card); (4, 2) holds an eighth
 TRAIN21F = (8, 256)
 MESH21F = (4, 2)
+# 21(c), (f): the sharded steps' collectives over "model", [calls, MB, ms]
+# of rank 0, as an earlier run of this script read them with the logits
+# all-gathered over "model" for the loss (NVIDIA H100 80GB HBM3, 700.00
+# W); the vocab-parallel loss reduces [rows, T] floats instead
+GATHERED21 = {
+    "c": {"all_gather model": [14, 109.707, 503.647],
+          "all_reduce model": [20, 33.554, 209.348],
+          "all_to_all model": [24, 805.306, 1624.296]},
+    "f": {"all_gather model": [9, 288.358, 1512.26],
+          "all_reduce model": [27, 141.558, 535.129],
+          "reduce_scatter model": [8, 68.157, 255.593]}}
 RESIDUES = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
 
 # one planted occurrence of every PCRE-14 pattern (re.search-verified)
@@ -4253,10 +4265,42 @@ def blocked21(fn):
 
 
 def stats21():
-    """``MESH_STATS`` as {"name axes": [calls, MB, ms]}."""
+    """``MESH_STATS`` as {"name axes": [calls, MB, ms, the largest call's
+    MB]}."""
     from repro_torch.launch import mesh as lm
-    return {k: [v[0], round(v[1] / 1e6, 3), round(v[2] * 1e3, 3)]
-            for k, v in sorted(lm.MESH_STATS.items())}
+    return stats_mb21(lm.MESH_STATS)
+
+
+def stats_mb21(stats):
+    """``MESH_STATS``-shaped ``stats`` (bytes, seconds) in MB and ms."""
+    return {k: [v[0], round(v[1] / 1e6, 3), round(v[2] * 1e3, 3),
+                round(v[3] / 1e6, 3)] for k, v in sorted(stats.items())}
+
+
+def logits_mb21(rows, tokens, cfg, m, nbytes):
+    """MB of one microbatch's logits on a rank of a ``m``-way "model" axis:
+    its ``rows`` x ``tokens`` x vocab / m slice in ``nbytes``-byte
+    floats."""
+    return rows * tokens * (cfg.padded_vocab // m) * nbytes / 1e6
+
+
+def vocab_parallel21(part, stats, slice_mb):
+    """Check and print that a sharded step's loss gathered no logits over
+    "model" (``stats`` of ``stats21``: no all-gather over "model" moved
+    as much as one microbatch's logits slice on a rank, ``slice_mb``),
+    with its collectives over "model" beside ``GATHERED21``'s."""
+    over = {k: v[:3] for k, v in stats.items() if k.endswith(" model")}
+    largest = stats.get("all_gather model", [0, 0.0, 0.0, 0.0])[3]
+    check(largest < slice_mb, f"[21{part}] the step all-gathered "
+          f"{largest} MB in one call over \"model\": a microbatch's "
+          f"logits slice is {slice_mb:.3f} MB")
+    print(f"[21{part}] the loss is vocab-parallel: the largest all-gather "
+          f"over \"model\" {largest:.3f} MB (a microbatch's logits slice "
+          f"on a rank: {slice_mb:.3f} MB); the step's collectives over "
+          f"\"model\" [calls, MB, ms] {over}, "
+          f"{sum(v[1] for v in over.values()):.3f} MB in "
+          f"{sum(v[2] for v in over.values()):.3f} ms; with the logits "
+          f"gathered: {GATHERED21.get(part, 'not measured')}")
 
 
 def peak21():
@@ -5080,7 +5124,8 @@ def phase21d_launcher():
             "--arch", ARCH20, "--layers", str(LAYERS_CLI),
             "--batch", str(b), "--seq", str(t),
             "--steps", str(steps), "--log-every", "1", "--mesh-data", "2",
-            "--mesh-model", "2", "--ckpt-dir", os.path.join(tmp, "ckpt")]
+            "--mesh-model", "2", "--log-collectives",
+            "--ckpt-dir", os.path.join(tmp, "ckpt")]
     if DEVICE != "cuda":                  # a rehearsal on the CPU
         argv += ["--device", DEVICE, "--smoke"]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -5100,6 +5145,14 @@ def phase21d_launcher():
     print(f"[21d] the launcher on (2, 2): {wall:.1f} s of command")
     mesh = dict(launcher_line(ln) for ln in lines if ln.startswith("step "))
     check(sorted(mesh) == list(range(steps)), f"[21d] steps {sorted(mesh)}")
+    # each step's collectives (bf16 compute: 2-byte logits), rank 0
+    colls = [json.loads(ln.split(": ", 1)[1])
+             for ln in res.stdout.splitlines()
+             if ln.startswith("collectives step ")]
+    check(len(colls) == steps, f"[21d] {len(colls)} collectives lines")
+    for i, st in enumerate(colls):
+        vocab_parallel21(f"d step {i}", stats_mb21(st),
+                         logits_mb21(b // 2, t, cli_config(), 2, 2))
     gaps = {k: max(abs(mesh[i][k] - one[i][k])
                    / (one[i][k] if k != "loss" else 1) for i in one)
             for k in LINE21_TOL}
@@ -5232,8 +5285,8 @@ def phase21e_report(reps, ref, tmp):
           f"against one process: |max| {scale16:.3f}, max |gap| "
           f"{gap16:.4e} ({gap16 / scale16:.3e}; bound {BF16_21E}), mismatch "
           f"share (atol {MISMATCH21[1]}) {share:.4f}, rows equal in argmax "
-          f"{rows16}/{got16.shape[0]}; collectives [calls, MB, ms] "
-          f"{e['prefill_stats']}")
+          f"{rows16}/{got16.shape[0]}; collectives [calls, MB, ms, "
+          f"largest MB] {e['prefill_stats']}")
     print(f"[21e] float32-compute prefill (blockwise): "
           f"{e['prefill32_s']:.3f} s (rank 0); max |gap| {gap:.4e} of |max| "
           f"{scale:.3f} ({gap / scale:.3e}; bound {F32_21E}); collectives "
@@ -5314,8 +5367,8 @@ def phase21f_report(reps, ref, tmp):
               f"s (rank 0), max |gap| {gaps['decode'][0]:.4e} "
               f"({gaps['decode'][0] / gaps['decode'][1]:.3e}); bound "
               f"{F32_21E}, argmax equal on {len(reps)} ranks")
-        print(f"[21f] {arch} collectives [calls, MB, ms] (rank 0): "
-              + "; ".join(f"{p}: {f['stats'][p]}"
+        print(f"[21f] {arch} collectives [calls, MB, ms, largest MB] "
+              f"(rank 0): " + "; ".join(f"{p}: {f['stats'][p]}"
                           for p in ("bf16", "f32", "decode")))
         print(f"[21f] {arch} peak memory, GiB: one process "
               f"{ref[f'f_{family}_peak_gib']:.2f}; a rank " + ", ".join(
@@ -5346,6 +5399,8 @@ def phase21f_report(reps, ref, tmp):
           f"peak GiB: one process {ref['f_train_peak_gib']:.2f}, a rank "
           + ", ".join(f"{r['rank']}: {r['f']['train']['peak_gib']:.2f}"
                       for r in reps))
+    vocab_parallel21("f", tr["stats"], logits_mb21(
+        b // MESH21F[0], t, cfg21f("hybrid"), MESH21F[1], 4))
     check(abs(tr["loss"] - one["loss"]) <= F32_21["loss"]
           and abs(tr["grad_norm"] - one["grad_norm"])
           <= F32_21["gnorm"] * one["grad_norm"],
@@ -5383,8 +5438,8 @@ def phase21a_report(reps, oracle_states):
           f"paper's intra/inter-node gap): hierarchical "
           f"{[round(x * 1e3, 3) for x in mg['times']['hier']]} ms, flat "
           f"{[round(x * 1e3, 3) for x in mg['times']['flat']]} ms; "
-          f"collectives [calls, MB, ms]: hierarchical {mg['tiers']['hier']}"
-          f", flat {mg['tiers']['flat']}")
+          f"collectives [calls, MB, ms, largest MB]: hierarchical "
+          f"{mg['tiers']['hier']}, flat {mg['tiers']['flat']}")
     cp = reps[0]["a"]["compress"]
     print(f"[21a] compressed_pod_mean over rank 0's shard of tinyllama-1.1b's"
           f" gradients ({cp['elements']} float32): {cp['s']} s a round; "
@@ -5481,7 +5536,11 @@ def phase21c_report(reps, ref, after):
           f"{ref['grad_norm']:.6f}, m and v per leaf within {moments:.3e} "
           f"relative L2 <= {F32_21['leaf']}, worst parameter gap {worst:.3e} "
           f"(bound {nonec['param_tol']:.3e}); collectives of the step "
-          f"[calls, MB, ms] {nonec['stats']}")
+          f"[calls, MB, ms, largest MB] {nonec['stats']}")
+    pod, data, m = MESH21
+    vocab_parallel21("c", nonec["stats"], logits_mb21(
+        TRAIN21[0] // TRAIN21[2] // (pod * data), TRAIN21[1],
+        cfg21(train=True), m, 4))
     for i, s in enumerate(c0["int8"]):
         print(f"[21c] int8 step {i}: {s['s']:.3f} s, loss {s['loss']:.6f}, "
               f"collectives {s['stats']}")

@@ -35,7 +35,8 @@ forward, identity backward), ``scatter_parts`` where that output stays
 split over the ranks' channels (reduce-scatter forward, all-gather
 backward) and ``gather`` of a vocab-parallel product's slices.
 ``MESH_STATS`` counts each collective's calls and bytes (and its
-host-clock seconds while ``time_collectives(True)``).
+host-clock seconds while ``time_collectives(True)``) and keeps its largest
+call's bytes.
 
 Without an initialised world, a mesh of one device initialises a world of
 one (a ``file://`` store in a temporary directory: NCCL on a card, gloo on
@@ -454,7 +455,8 @@ def make_local_mesh(data: int = 1, model: int = 1, *, device=None) -> LMMesh:
 
 # -- staged collectives -------------------------------------------------------
 
-# "name axes" -> [calls, bytes this rank put in, host-clock seconds]
+# "name axes" -> [calls, bytes this rank put in, host-clock seconds, the
+# largest call's bytes]
 MESH_STATS: dict[str, list] = {}
 _TIMING = [False]
 
@@ -492,9 +494,11 @@ class _Timed:
             self.t0 = time.perf_counter()
 
     def __exit__(self, *exc):
-        st = MESH_STATS.setdefault(self.name, [0, 0, 0.0])
+        st = MESH_STATS.setdefault(self.name, [0, 0, 0.0, 0])
+        nbytes = self.x.numel() * self.x.element_size()
         st[0] += 1
-        st[1] += self.x.numel() * self.x.element_size()
+        st[1] += nbytes
+        st[3] = max(st[3], nbytes)
         if _TIMING[0]:
             if self.x.device.type == "cuda":
                 torch.cuda.synchronize(self.x.device)
@@ -541,15 +545,19 @@ def all_gather(x: torch.Tensor, mesh: LMMesh, axes,
 
 def all_reduce(x: torch.Tensor, mesh: LMMesh, axes,
                op: str = "sum") -> torch.Tensor:
-    """Sum (``op="sum"``) or mean (``"mean"``) of every rank's ``x`` over
-    ``axes``; a new tensor on ``x``'s device."""
+    """Sum (``op="sum"``), mean (``"mean"``) or elementwise maximum
+    (``"max"``) of every rank's ``x`` over ``axes``; a new tensor on
+    ``x``'s device."""
+    if op not in ("sum", "mean", "max"):
+        raise ValueError(f"all_reduce op {op!r}: not sum, mean or max")
     group = mesh.group(axes)
     if group is None:
         return x.clone()
     with _Timed("all_reduce", x, axes):
         src, staged = _staged(mesh, x)
         src = src.clone() if not staged else src
-        dist.all_reduce(src, group=group)
+        dist.all_reduce(src, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=group)
         out = src.to(x.device) if staged else src
     _counted("all-reduce", out, group, axes)
     return out / dist.get_world_size(group) if op == "mean" else out

@@ -22,8 +22,9 @@ On a ("data", "model") mesh, one process a rank (here four ranks, 2 x 2):
       --mesh-model 2
 
 (a caller's own ``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/``MASTER_PORT``
-work too).  The world initialises on NCCL where each rank has its own
-card and on gloo otherwise (ranks sharing one card, or ``--device cpu``);
+work too; ``--log-collectives`` prints each logged step's collectives).
+The world initialises on NCCL where each rank has its own card and on
+gloo otherwise (ranks sharing one card, or ``--device cpu``);
 every rank reads the same filtered stream, the sharded step
 (``training.train_loop``) takes each rank's rows, and rank 0 alone prints
 and writes checkpoints.
@@ -41,6 +42,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import itertools
+import json
 import os
 import tempfile
 import time
@@ -127,6 +129,12 @@ def main(argv=None) -> None:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=10,
                     help="print a step line every this many steps")
+    ap.add_argument("--log-collectives", action="store_true",
+                    help="time each step's collectives on a mesh and print "
+                         "them beside its step line (launch.mesh.MESH_STATS"
+                         ": calls, bytes, host seconds and the largest "
+                         "call's bytes by name and axes); the timing "
+                         "synchronises the device around each collective")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -191,12 +199,21 @@ def _train(args, cfg, mesh, device) -> None:
             f"{time.perf_counter() - t0:.2f} s")
         batches = itertools.islice(batches, start, None)
 
+    log_coll = args.log_collectives and mesh is not None
+    if log_coll:
+        lmesh.time_collectives(True)
+
     def one_step(st, i):
+        if log_coll:
+            lmesh.reset_mesh_stats()
         st, metrics = step_fn(st, batch_to_device(next(batches), device))
         if i % args.log_every == 0:
             say(f"step {i:5d} loss {float(metrics['loss']):.4f} "
                 f"gnorm {float(metrics['grad_norm']):.3f} "
                 f"lr {float(metrics['lr']):.2e}")
+            if log_coll:
+                say(f"collectives step {i}: "
+                    f"{json.dumps(dict(sorted(lmesh.MESH_STATS.items())))}")
         return st
 
     def save(st, step):

@@ -184,7 +184,8 @@ def train_logits(params, cfg: ModelConfig, batch: dict, *, mesh=None,
     """The training forward pass: (logits, aux_loss), differentiable in
     ``params`` (leaves that require grad).  ``weights(path, tree)`` (each
     family's per-layer gather, as ``transformer.forward`` takes it) is the
-    sharded train step's."""
+    sharded train step's.  On ``mesh`` the logits are this rank's vocab
+    slice over "model" (``layers.vocab_parallel_nll`` reduces them)."""
     if cfg.family in ("dense", "moe", "vlm"):
         prefix = batch["patches"] if cfg.family == "vlm" else None
         logits, _, aux = TF.forward(params, cfg, batch["tokens"],
@@ -257,7 +258,7 @@ def prefill(params, cfg: ModelConfig, batch: dict, *, mesh=None,
                                              mesh=mesh, weights=weights)
     else:
         raise ValueError(cfg.family)
-    return (logits if on is None else on.whole(logits)), cache
+    return _whole(logits, cfg, mesh, on), cache
 
 
 def decode(params, cfg: ModelConfig, batch: dict, *, mesh=None):
@@ -290,7 +291,17 @@ def decode(params, cfg: ModelConfig, batch: dict, *, mesh=None):
                                             mesh=mesh, weights=weights)
     else:
         raise ValueError(cfg.family)
-    return (logits if on is None else on.whole(logits)), out
+    return _whole(logits, cfg, mesh, on), out
+
+
+def _whole(logits, cfg: ModelConfig, mesh, on):
+    """A mesh's logits made whole: the vocab over "model", then the rows
+    over the data axes (``MeshRows.whole``)."""
+    if on is None:
+        return logits
+    logits = L.whole_vocab(logits, vocab=cfg.padded_vocab,
+                           mesh=TF.model_axis(mesh))
+    return on.whole(logits)
 
 
 # --------------------------------------------------------------------------

@@ -20,7 +20,9 @@ rules): query heads and ``wo``'s rows, the MLP's hidden columns and ``wo``'s
 rows, the vocab rows of the table and head.  A column-parallel product's
 input passes ``launch.mesh.sum_grads`` and a row-parallel output
 ``launch.mesh.reduce_parts`` (one sum over "model"); vocab-parallel logits
-are gathered.  A leaf given whole computes as on one device.
+stay each rank's slice: serving gathers them (``whole_vocab``) and the
+sharded train step's loss reduces them (``vocab_parallel_nll``).  A leaf
+given whole computes as on one device.
 """
 
 from __future__ import annotations
@@ -42,7 +44,8 @@ __all__ = [
     "attention", "init_kv_cache_layer", "init_mlp", "swiglu_mlp",
     "truncated_normal", "stack_trees", "index_tree", "unstack_tree",
     "remat", "remat_all", "REMAT_POLICIES", "sigmoid", "silu", "gelu",
-    "keep_tree", "embed_tp", "logits_tp", "model_size",
+    "keep_tree", "embed_tp", "logits_tp", "whole_vocab",
+    "vocab_parallel_nll", "model_size",
 ]
 
 Compute = torch.bfloat16
@@ -211,14 +214,60 @@ def embed_tp(p, tokens, *, vocab: int, mesh=None):
 
 def logits_tp(w, x, *, vocab: int, mesh=None):
     """``x @ w`` (``w`` [D, V]) where ``w`` may be this rank's ``[D,
-    vocab / m]`` columns over "model": the rank's vocab slice of the
-    logits, all-gathered over "model" into the whole vocab."""
+    vocab / m]`` columns over "model": then the rank's vocab slice of the
+    logits ``[..., vocab / m]`` (``whole_vocab`` gathers it,
+    ``vocab_parallel_nll`` reduces it)."""
     w = w.to(Compute)
     if model_size(mesh) == 1 or w.shape[1] == vocab:
         return torch.matmul(x, w)
     from ..launch import mesh as lm
-    local = torch.matmul(lm.sum_grads(x, mesh, "model"), w)
-    return lm.gather(local, mesh, "model", local.dim() - 1)
+    return torch.matmul(lm.sum_grads(x, mesh, "model"), w)
+
+
+def whole_vocab(logits, *, vocab: int, mesh=None):
+    """``logits_tp``'s rank slice all-gathered over "model" into the whole
+    vocab (serving's output); whole logits are returned as they are."""
+    if model_size(mesh) == 1 or logits.shape[-1] == vocab:
+        return logits
+    from ..launch import mesh as lm
+    return lm.gather(logits, mesh, "model", logits.dim() - 1)
+
+
+def vocab_parallel_nll(logits, labels, *, vocab: int, mesh=None):
+    """``(nll_sum, count)``: the token sum of the cross entropy and the
+    number of valid labels (labels < 0 are ignored), in float32, of logits
+    that may be this rank's ``[..., vocab / m]`` slice over "model"
+    (``logits_tp``'s; whole logits compute as on one device).  ``transformer.lm_loss`` is ``nll_sum / max(count, 1)``.
+
+    The log-sum-exp reduces over "model": the largest logit (a max over
+    the ranks, no gradient: it only shifts the sum), each rank's
+    ``sum(exp(x - max))`` summed, and the gold logit taken by the rank
+    whose vocab range holds the label, zeros elsewhere, summed.  Both sums
+    are ``reduce_parts``, whose backward gives each rank the whole sum's
+    gradient: its softmax columns and, on the label's rank, the gold
+    logit's -1.  Three ``labels``-shaped float32 tensors cross "model",
+    never the vocab."""
+    x = logits.float()
+    valid = labels >= 0
+    safe = torch.clamp(labels, min=0).long()
+    m = model_size(mesh)
+    if m == 1 or x.shape[-1] == vocab:
+        logz = torch.logsumexp(x, dim=-1)
+        gold = torch.gather(x, -1, safe[..., None])[..., 0]
+    else:
+        from ..distributed.sharding import model_vocab
+        from ..launch import mesh as lm
+        v0, nv = model_vocab(vocab, m, mesh.coordinate("model"))
+        top = lm.all_reduce(x.detach().amax(dim=-1), mesh, "model", "max")
+        sumexp = torch.exp(x - top[..., None]).sum(dim=-1)
+        logz = torch.log(lm.reduce_parts(sumexp, mesh, "model")) + top
+        local = safe - v0
+        hit = (local >= 0) & (local < nv)
+        gold = torch.gather(x, -1, local.clamp(0, nv - 1)[..., None])[..., 0]
+        gold = lm.reduce_parts(torch.where(hit, gold, torch.zeros_like(gold)),
+                               mesh, "model")
+    nll = (logz - gold) * valid
+    return nll.sum(), valid.sum()
 
 
 def rope(x, positions, theta: float = 10_000.0):

@@ -130,8 +130,9 @@ def embed_tokens(params: dict, cfg: ModelConfig, tokens, mesh=None,
 def head_logits(params: dict, cfg: ModelConfig, x, weights=None,
                 mesh=None):
     """The final norm and the head (the tied table where
-    ``cfg.tie_embeddings``), the vocab gathered whole over ``mesh``'s
-    "model" axis (``layers.logits_tp``); the decoder-only families'."""
+    ``cfg.tie_embeddings``): on ``mesh``'s "model" axis the rank's vocab
+    slice of the logits (``layers.logits_tp``); the decoder-only
+    families'."""
     if weights is not None:
         params = {k: weights((k,), params[k]) for k in (
             "final_norm", "embed" if cfg.tie_embeddings else "head")}
@@ -161,6 +162,9 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     and mesh serving's FSDP gather) gathers each layer's parameters over
     "data" inside its rematerialised body, so the backward pass gathers
     them again, and the embedding's and head's just before use.
+    The logits are then the rank's vocab slice ``[..., V_pad / m]``:
+    serving gathers them (``layers.whole_vocab``), the sharded train
+    step's loss reduces them (``layers.vocab_parallel_nll``).
     """
     mesh = model_axis(mesh)
     x = embed_tokens(params, cfg, tokens, mesh, weights)
@@ -213,10 +217,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token-mean cross entropy in fp32; labels < 0 are ignored."""
-    logits = logits.float()
-    valid = labels >= 0 if mask is None else mask & (labels >= 0)
-    safe = torch.clamp(labels, min=0).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
-    nll = (logz - gold) * valid
-    return nll.sum() / torch.clamp(valid.sum(), min=1)
+    if mask is not None:
+        labels = torch.where(mask, labels, -1)
+    nll, count = L.vocab_parallel_nll(logits, labels, vocab=logits.shape[-1])
+    return nll / torch.clamp(count, min=1)

@@ -20,6 +20,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..models import api
+from ..models import layers as L
 from ..models import transformer as TF
 from .constrained import GrammarConstraint
 
@@ -69,6 +70,12 @@ class ServingEngine:
                              f"{constraint.allowed.device}, model on "
                              f"{self.device}")
 
+    def _whole_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """On a mesh, the rank's vocab slice of ``logits`` gathered over
+        "model" (``layers.whole_vocab``)."""
+        return L.whole_vocab(logits, vocab=self.cfg.padded_vocab,
+                             mesh=TF.model_axis(self.mesh))
+
     def _sample(self, logits: torch.Tensor,
                 gen: Optional[torch.Generator]) -> torch.Tensor:
         logits = logits[:, -1].float()  # [B, V]
@@ -111,6 +118,7 @@ class ServingEngine:
         logits, cache, _ = TF.forward(self.params, self.cfg, toks,
                                       cache=cache, last_only=True,
                                       mesh=self.mesh, weights=weights)
+        logits = self._whole_vocab(logits)
         gen = None
         if self.serve.temperature > 0:
             gen = torch.Generator(device=self.device)
@@ -150,4 +158,5 @@ class ServingEngine:
             last, cache = TF.decode_step(self.params, self.cfg, cache,
                                          tok[:, None], t_prompt + i,
                                          mesh=self.mesh, weights=weights)
+            last = self._whole_vocab(last)
         return out

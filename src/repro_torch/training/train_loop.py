@@ -39,6 +39,11 @@ GSPMD program runs them; every rank passes the same global batch:
     the mLSTM's heads; one sum of partial results a block); the MoE
     layers' experts stay this rank's shard, under expert parallelism over
     "model", with the tokens split over it;
+  * the loss is vocab-parallel: each rank keeps its ``[rows, T, V / m]``
+    slice of the logits and ``models.layers.vocab_parallel_nll`` reduces
+    the log-sum-exp and the gold logit over "model" (three ``[rows, T]``
+    float32 tensors a microbatch), as the reference's partitioned
+    ``lm_loss`` does; the whole vocab is never gathered;
   * gradients are averaged over the dp axes: over "data" each leaf's
     gradient is reduce-scattered to its shard (or averaged, where the
     leaf is whole over "data"), over "pod" averaged, or exchanged in int8
@@ -62,6 +67,7 @@ from ..distributed import compression as comp
 from ..distributed import sharding as shr
 from ..launch import mesh as lmesh
 from ..models import api
+from ..models import layers as L
 from ..models.transformer import lm_loss
 from .optimizer import AdamWConfig, _tree_map, adamw_init, adamw_update
 
@@ -290,9 +296,9 @@ def _make_sharded_step(cfg: ModelConfig, mesh, opts: TrainOptions):
                 count = torch.clamp((labels_all >= 0).sum(), min=1)
                 logits, aux = api.train_logits(
                     live, cfg, mb, mesh=layer_mesh, weights=gathered)
-                local_count = (mb["labels"] >= 0).sum()
-                nll_sum = lm_loss(logits, mb["labels"]) * torch.clamp(
-                    local_count, min=1)
+                nll_sum, _ = L.vocab_parallel_nll(
+                    logits, mb["labels"], vocab=cfg.padded_vocab,
+                    mesh=layer_mesh)
                 obj = nll_sum * (dp_size / count) \
                     + opts.aux_loss_weight * aux
                 obj.backward()

@@ -301,6 +301,35 @@ def test_fake_world_sum_over_data_mesh_shows_its_all_reduce():
     assert all(coll[k]["count"] == 0 for k in coll if k != "all-reduce")
 
 
+def test_dryrun_train_cell_keeps_the_logits_vocab_parallel(tmp_path):
+    """tinyllama-1.1b train_4k on the (16, 16) fake world cut to 256
+    tokens, one microbatch of the rank's 16 rows: the step's temporaries
+    hold less than two float32 copies of the rank's whole-vocab logits
+    (16 x 256 x 32,000), since the loss reduces each rank's 1/16 of the
+    vocab over "model"; the dot flops are the cut cell's."""
+    _run(f"""
+        import dataclasses, os, sys
+        os.environ["REPRO_NM"] = "1"
+        from repro_torch.configs import SHAPES
+        from repro_torch.launch import dryrun
+        SHAPES["train_4k"] = dataclasses.replace(SHAPES["train_4k"],
+                                                 seq_len=256)
+        sys.argv = ["dryrun", "--arch", "tinyllama-1.1b", "--shape",
+                    "train_4k", "--mesh", "single", "--out",
+                    {str(tmp_path)!r}]
+        sys.exit(dryrun.main())
+    """, timeout=300)
+    with open(tmp_path / "single" / "tinyllama-1.1b--train_4k.json") as f:
+        rec = json.load(f)
+    assert rec["ok"], rec.get("error")
+    assert rec["num_microbatches"] == 1
+    whole = 16 * 256 * 32_000 * 4
+    assert rec["memory"]["temp_bytes"] < 2 * whole
+    # forward, recompute and backward products of 16 x 256 tokens a rank
+    # over 1/16 of the MLP, heads and vocab
+    assert 0 < rec["census"]["dot_flops"] < 4.11e13 * 256 / 4096
+
+
 def test_dryrun_prefill_cell_on_the_card_route(tmp_path):
     """One cell of the CLI in a subprocess: tinyllama-1.1b prefill_32k on
     the (16, 16) fake world, the card's program (B9 counted, not run)."""

@@ -34,7 +34,12 @@ sides and the JAX side compiled without XLA's excess precision
     seamless-m4t-medium against the JAX package's unsharded
     ``make_train_step`` at ``tests/test_torch_mesh.py``'s tolerances (loss
     1e-5, grad_norm 5e-5 relative, each moment leaf 1e-4 of its L2 norm,
-    each parameter 2 lr + 1e-6);
+    each parameter 2 lr + 1e-6), with the loss vocab-parallel: each rank
+    reduces its [rows, T, V / m] logits over "model" (a max, a sum of exp
+    and the gold logit, [rows, T] floats each) and gathers no logits;
+  * ``layers.vocab_parallel_nll`` of each rank's vocab half against
+    ``lm_loss`` of the whole logits (the port's and the JAX package's),
+    value and gradient, with ignored labels and the last padded column;
   * constrained greedy ``ServingEngine.generate`` on the mesh (each rank
     its rows, its grammar cursors and its masked logits) gives the JAX
     engine's tokens and the port's one-process tokens.
@@ -42,8 +47,10 @@ sides and the JAX side compiled without XLA's excess precision
 And without a spawn: the (16, 16) dry run of tinyllama-1.1b
 ``prefill_32k`` and ``decode_32k`` peaks below 80 GiB a rank; the rank's
 decode state or cache that ``api.input_specs`` gives the hybrid, ssm and
-enc-dec families on (16, 16); and ``launch.mesh.scatter_parts``'
-gradient against the adjoint of its sum, on a stand-in axis of 4 ranks.
+enc-dec families on (16, 16); ``launch.mesh.scatter_parts``' gradient
+against the adjoint of its sum, on a stand-in axis of 4 ranks; and
+``vocab_parallel_nll``'s gradient against ``lm_loss``'s on an axis of 4
+ranks run as threads of one process.
 """
 
 from __future__ import annotations
@@ -88,6 +95,8 @@ GRAMMAR = r"([0-9]{1,6}[.,] )*[0-9]{0,6}"
 STEP_BATCH = (8, 64, 2)      # rows, tokens, microbatches
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=20)
 LOGIT_TOL = 1e-5             # of the largest |logit|
+NLL_SHAPE = (4, 8, 96)       # the vocab-parallel loss: rows, tokens, V
+NLL_TOL = 1e-6               # its loss relative, its gradient of |max|
 F32_TOL = (1e-5, 1e-4, 5e-5)  # loss atol, leaf relative L2, norm rtol
 
 
@@ -196,6 +205,9 @@ def _make_inputs(path: pathlib.Path) -> None:
                 0, 1, size=(rows, tokens, cfg.d_model)).astype(np.float32)
     b, t, _ = GENERATE
     out["prompts"] = _grammar_prompts(np.random.default_rng(3), b, t)
+    logits, labels = _nll_inputs(torch.Generator().manual_seed(4),
+                                 *NLL_SHAPE, MESH[2])
+    out["nll_logits"], out["nll_labels"] = logits.numpy(), labels.numpy()
     np.savez(path, **out)
 
 
@@ -279,6 +291,13 @@ def _jax_reference(inp_path: str, out_path: str) -> None:
             out[f"train_{name}_new{k}"] = v
         for k in ("loss", "grad_norm", "lr"):
             out[f"train_{name}_{k}"] = np.asarray(metrics[k])
+    import jax
+
+    from repro.models.transformer import lm_loss
+    labels = jnp.asarray(z["nll_labels"])
+    loss, grad = _strict(jax.value_and_grad(lambda x: lm_loss(x, labels)),
+                         jnp.asarray(z["nll_logits"]))
+    out["nll_loss"], out["nll_grad"] = np.asarray(loss), np.asarray(grad)
     np.savez(out_path, **out)
 
 
@@ -319,6 +338,7 @@ def _child_cases(rank: int, z) -> dict:
     _f32_compute(False)
     mesh = lm.make_mesh(MESH, ("pod", "data", "model"), device="cpu")
     out = {"coordinate": np.array(mesh.get_coordinate())}
+    out.update(_child_nll(mesh, z))
     for name, (arch, over) in CASES.items():
         cfg = _cfg(arch, over, True)
         tree = _tree(z, f"{name}_params")
@@ -384,13 +404,77 @@ def _child_cases(rank: int, z) -> dict:
         step = TL.jit_train_step(cfg, mesh, state,
                                  shr.batch_specs(batch, mesh, rows), opts)
         lm.reset_mesh_stats()
-        state, metrics = step(state, batch)
+        with _Spy(lm) as spy:
+            state, metrics = step(state, batch)
         out[f"train_{name}_stats"] = np.array(json.dumps(lm.MESH_STATS))
+        out[f"train_{name}_calls"] = np.array(json.dumps(spy.calls))
         for k, v in _flat(state).items():
             out[f"train_{name}_new{k}"] = lm.whole_on_host(v).numpy()
         for k in ("loss", "grad_norm", "lr"):
             out[f"train_{name}_{k}"] = metrics[k].numpy()
     return out
+
+
+def _child_nll(mesh, z) -> dict:
+    """``vocab_parallel_nll`` of this rank's vocab slice over "model" of
+    the whole logits ``nll_logits``, its gradient of that slice, and the
+    port's ``lm_loss`` and its gradient on the whole logits."""
+    from repro_torch.launch import mesh as lm
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import lm_loss, model_axis
+
+    logits = torch.from_numpy(z["nll_logits"])
+    labels = torch.from_numpy(z["nll_labels"])
+    vocab = logits.shape[-1]
+    nv = vocab // mesh.axis_size("model")
+    cols = slice(mesh.coordinate("model") * nv,
+                 (mesh.coordinate("model") + 1) * nv)
+    x = logits[..., cols].clone().requires_grad_()
+    lm.reset_mesh_stats()
+    nll, count = L.vocab_parallel_nll(x, labels, vocab=vocab,
+                                      mesh=model_axis(mesh))
+    loss = nll / torch.clamp(count, min=1)
+    stats = json.dumps(lm.MESH_STATS)
+    (grad,) = torch.autograd.grad(loss, x)
+    whole = logits.clone().requires_grad_()
+    want = lm_loss(whole, labels)
+    (want_grad,) = torch.autograd.grad(want, whole)
+    return {"nll_loss": loss.detach().numpy(), "nll_count": count.numpy(),
+            "nll_grad": grad.numpy(), "nll_cols": np.array(
+                [cols.start, cols.stop]), "nll_stats": np.array(stats),
+            "nll_lm_loss": want.detach().numpy(),
+            "nll_lm_grad": want_grad[..., cols].numpy()}
+
+
+class _Spy:
+    """Records each ``launch.mesh.all_gather`` and ``all_reduce`` while
+    open, as [kind, axes, op, input shape, dtype]."""
+
+    def __init__(self, lm):
+        self.lm, self.calls = lm, []
+        self.saved = (lm.all_gather, lm.all_reduce)
+
+    def _add(self, kind, x, axes, op):
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        self.calls.append([kind, ",".join(axes), op, list(x.shape),
+                           str(x.dtype)])
+
+    def __enter__(self):
+        gather, reduce = self.saved
+
+        def all_gather(x, mesh, axes, dim=0):
+            self._add("all_gather", x, axes, "")
+            return gather(x, mesh, axes, dim)
+
+        def all_reduce(x, mesh, axes, op="sum"):
+            self._add("all_reduce", x, axes, op)
+            return reduce(x, mesh, axes, op)
+
+        self.lm.all_gather, self.lm.all_reduce = all_gather, all_reduce
+        return self
+
+    def __exit__(self, *exc):
+        self.lm.all_gather, self.lm.all_reduce = self.saved
 
 
 def _child_main(rank: int, world: int, store: str, inp: str,
@@ -662,6 +746,57 @@ def test_train_step_matches_jax(world, family):
     assert (scatters > 0) == (family == "hybrid")
 
 
+@pytest.mark.parametrize("family", sorted(TRAIN))
+def test_train_step_reduces_the_loss_over_model(world, family):
+    """The sharded step's loss is vocab-parallel on every rank: no gather
+    over "model" of a microbatch's logits (the rank's [rows, T, V / m]
+    slice), and per microbatch three all-reduces over "model" of its
+    [rows, T] float32 rows: the max, the sum of exp and the gold logit."""
+    outs, _, _ = world
+    rows, t, nm = STEP_BATCH
+    pod, data, m = MESH
+    cfg = _cfg(TRAIN[family], {}, True)
+    local = [rows // nm // (pod * data), t]
+    numel = local[0] * t * cfg.padded_vocab // m
+    for r, got in enumerate(outs):
+        calls = json.loads(str(got[f"train_{family}_calls"]))
+        big = [c for c in calls if c[0] == "all_gather" and c[1] == "model"
+               and np.prod(c[3]) >= numel]
+        assert not big, (r, big)
+        ops = sorted(c[2] for c in calls if c[0] == "all_reduce"
+                     and c[1] == "model" and c[3] == local
+                     and c[4] == "torch.float32")
+        assert ops == ["max"] * nm + ["sum"] * (2 * nm), (r, ops)
+        # MESH_STATS: the largest gather over "model" is below the slice
+        stats = json.loads(str(got[f"train_{family}_stats"]))
+        assert stats.get("all_gather model", [0] * 4)[3] < numel * 4, r
+
+
+def test_vocab_parallel_nll_matches_lm_loss(world):
+    """Each rank's ``vocab_parallel_nll`` of its half of the vocab over
+    "model" (labels -1, in both ranks' ranges and at the last padded
+    column): nll_sum / count within 1e-6 relative of ``lm_loss`` of the
+    whole logits (the port's and the JAX package's), its gradient of the
+    slice within 1e-6 of |max| of theirs, and three sums of [rows, T]
+    floats over "model", no gather."""
+    outs, want, inp = world
+    labels = inp["nll_labels"]
+    rows, t, _ = NLL_SHAPE
+    for r, got in enumerate(outs):
+        assert int(got["nll_count"]) == int((labels >= 0).sum())
+        loss = float(got["nll_loss"])
+        for ref in (float(got["nll_lm_loss"]), float(want["nll_loss"])):
+            assert abs(loss - ref) <= NLL_TOL * abs(ref), (r, loss, ref)
+        c0, c1 = got["nll_cols"]
+        for ref in (got["nll_lm_grad"], want["nll_grad"][..., c0:c1]):
+            scale = float(np.abs(ref).max())
+            gap = float(np.abs(got["nll_grad"] - ref).max())
+            assert gap <= NLL_TOL * scale, (r, gap, scale)
+        stats = json.loads(str(got["nll_stats"]))
+        assert stats == {"all_reduce model": [3, 3 * rows * t * 4, 0.0,
+                                              rows * t * 4]}
+
+
 def test_generate_on_the_mesh_gives_one_process_tokens(world):
     outs, want, _ = world
     one = outs[0]["generate_one"]
@@ -790,6 +925,103 @@ def test_scatter_parts_gradient_is_the_adjoint_of_its_sum(monkeypatch):
         torch.testing.assert_close(y, sum(xs).chunk(n, -1)[r])
         (got,) = torch.autograd.grad(torch.sum(y * gs[r]), x)
         torch.testing.assert_close(got, want[r], rtol=0, atol=1e-6)
+
+
+class _ThreadAxis:
+    """A "model" axis of ``n`` ranks inside one process, each rank a
+    thread: a collective puts the rank's tensor on the shared board, waits
+    for every rank's and combines them."""
+
+    def __init__(self, board, rank: int):
+        self.board, self.rank = board, rank
+
+    def axis_size(self, axes) -> int:
+        return self.board["n"]
+
+    def coordinate(self, axis: str) -> int:
+        return self.rank
+
+
+def _thread_all_reduce(x, mesh, axes, op="sum"):
+    board = mesh.board
+    board["parts"][mesh.rank] = x.detach().clone()
+    board["barrier"].wait()
+    parts = torch.stack(board["parts"])
+    board["barrier"].wait()          # every rank has read the board
+    return parts.amax(0) if op == "max" else parts.sum(0)
+
+
+def _on_threads(n: int, fn) -> list:
+    """``fn(axis)`` on each rank of a ``_ThreadAxis`` of ``n`` ranks."""
+    import threading
+    board = {"n": n, "parts": [None] * n,
+             "barrier": threading.Barrier(n, timeout=60)}
+    out, errors = [None] * n, []
+
+    def run(r):
+        try:
+            out[r] = fn(_ThreadAxis(board, r))
+        except BaseException as e:            # noqa: BLE001 - re-raised
+            errors.append(e)
+            board["barrier"].abort()
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _nll_inputs(gen, rows: int, t: int, vocab: int, m: int):
+    """Logits [rows, t, vocab] of std 2 (a model's scale: float32's
+    rounding of a log-sum-exp near 30 alone moves the softmax by 1e-6) and
+    labels with -1 (ignored), ids in every rank's vocab range and the last
+    padded column."""
+    logits = torch.randn(rows, t, vocab, generator=gen) * 2
+    labels = torch.randint(0, vocab, (rows, t), generator=gen)
+    nv = vocab // m
+    labels[0, :m] = torch.arange(m) * nv + nv // 2     # each rank's range
+    labels[0, m] = vocab - 1                           # the last pad column
+    labels[1, :3] = -1
+    return logits, labels
+
+
+def test_vocab_parallel_nll_gradient_is_lm_loss_gradient(monkeypatch):
+    """Each of 4 ranks holds a quarter of the vocab of [3, 7, 64] logits;
+    ``vocab_parallel_nll``'s loss, nll_sum / count, and its gradient of
+    the rank's slice equal ``lm_loss`` and the matching columns of its
+    gradient on the whole logits.  A backward that summed the gradient
+    over "model", or dropped the gold logit's -1, fails."""
+    from repro_torch.launch import mesh as lm
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import lm_loss
+
+    monkeypatch.setattr(lm, "all_reduce", _thread_all_reduce)
+    n, vocab = 4, 64
+    logits, labels = _nll_inputs(torch.Generator().manual_seed(0), 3, 7,
+                                 vocab, n)
+    whole = logits.clone().requires_grad_()
+    want = lm_loss(whole, labels)
+    (want_g,) = torch.autograd.grad(want, whole)
+    nv = vocab // n
+
+    def rank(axis):
+        x = logits[..., axis.rank * nv:(axis.rank + 1) * nv].clone()
+        x.requires_grad_()
+        nll, count = L.vocab_parallel_nll(x, labels, vocab=vocab, mesh=axis)
+        loss = nll / torch.clamp(count, min=1)
+        (g,) = torch.autograd.grad(loss, x)
+        return loss.detach(), int(count), g
+
+    for r, (loss, count, g) in enumerate(_on_threads(n, rank)):
+        assert count == int((labels >= 0).sum())
+        torch.testing.assert_close(loss, want.detach(), rtol=1e-6, atol=0)
+        scale = float(want_g.abs().max())
+        gap = float((g - want_g[..., r * nv:(r + 1) * nv]).abs().max())
+        assert gap <= 1e-6 * scale, (r, gap, scale)
 
 
 if __name__ == "__main__":
