@@ -220,9 +220,11 @@ Phases (any mismatch raises, so the exit code is non-zero):
      gloo on ("pod", "data", "model") = (2, 2, 2), each running its share
      of the partitioned program (its rows over the data axes, tensor and
      expert parallelism over "model"; see ``phase21_mesh``; 21(f) the
-     hybrid, ssm and enc-dec families; the train steps of (c), (d) and
+     hybrid, ssm and enc-dec families; 21(g) the same eight ranks on
+     ("data", "model") = (1, 8), where recurrentgemma-2b's attention and
+     xlstm-1.3b's mLSTM split head_dim; the train steps of (c), (d) and
      (f) reduce the loss over "model" and gather no logits there;
-     ``python3 chip_smoke.py --phase21 f`` runs a part alone);
+     ``python3 chip_smoke.py --phase21 g`` runs a part alone);
  22. the analysis tools (``repro_torch.launch.{census,dryrun,roofline}``),
      run where phases 12 and 20(a) hold their models, so none is
      initialised again: (a) after 20(a)'s steps, one more train step of
@@ -373,7 +375,7 @@ FAMILIES20 = (("moe", "granite-moe-1b-a400m"), ("vlm", "internvl2-2b"),
 SHAPE20C = {"ssm": (4, 1024)}         # 20(c): B, seq_len (~4,096 tokens; the
 SHAPE20 = (2, 2048)                   # xLSTM's sLSTM loop a step a token)
 MESH21 = (2, 2, 2)                    # 21: ("pod", "data", "model"), gloo
-PARTS21 = "abcdef"                    # 21: every part (--phase21 PARTS: some)
+PARTS21 = "abcdefg"                   # 21: every part (--phase21 PARTS: some)
 CHILD21_S = 600                       # 21: each rank's time limit, s
 BYTES21 = 64 << 20                    # 21(a): the class stream, bytes
 NC21 = (4, 64)                        # 21(a): chunks a data-parallel rank
@@ -388,8 +390,8 @@ DECODE21 = 16                         # 21(b): constrained decode steps (B5)
 MISMATCH21 = (0.05, 3e-2)             # 21(b): the reference test's rule
 #                                       (share of entries, atol)
 ARCH21E = "tinyllama-1.1b"            # 21(e): full width
-LAYERS21E = 4                         # 21(e): its depth (of 22; cut to make
-#                                       room for 21(f))
+LAYERS21E = 3                         # 21(e): its depth (of 22; cut to make
+#                                       room for 21(f) and (g))
 PREFILL21E = (8, 2048)                # 21(e): prompts, tokens (B9, bf16)
 DECODE21E = 8                         # 21(e): constrained steps (B5)
 # 21(e): the prefill's logits against one process, max |gap| over the
@@ -419,32 +421,42 @@ LINE21_TOL = {"loss": 2e-3, "gnorm": 5e-3, "lr": 5e-3}
 F32_21 = {"loss": 1e-4, "gnorm": 1e-4, "leaf": 1e-3}
 # 21(f): the hybrid, ssm and enc-dec families at published widths on the
 # partitioned program, one model at a time, depth cut: recurrentgemma-2b
-# to one stacked (rglru, rglru, attn) group and its 2-block tail (both
-# paths run), xlstm-1.3b to one group (7 mLSTM and its sLSTM),
-# seamless-m4t-medium to 4 encoder and 4 decoder layers
+# to one stacked (rglru, rglru, attn) group and a 1-block tail (both
+# paths run; 5 layers before 21(g) took the room), xlstm-1.3b to one
+# group (7 mLSTM and its sLSTM), seamless-m4t-medium to 4 encoder and 4
+# decoder layers
 FAMILIES21F = (("hybrid", "recurrentgemma-2b"), ("ssm", "xlstm-1.3b"),
                ("encdec", "seamless-m4t-medium"))
-LAYERS21F = {"hybrid": 5, "ssm": 8, "encdec": 4}
-PREFILL21F = {"hybrid": (8, 1024), "ssm": (8, 512), "encdec": (8, 1024)}
+LAYERS21F = {"hybrid": 4, "ssm": 8, "encdec": 4}
+PREFILL21F = {"hybrid": (8, 512), "ssm": (8, 512), "encdec": (8, 1024)}
 DECODE21F = 2                         # 21(f): float32-compute decode steps
 # 21(f): recurrentgemma-2b's tensor-parallel step (rows, tokens; one
-# microbatch) on the same eight ranks as ("data", "model") = (4, 2): on
-# (2, 2, 2) the pods would each hold a quarter of its 256k-vocab embedding
-# and head with their moments (~10 GiB a rank with the step's gathers, an
-# estimate: 8 ranks past one 80 GB card); (4, 2) holds an eighth
+# microbatch) on the same eight ranks as ("data", "model") = (2, 4), where
+# its 10 query heads do not divide 4 and its attention splits head_dim:
+# on (2, 2, 2) the pods would each hold a quarter of its 256k-vocab
+# embedding and head with their moments (~10 GiB a rank with the step's
+# gathers, an estimate: 8 ranks past one 80 GB card); (2, 4) holds an
+# eighth (the (4, 2) layout, heads split, stays held on the CPU by
+# tests/test_torch_tp.py)
 TRAIN21F = (8, 256)
-MESH21F = (4, 2)
-# 21(c), (f): the sharded steps' collectives over "model", [calls, MB, ms]
-# of rank 0, as an earlier run of this script read them with the logits
+MESH21F = (2, 4)
+# 21(g): recurrentgemma-2b and xlstm-1.3b at published widths on the same
+# eight ranks as ("data", "model") = (1, 8): 10 and 4 heads do not divide
+# 8, so the attention (and its ring) and the mLSTM (and its C, n) split
+# head_dim; depth cut to one (rglru, rglru, attn) group and to one group
+# of 7 mLSTM and an sLSTM; each rank all the rows (data = 1)
+MESH21G = (1, 8)
+LAYERS21G = {"hybrid": 3, "ssm": 8}
+PREFILL21G = {"hybrid": (8, 512), "ssm": (8, 512)}
+# 21(c): the sharded step's collectives over "model", [calls, MB, ms] of
+# rank 0, as an earlier run of this script read them with the logits
 # all-gathered over "model" for the loss (NVIDIA H100 80GB HBM3, 700.00
-# W); the vocab-parallel loss reduces [rows, T] floats instead
+# W); the vocab-parallel loss reduces [rows, T] floats instead (21(f)'s
+# step then ran on (4, 2): PERF.md keeps its numbers)
 GATHERED21 = {
     "c": {"all_gather model": [14, 109.707, 503.647],
           "all_reduce model": [20, 33.554, 209.348],
-          "all_to_all model": [24, 805.306, 1624.296]},
-    "f": {"all_gather model": [9, 288.358, 1512.26],
-          "all_reduce model": [27, 141.558, 535.129],
-          "reduce_scatter model": [8, 68.157, 255.593]}}
+          "all_to_all model": [24, 805.306, 1624.296]}}
 RESIDUES = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
 
 # one planted occurrence of every PCRE-14 pattern (re.search-verified)
@@ -4944,6 +4956,107 @@ def phase21f_child(mesh, tmp):
     return rep
 
 
+def cfg21g(family):
+    """The 21(g) config of ``family``: published widths, ``LAYERS21G``
+    layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(dict(FAMILIES21F)[family]),
+                               n_layers=LAYERS21G[family])
+
+
+def state_mb21g(family, cfg, rows, mesh=None):
+    """(MB of the attention blocks' ring or the mLSTM blocks' ``C`` and
+    ``n``, MB of the whole decode state) of ``rows`` rows on a rank of
+    ``mesh`` (``None``: one process)."""
+    from repro_torch.models import recurrent as RG
+    from repro_torch.models import xlstm as XL
+    init = (RG.init_hybrid_state if family == "hybrid"
+            else XL.init_xlstm_state)
+    split = total = 0
+    for path, leaf in _flat21(init(cfg, rows, device="meta",
+                                   mesh=mesh)).items():
+        nb = leaf.numel() * leaf.element_size()
+        total += nb
+        if any(k.endswith(("_attn", "_mlstm")) for k in path):
+            split += nb
+    return split / 1e6, total / 1e6
+
+
+def phase21g_references(tmp, rng):
+    """21(g)'s one-process card runs, in this process: each family's
+    inputs (``inputs21g.npz``), its ``serve21f`` logits and peak memory,
+    and its decode state's MB."""
+    import torch
+    from repro_torch.models import api
+
+    ref, inputs = {}, {}
+    for family in LAYERS21G:
+        cfg = cfg21g(family)
+        b, t = PREFILL21G[family]
+        inputs[f"{family}_tokens"] = rng.integers(
+            0, cfg.vocab_size, size=(b, t)).astype(np.int32)
+        inputs[f"{family}_decode"] = rng.integers(
+            0, cfg.vocab_size, size=(b, DECODE21F)).astype(np.int32)
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        params = api.init(cfg, SEED, device=DEVICE)
+        logits, secs, _, _ = serve21f(family, params, cfg, inputs)
+        ref[f"g_{family}"] = logits
+        ref[f"g_{family}_s"] = secs
+        ref[f"g_{family}_peak_gib"] = peak21()
+        ref[f"g_{family}_state_mb"] = state_mb21g(family, cfg, b)
+        del params
+    np.savez(os.path.join(tmp, "inputs21g.npz"), **inputs)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return ref
+
+
+def phase21g_child(tmp):
+    """(g) recurrentgemma-2b and xlstm-1.3b at published widths
+    (``LAYERS21G`` layers) on ("data", "model") = ``MESH21G``, one model
+    at a time (``serve21f``): 10 and 4 heads do not divide 8, so each
+    rank computes the attention's and the mLSTM's head_dim / 8 columns
+    of every head and keeps that block of the ring and of ``C``/``n``;
+    the peaks, collectives, launches and state MB of each."""
+    import torch
+    from repro_torch.distributed import sharding as shr
+    from repro_torch.launch import mesh as lm
+    from repro_torch.models import api
+
+    gmesh = lm.make_mesh(MESH21G, ("data", "model"),
+                         device=None if DEVICE == "cuda" else DEVICE)
+    inputs = dict(np.load(os.path.join(tmp, "inputs21g.npz")))
+    m, r = gmesh.axis_size("model"), gmesh.coordinate("model")
+    rep = {}
+    for family in LAYERS21G:
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        cfg = cfg21g(family)
+        hd = cfg.hd if family == "hybrid" else cfg.d_model // cfg.n_heads
+        params, init_s = synced(lambda: api.init(
+            cfg, SEED, device=gmesh.device, keep=shr.param_keep(gmesh)))
+        logits, secs, launches, stats = serve21f(family, params, cfg,
+                                                 inputs, gmesh)
+        if r == 0:
+            np.savez(os.path.join(tmp, f"g21_{family}.npz"), **logits)
+        b = PREFILL21G[family][0]
+        rows = b // shr.dp_parts(gmesh, b)
+        rep[family] = {"init_s": init_s, "s": secs, "launches": launches,
+                       "stats": stats, "peak_gib": peak21(),
+                       "head_dim": shr.model_head_dim(cfg.n_heads, hd, m, r),
+                       "state_mb": state_mb21g(family, cfg, rows, gmesh),
+                       "argmax": {k: v.argmax(-1).tolist()
+                                  for k, v in logits.items()}}
+        del params, logits
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return rep
+
+
 def phase21_child(argv):
     """One rank of phase 21's world (``python3 chip_smoke.py
     --phase21-child rank world store tmp [parts]``): eight processes share
@@ -4975,18 +5088,19 @@ def phase21_child(argv):
                 ("b", lambda: phase21b_child(mesh, tmp)),
                 ("c", lambda: phase21c_child(mesh, tmp)),
                 ("e", lambda: phase21e_child(mesh, tmp)),
-                ("f", lambda: phase21f_child(mesh, tmp)))
+                ("f", lambda: phase21f_child(mesh, tmp)),
+                ("g", lambda: phase21g_child(tmp)))
         for part, fn in ((p, fn) for p, fn in runs if p in parts):
             before = all_launches()
             t0 = time.perf_counter()
             rep[part] = fn()
             rep[part]["wall_s"] = time.perf_counter() - t0
             rep[part]["launches_total"] = launch_delta(before)
-        # (c), (e) and (f) restart the peak's count: the rank's peak is
-        # the largest
+        # (c), (e), (f) and (g) restart the peak's count: the rank's peak
+        # is the largest
         rep["peak_gib"] = max(
             [peak21()] + [rep[p]["peak_gib"] for p in "ce" if p in rep]
-            + [v["peak_gib"] for v in rep.get("f", {}).values()
+            + [v["peak_gib"] for p in "fg" for v in rep.get(p, {}).values()
                if isinstance(v, dict) and "peak_gib" in v])
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
             json.dump(rep, fh)
@@ -5099,6 +5213,8 @@ def phase21_references(tmp, rng, parts=PARTS21):
             torch.cuda.empty_cache()
     if "f" in parts:
         ref.update(phase21f_references(tmp, rng))
+    if "g" in parts:
+        ref.update(phase21g_references(tmp, rng))
     return ref
 
 
@@ -5171,8 +5287,10 @@ def phase21_mesh(counts, parts=PARTS21):
     granite-moe-1b-a400m under tensor and expert parallelism, (c) sharded
     training, (e) tinyllama-1.1b served at full width on the
     partitioned program, (f) the hybrid, ssm and enc-dec families on it,
-    then (d) the launcher on a (2, 2) mesh.  ``parts``: the parts to run
-    (``python3 chip_smoke.py --phase21 f`` runs (f) alone)."""
+    (g) recurrentgemma-2b and xlstm-1.3b on ("data", "model") = (1, 8),
+    split on head_dim, then (d) the launcher on a (2, 2) mesh.
+    ``parts``: the parts to run (``python3 chip_smoke.py --phase21 g``
+    runs (g) alone)."""
     import shutil
     import tempfile
 
@@ -5196,8 +5314,8 @@ def phase21_mesh(counts, parts=PARTS21):
               f"(granite-moe-1b-a400m prefill {PREFILL21}, generate, a "
               f"train step at {TRAIN21[3]} layers; {ARCH21E} prefill "
               f"{PREFILL21E} and generate; {archs} served, "
-              f"recurrentgemma-2b's step) in "
-              f"{time.perf_counter() - t0:.1f} s")
+              f"recurrentgemma-2b's step; (g)'s two at "
+              f"{LAYERS21G} layers) in {time.perf_counter() - t0:.1f} s")
         n = int(np.prod(MESH21))
         logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
                 for r in range(n)]
@@ -5412,6 +5530,92 @@ def phase21f_report(reps, ref, tmp):
           f"(bound {F32_21['leaf']})")
 
 
+def phase21g_report(reps, ref, tmp):
+    """Print and check 21(g): on every rank the rules split each family's
+    attention or mLSTM on head_dim (``sharding.model_head_dim``), its ring
+    or ``C``/``n`` is 1 / m of one process's, and no part launched B9 (the
+    split prefill takes the blockwise route, ``layers._kernel_route``);
+    the float32-compute prefill and decode logits within ``F32_21E`` of
+    one process's largest |logit|, argmax equal on every rank; the bf16
+    prefill within ``BF16_21E``."""
+    m = MESH21G[1]
+    parts = ("bf16", "f32", "decode")
+    for family in LAYERS21G:
+        arch = dict(FAMILIES21F)[family]
+        want = ref[f"g_{family}"]
+        got = np.load(os.path.join(tmp, f"g21_{family}.npz"))
+        gaps = {}
+        for part in parts:
+            scale = float(np.abs(want[part]).max())
+            gaps[part] = (float(np.abs(got[part] - want[part]).max()), scale)
+        one_split, one_total = ref[f"g_{family}_state_mb"]
+        for r in reps:
+            g = r["g"][family]
+            check(g["head_dim"] is not None, f"[21g] {arch} rank "
+                  f"{r['rank']}: the rules do not split head_dim on "
+                  f"{MESH21G}")
+            for part in ("f32", "decode"):
+                check(np.array_equal(np.array(g["argmax"][part]),
+                                     want[part].argmax(-1)),
+                      f"[21g] {arch} rank {r['rank']}: {part} argmax "
+                      f"differs from one process's")
+            b9 = [g["launches"][p].get("flash_attn", 0) for p in parts]
+            check(b9 == [0, 0, 0], f"[21g] {arch} rank {r['rank']}: B9 "
+                  f"launches {b9} (bf16 prefill, float32 prefill, decode)")
+            check(np.isclose(g["state_mb"][0] * m, one_split),
+                  f"[21g] {arch} rank {r['rank']}: its split state "
+                  f"{g['state_mb'][0]} MB is not 1/{m} of one process's "
+                  f"{one_split} MB")
+        g0 = reps[0]["g"][family]
+        b, t = PREFILL21G[family]
+        what = "ring (k, v)" if family == "hybrid" else "C and n"
+        print(f"[21g] {arch}, published widths, {LAYERS21G[family]} "
+              f"layers, prompts ({b}, {t}) on ('data', 'model') = "
+              f"{MESH21G}: head_dim columns a rank "
+              + ", ".join(f"{r['rank']}: {r['g'][family]['head_dim']}"
+                          for r in reps) + f"; init {g0['init_s']:.2f} s")
+        print(f"[21g] {arch} decode state a rank, MB (its {what} / the "
+              f"whole state): one process {one_split:.3f} / "
+              f"{one_total:.3f}; a rank " + ", ".join(
+                  f"{r['rank']}: {r['g'][family]['state_mb'][0]:.3f} / "
+                  f"{r['g'][family]['state_mb'][1]:.3f}" for r in reps))
+        print(f"[21g] {arch} attention route: blockwise (a head_dim split "
+              f"never takes B9, layers._kernel_route); B9 launches a rank "
+              f"(bf16 prefill, float32 prefill, decode) " + ", ".join(
+                  f"{r['rank']}: " + "/".join(
+                      str(r["g"][family]["launches"][p].get("flash_attn",
+                                                            0))
+                      for p in parts) for r in reps))
+        print(f"[21g] {arch} bf16 prefill "
+              f"{min(r['g'][family]['s']['bf16'] for r in reps):.3f}-"
+              f"{max(r['g'][family]['s']['bf16'] for r in reps):.3f} s a "
+              f"rank (one process {ref[f'g_{family}_s']['bf16']:.3f}), "
+              f"max |gap| {gaps['bf16'][0]:.4e} of |max| "
+              f"{gaps['bf16'][1]:.3f} "
+              f"({gaps['bf16'][0] / gaps['bf16'][1]:.3e}; bound "
+              f"{BF16_21E}); float32 prefill {g0['s']['f32']:.3f} s "
+              f"(rank 0), max |gap| {gaps['f32'][0]:.4e} "
+              f"({gaps['f32'][0] / gaps['f32'][1]:.3e}); {DECODE21F} "
+              f"float32 decode steps {g0['s']['decode']:.3f} s (rank 0), "
+              f"max |gap| {gaps['decode'][0]:.4e} "
+              f"({gaps['decode'][0] / gaps['decode'][1]:.3e}); bound "
+              f"{F32_21E}, argmax equal on {len(reps)} ranks")
+        print(f"[21g] {arch} collectives [calls, MB, ms, largest MB] "
+              f"(rank 0): " + "; ".join(f"{p}: {g0['stats'][p]}"
+                                        for p in parts))
+        print(f"[21g] {arch} peak memory, GiB: one process "
+              f"{ref[f'g_{family}_peak_gib']:.2f}; a rank " + ", ".join(
+                  f"{r['rank']}: {r['g'][family]['peak_gib']:.2f}"
+                  for r in reps) + f" (m = {m})")
+        for part in parts:
+            bound = BF16_21E if part == "bf16" else F32_21E
+            check(np.isfinite(got[part]).all()
+                  and gaps[part][0] <= bound * gaps[part][1],
+                  f"[21g] {arch} {part} logits: max |gap| {gaps[part][0]} "
+                  f"of |max| {gaps[part][1]} against one process (bound "
+                  f"{bound} of it)")
+
+
 def phase21a_report(reps, oracle_states):
     """Print and check 21(a): the stream's final states against
     ``dfa.run``, the merge tiers, the int8 pod mean, the pipeline."""
@@ -5571,9 +5775,11 @@ def phase21_report(reps, ref, oracle_states, after, tmp, counts,
         phase21e_report(reps, ref, tmp)
     if "f" in parts:
         phase21f_report(reps, ref, tmp)
+    if "g" in parts:
+        phase21g_report(reps, ref, tmp)
     print("[21] peak memory a rank (GiB): " + ", ".join(
         f"{r['rank']}: {r['peak_gib']:.2f}" for r in reps))
-    ran = [p for p in "abcef" if p in parts]
+    ran = [p for p in "abcefg" if p in parts]
     print(f"[21] each rank's ({'), ('.join(ran)}) in s: " + ", ".join(
         f"{r['rank']}: " + "/".join(f"{r[p]['wall_s']:.1f}" for p in ran)
         for r in reps))
@@ -5583,11 +5789,12 @@ def phase21_report(reps, ref, oracle_states, after, tmp, counts,
             for k, v in rep[part]["launches_total"].items():
                 total[k] = total.get(k, 0) + v
     # the kernels each part launches: (a) B6, B8 + B7, (b) B5, (c) and
-    # (f) B1 (the filtered stream), (e) B9 and B5, (f) B9
+    # (f) B1 (the filtered stream), (e) B9 and B5, (f) B9; (g) none (its
+    # head_dim split prefill is blockwise)
     need = {"a": ("spec_match", "lvec_compose", "onehot_block_maps"),
             "b": ("token_mask",), "c": ("spec_match_merge",),
             "e": ("token_mask", "flash_attn"),
-            "f": ("spec_match_merge", "flash_attn")}
+            "f": ("spec_match_merge", "flash_attn"), "g": ()}
     for name in sorted({k for p in ran for k in need[p]}):
         check(total.get(name, 0) > 0, f"[21] the world launched no "
               f"{name}: {total}")

@@ -20,7 +20,8 @@ They read only the mesh's axis names and extents (a ``launch.mesh
 .MeshLayout`` will do).  ``model_heads``, ``model_vocab``, ``model_span``
 and ``dp_rows`` say which heads, vocab rows, channels and batch rows a
 rank computes with under them (the partitioned program of ``models`` and
-``models.api``).  ``named`` pairs each spec with its mesh, as
+``models.api``).  ``model_head_dim`` says which head_dim columns a rank computes with where
+a layer's heads do not divide "model".  ``named`` pairs each spec with its mesh, as
 ``distributed.fault_tolerance.reshard_tree`` and ``training.checkpoint
 .restore_checkpoint(shardings=)`` take them.
 
@@ -39,8 +40,8 @@ __all__ = ["param_specs", "opt_state_specs", "batch_specs", "cache_specs",
            "STACK_KEYS", "MOE_EXPERT_KEYS",
            "matcher_table_specs", "matcher_chunk_specs", "matcher_lane_specs",
            "doc_batch_spec", "local_slices", "leaf_placements",
-           "param_keep", "model_heads", "model_vocab", "model_span",
-           "dp_parts", "dp_rows"]
+           "param_keep", "model_heads", "model_head_dim", "model_vocab",
+           "model_span", "dp_parts", "dp_rows"]
 
 STACK_KEYS = {"layers", "groups", "enc", "dec"}
 MOE_EXPERT_KEYS = {"wi_gate", "wi_up", "wo"}
@@ -308,6 +309,21 @@ def model_heads(n_heads: int, n_kv: int, model: int,
     if group % nq == 0:
         return q0, nq, q0 // group, 1
     return None
+
+
+def model_head_dim(n_heads: int, head_dim: int, model: int,
+                   rank: int) -> tuple[int, int] | None:
+    """``(h0, nh)``: the head_dim columns ``[h0, h0 + nh)`` of every head
+    that rank ``rank`` of a ``model``-way "model" axis holds where
+    ``param_specs`` splits an attention or mLSTM layer's ``wq``/``wk``/
+    ``wv`` ``[D, N, H]`` and ``wo`` ``[N, H, D]`` on H: its ``n_heads``
+    query heads do not divide the axis and ``head_dim`` does
+    (``state_specs`` and ``cache_specs`` then split the layer's state and
+    cache on their last dim the same way).  ``None`` where the rules split
+    the heads, or keep the leaves whole."""
+    if model <= 1 or (n_heads % model == 0 and n_heads >= model):
+        return None
+    return model_span(head_dim, model, rank)
 
 
 def model_span(n: int, model: int, rank: int) -> tuple[int, int] | None:

@@ -16,9 +16,12 @@ compiles each cell on 512 forced host devices.  Per cell this driver
      port's steps take the whole batch's tokens on every rank (SPMD) and
      cut this rank's rows themselves, as ``batch_specs`` places them; a
      decode cell's cache or state is this rank's own (its rows and its
-     part over "model": the kv heads of ``transformer.cache_heads``, the
-     RG-LRU's and the sLSTM's channels, the mLSTM's heads of
-     ``xlstm.state_heads``), as the prefill leaves it.  Every family
+     part over "model": the block of ``transformer.cache_block``, the
+     kv heads its query heads read or, where the heads do not divide
+     "model", every kv head's head_dim / m columns; the RG-LRU's and the
+     sLSTM's channels; the mLSTM's block of ``xlstm.state_block``, its
+     heads or its ``C``'s and ``n``'s head_dim / m columns), as
+     ``state_specs`` and the prefill leave it.  Every family
      traces its tensor-parallel program over "model";
   3. runs one *production* step on them inside ``launch.census
      .trace_census``: ``training.make_train_step(cfg, mesh, opts)`` for

@@ -21,14 +21,15 @@ each rank has its own card (``init_process_group("nccl")``), gloo on the
 CPU and where ranks share one card (NCCL refuses two ranks on one device).
 A mesh keeps every tensor on the rank's own device (``LMMesh.device``).
 Its collectives (``all_gather``, ``all_reduce``, ``reduce_scatter``,
-``all_to_all``, ``permute``) take the tensors where they are; over gloo a
+``all_to_all``, its uneven ``all_to_all_v``, ``permute``) take the
+tensors where they are; over gloo a
 device tensor is staged through host memory (copied to the host,
 exchanged, copied back), over NCCL the exchange runs on the card.  A
 collective over an axis of one rank moves nothing.  The collectives inside
 a differentiated region are ``torch.autograd.Function``s whose backward is
 the adjoint collective (``gather_shards``, ``split``, ``gather``,
-``exchange``, ``sum_grads``, ``reduce_parts``, ``scatter_parts``,
-``replica_mean``).  Tensor parallelism over "model" takes four of them:
+``exchange``, ``exchange_v``, ``sum_grads``, ``reduce_parts``,
+``scatter_parts``, ``replica_mean``).  Tensor parallelism over "model" takes four of them:
 ``sum_grads`` at a column-parallel product's input (identity forward, sum
 backward), ``reduce_parts`` at a row-parallel product's output (sum
 forward, identity backward), ``scatter_parts`` where that output stays
@@ -70,8 +71,9 @@ __all__ = ["make_matcher_mesh", "factor_matcher_mesh", "matcher_mesh_extents",
            "mesh_coordinate", "mesh_group", "all_gather_rows",
            "GROUP_TIMEOUT", "MeshLayout", "LMMesh", "make_mesh",
            "make_production_mesh", "make_local_mesh", "all_gather",
-           "all_reduce", "reduce_scatter", "all_to_all", "permute",
-           "gather_shards", "split", "gather", "exchange", "sum_grads",
+           "all_reduce", "reduce_scatter", "all_to_all", "all_to_all_v",
+           "permute", "gather_shards", "split", "gather", "exchange",
+           "exchange_v", "sum_grads",
            "reduce_parts", "scatter_parts", "replica_mean", "MESH_STATS",
            "reset_mesh_stats", "time_collectives", "lm_mesh_of",
            "whole_on_host", "barrier"]
@@ -609,6 +611,26 @@ def all_to_all(x: torch.Tensor, mesh: LMMesh, axis: str, split_dim: int,
                      dim=concat_dim)
 
 
+def all_to_all_v(x: torch.Tensor, mesh: LMMesh, axis: str, send,
+                 recv) -> torch.Tensor:
+    """An all-to-all of uneven parts over one axis, along dim 0: the first
+    ``send[0]`` rows of ``x`` go to rank 0, the next ``send[1]`` to rank 1
+    and so on; ``recv[j]`` rows come from rank j, concatenated in rank
+    order."""
+    group = mesh.group(axis)
+    if group is None:
+        return x
+    with _Timed("all_to_all", x, axis):
+        src, staged = _staged(mesh, _raw(x))
+        out = torch.empty((sum(recv), *src.shape[1:]), dtype=src.dtype,
+                          device=src.device)
+        dist.all_to_all_single(out, src, output_split_sizes=list(recv),
+                               input_split_sizes=list(send), group=group)
+        out = out.to(x.device) if staged else out
+    _counted("all-to-all", out, group, axis)
+    return out.view(x.dtype)
+
+
 def permute(x: torch.Tensor, mesh: LMMesh, axis: str,
             shift: int = 1) -> torch.Tensor:
     """``jax.lax.ppermute`` with pairs (i, i + shift): each rank sends ``x``
@@ -739,6 +761,27 @@ def exchange(x: torch.Tensor, mesh: LMMesh, axis: str, split_dim: int,
     if mesh.axis_size(axis) == 1:
         return x
     return _Exchange.apply(x, mesh, axis, split_dim, concat_dim)
+
+
+class _ExchangeV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, send, recv):
+        ctx.args = (mesh, axis, recv, send)
+        return all_to_all_v(x, mesh, axis, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_to_all_v(g.contiguous(), *ctx.args), None, None, None,
+                None)
+
+
+def exchange_v(x: torch.Tensor, mesh: LMMesh, axis: str, send,
+               recv) -> torch.Tensor:
+    """``all_to_all_v``, differentiable: the backward sends each row's
+    gradient back to the rank it came from."""
+    if mesh.axis_size(axis) == 1:
+        return x
+    return _ExchangeV.apply(x, mesh, axis, tuple(send), tuple(recv))
 
 
 class _SumGrads(torch.autograd.Function):

@@ -31,14 +31,18 @@ gathered over those axes.  Every family runs tensor parallelism over
 "model" (heads, hidden width and vocab; the MoE layers' experts under
 expert parallelism; the RG-LRU's and the sLSTM's channels, the mLSTM's
 heads), each layer gathering its leaves over "data" just before use
-(FSDP) and keeping its "model" shard.  A cache or state holds the rank's
-rows and its part over "model": the kv heads its query heads read
-(``transformer.cache_heads``: the transformer's and the enc-dec decoder's
-cache, the hybrid's ring), the RG-LRU's d_rnn / m and the sLSTM's D / m
-channels, the mLSTM's heads (``xlstm.state_heads``).  Where a layer's
-heads do not divide "model", its leaves are made whole over "model" and
-every rank computes every head (``layers._model_parallel``, the mLSTM's
-head_dim split).
+(FSDP) and keeping its "model" shard.  Where a layer's heads do not
+divide "model" and its head_dim does (recurrentgemma-2b's attention and
+xlstm-1.3b's mLSTM at m = 16), the rules split its leaves on head_dim and
+the rank computes with its head_dim / m columns of every head
+(``sharding.model_head_dim``; ``layers._model_parallel``, the mLSTM's
+``xlstm._mlstm_head_dim``).  A cache or state holds the rank's rows and
+its part over "model" (``transformer.cache_block``: the transformer's and
+the enc-dec decoder's cache, the hybrid's ring; ``xlstm.state_block``):
+the kv heads its query heads read, or every kv head's head_dim / m
+columns where the heads do not divide "model"; the RG-LRU's d_rnn / m
+and the sLSTM's D / m channels; the mLSTM's heads, or its ``C``'s value
+columns and ``n``'s key columns, as ``state_specs`` places them.
 """
 
 from __future__ import annotations
@@ -352,8 +356,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec, mesh=None) -> dict:
     if mesh is not None:
         from ..distributed.sharding import dp_parts
         rows = b // dp_parts(mesh, b)
-    cshape = (cfg.n_layers, rows, shape.seq_len, TF.cache_heads(cfg, mesh),
-              cfg.hd)
+    cshape = (cfg.n_layers, rows, shape.seq_len, *TF.cache_block(cfg, mesh))
     if cfg.family in ("dense", "moe", "vlm", "encdec"):
         out["cache"] = {"k": TensorSpec(cshape, Compute),
                         "v": TensorSpec(cshape, Compute)}

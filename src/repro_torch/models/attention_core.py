@@ -14,6 +14,10 @@ computes something else numerically.
 
 Decode (short query) takes the direct path: scores are [.., t, S] with
 t <= 16.
+
+V may hold fewer dims than Q and K (a rank's head_dim columns of V, where
+the heads do not divide the "model" axis): the products then give those
+columns of every head's output, and the scale stays that of Q's head_dim.
 """
 
 from __future__ import annotations
@@ -39,11 +43,22 @@ def _block_mask(q_pos, k_pos, *, causal: bool, window: int, kv_valid):
 
 
 def direct_attention(q, k, v, *, q_offset=0, causal=True, window: int = 0,
-                     kv_valid=None):
-    """q [b,t,n_kv,g,h]; k,v [b,s,n_kv,h] -> [b,t,n_kv,g,h]."""
+                     kv_valid=None, head_dim: int = 0, reduce=None):
+    """q [b,t,n_kv,g,h]; k [b,s,n_kv,h]; v [b,s,n_kv,hv] -> [b,t,n_kv,g,hv].
+
+    ``reduce`` (q and k holding a part of each head's dims, ``head_dim``
+    the whole head's): the float32 partial scores of that part are
+    ``reduce``-d into the whole scores (a sum over the parts), rounded once
+    to q's dtype as one product of the whole dims would be, and scaled by
+    ``head_dim ** -0.5``."""
     b, t, n_kv, g, h = q.shape
     s = k.shape[1]
-    logits = torch.einsum("btkgh,bskh->bkgts", q, k).float() * h ** -0.5
+    if reduce is None:
+        logits = torch.einsum("btkgh,bskh->bkgts", q, k).float()
+    else:
+        logits = reduce(torch.einsum("btkgh,bskh->bkgts", q.float(),
+                                     k.float())).to(q.dtype).float()
+    logits = logits * (head_dim or h) ** -0.5
     q_pos = torch.arange(t, device=q.device) + q_offset
     k_pos = torch.arange(s, device=q.device)
     ok = _block_mask(q_pos, k_pos, causal=causal, window=window,
@@ -108,8 +123,8 @@ def flash_attention(q, k, v, *, q_offset=0, causal=True, window: int = 0,
                        device=q.device)
         l = torch.zeros((b, n_kv, g, q_block), dtype=torch.float32,
                         device=q.device)
-        acc = torch.zeros((b, n_kv, g, q_block, h), dtype=q.dtype,
-                          device=q.device)
+        acc = torch.zeros((b, n_kv, g, q_block, v.shape[-1]),
+                          dtype=q.dtype, device=q.device)
         for j in range(j_lo, j_hi + 1):
             kj = k[:, j * kv_block:(j + 1) * kv_block]
             vj = v[:, j * kv_block:(j + 1) * kv_block]

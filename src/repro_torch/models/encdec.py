@@ -18,7 +18,9 @@ On an LM mesh (``mesh=``) every layer runs tensor parallelism over its
 head), with the shards ``distributed.sharding.param_specs`` gives a rank
 there.  Cross-attention splits its heads too: every rank holds the
 encoder memory whole and projects the K/V of its own heads from it.  The
-decoder's cache holds the rank's kv heads (``transformer.cache_heads``).
+decoder's cache holds the rank's block (``transformer.cache_block``):
+the kv heads its query heads read, or, where the heads do not divide
+"model", every kv head's head_dim / m columns.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import layers as L
-from .transformer import attn_heads, cache_heads, embed_tokens, model_axis
+from .transformer import attn_heads, cache_block, embed_tokens, model_axis
 
 __all__ = ["init_encdec", "forward_encdec", "encode", "init_encdec_cache",
            "decode_step_encdec"]
@@ -178,9 +180,9 @@ def forward_encdec(params: dict, cfg: ModelConfig, frames: torch.Tensor,
 
 def init_encdec_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                       device, mesh=None) -> dict:
-    """A zero decoder cache [L, batch, max_len, K, H]; on ``mesh`` K is the
-    kv heads this rank computes with (``transformer.cache_heads``)."""
-    shape = (cfg.n_layers, batch, max_len, cache_heads(cfg, mesh), cfg.hd)
+    """A zero decoder cache [L, batch, max_len, K, H]; on ``mesh`` (K, H)
+    is this rank's block (``transformer.cache_block``)."""
+    shape = (cfg.n_layers, batch, max_len, *cache_block(cfg, mesh))
     return {"k": torch.zeros(shape, dtype=L.Compute, device=device),
             "v": torch.zeros(shape, dtype=L.Compute, device=device)}
 

@@ -16,8 +16,10 @@ Tensor parallelism.  Given an LM mesh's "model" axis (``mesh=``),
 ``attention``, ``swiglu_mlp``, ``embed_tp`` and ``logits_tp`` compute with
 the shards ``distributed.sharding.param_specs`` gives a rank on that axis
 (Megatron's layout, which the reference's GSPMD program takes from the same
-rules): query heads and ``wo``'s rows, the MLP's hidden columns and ``wo``'s
-rows, the vocab rows of the table and head.  A column-parallel product's
+rules): query heads and ``wo``'s rows (where the query heads do not divide
+"model", every head's head_dim columns, ``attention``), the MLP's hidden
+columns and ``wo``'s rows, the vocab rows of the table and head.  A
+column-parallel product's
 input passes ``launch.mesh.sum_grads`` and a row-parallel output
 ``launch.mesh.reduce_parts`` (one sum over "model"); vocab-parallel logits
 stay each rank's slice: serving gathers them (``whole_vocab``) and the
@@ -45,7 +47,7 @@ __all__ = [
     "truncated_normal", "stack_trees", "index_tree", "unstack_tree",
     "remat", "remat_all", "REMAT_POLICIES", "sigmoid", "silu", "gelu",
     "keep_tree", "embed_tp", "logits_tp", "whole_vocab",
-    "vocab_parallel_nll", "model_size",
+    "vocab_parallel_nll", "model_size", "head_dim_rope", "model_scores",
 ]
 
 Compute = torch.bfloat16
@@ -312,18 +314,23 @@ def init_kv_cache_layer(batch: int, n_kv: int, max_len: int, head_dim: int,
 ATTN_ROUTES = ("auto", "kernel", "blockwise")
 
 
-def _kernel_route(x, attn_route: str) -> bool:
+def _kernel_route(x, attn_route: str, head_dim_split: bool = False) -> bool:
     """Whether a full-prompt prefill takes the fused kernel B9.
 
     ``"auto"`` (default) takes B9 for CUDA tensors (and a trace of the
     card's program, ``kernels.census_hooks.on_card``) and the blockwise
     torch path otherwise; ``"kernel"`` forces B9's route, which on CPU
     tensors runs B9's plain version (as the JAX package's interpret mode
-    does); ``"blockwise"`` never takes it.
+    does); ``"blockwise"`` never takes it.  A layer split on head_dim over
+    "model" (``head_dim_split``) takes the blockwise path on every route:
+    B9 takes one head_dim for q, k and v, and the rank's v holds H / m of
+    it.
     """
     if attn_route not in ATTN_ROUTES:
         raise ValueError(f"attn_route must be one of {ATTN_ROUTES}, got "
                          f"{attn_route!r}")
+    if head_dim_split:
+        return False
     return attn_route == "kernel" or (attn_route == "auto" and on_card(x))
 
 
@@ -347,26 +354,44 @@ def attention(p, x, *, positions, rope_theta: float, window: int = 0,
 
     ``mesh`` (an LM mesh's "model" axis) with ``heads`` = (n_heads, n_kv,
     head_dim), the layer's whole counts: tensor parallelism where ``p``'s
-    leaves are this rank's shards (``_model_parallel``): the rank computes
-    its query heads against the kv heads they read, and the cache holds
-    those kv heads only.  Cross-attention splits the same way: ``memory``
-    is whole on every rank, and the rank projects the K/V of its heads
-    from it.
+    leaves are this rank's shards (``_model_parallel``).  Where the rules
+    split the heads, the rank computes its query heads against the kv
+    heads they read, and the cache holds those kv heads only.  Where they
+    split head_dim (the heads do not divide "model"), the rank computes
+    its H / m columns of every head's values and output, and the cache
+    holds those columns of k and v (``cache_specs``' block): a prompt
+    from position 0 (T > 1) makes ``wq``/``wk`` whole and scores q . k
+    whole on every rank; a decode step scores the rank's columns against
+    its cache and sums the partial scores over "model"
+    (``_partial_score_attention``).  Cross-attention splits the same way:
+    ``memory`` is whole on every rank, and the rank projects its part of
+    the K/V from it.
     """
     from ..kernels import ops as kops
 
-    split = False
+    mode = None
     if model_size(mesh) > 1:
-        p, split = _model_parallel(p, heads, mesh)
-        if split:
-            from ..launch import mesh as lm
+        from ..launch import mesh as lm
+        p, mode = _model_parallel(p, heads, mesh)
+        if mode is not None:
             x = lm.sum_grads(x, mesh, "model")
             if memory is not None:
                 memory = lm.sum_grads(memory, mesh, "model")
     b, t, d = x.shape
-    q = torch.einsum("btd,dnh->btnh", x, p["wq"].to(Compute))
+    split_hd = mode == "head_dim"
+    if split_hd and not (t > 1 and (cache is None or cache_index == 0)):
+        out = _partial_score_attention(
+            p, x, heads=heads, mesh=mesh, positions=positions,
+            rope_theta=rope_theta, window=window, cache=cache,
+            cache_index=cache_index, memory=memory, causal=causal)
+        return lm.reduce_parts(out, mesh, "model"), cache
+    wq, wk = p["wq"], p["wk"]
+    if split_hd:                  # q and k whole, v the rank's columns
+        wq, wk = (lm.gather_shards(w, mesh, [("model", 2)],
+                                   summed=("model",)) for w in (wq, wk))
+    q = torch.einsum("btd,dnh->btnh", x, wq.to(Compute))
     src = memory if memory is not None else x
-    k = torch.einsum("bsd,dkh->bskh", src, p["wk"].to(Compute))
+    k = torch.einsum("bsd,dkh->bskh", src, wk.to(Compute))
     v = torch.einsum("bsd,dkh->bskh", src, p["wv"].to(Compute))
     if memory is None:
         q = rope(q, positions, rope_theta)
@@ -375,7 +400,13 @@ def attention(p, x, *, positions, rope_theta: float, window: int = 0,
 
     kv_valid = None
     q_offset = 0
-    if cache is not None:
+    if cache is not None and split_hd:
+        # a prompt from position 0: it attends to its own keys, whole here;
+        # the cache keeps the rank's columns of them
+        cache["k"][:, :t] = k.narrow(-1, mesh.coordinate("model")
+                                     * v.shape[-1], v.shape[-1])
+        cache["v"][:, :t] = v
+    elif cache is not None:
         cache["k"][:, cache_index:cache_index + t] = k
         cache["v"][:, cache_index:cache_index + t] = v
         k, v = cache["k"], cache["v"]
@@ -388,7 +419,7 @@ def attention(p, x, *, positions, rope_theta: float, window: int = 0,
     hd = q.shape[-1]
     qg = q.reshape(b, t, n_kv, group, hd)
     if cache is not None and t > 16 and t == k.shape[1] \
-            and _kernel_route(x, attn_route):
+            and _kernel_route(x, attn_route, split_hd):
         # prefill: the full prompt, kv_valid == t, so the kernel mask is
         # exact; kv heads go over unrepeated, head h reading kv head h // g
         qf = qg.permute(0, 2, 3, 1, 4).reshape(b * n_heads, t, hd)
@@ -404,32 +435,100 @@ def attention(p, x, *, positions, rope_theta: float, window: int = 0,
     else:
         ctx = direct_attention(qg, k, v, q_offset=q_offset, causal=causal,
                                window=window, kv_valid=kv_valid)
-    ctx = ctx.reshape(b, t, n_heads, hd)
+    ctx = ctx.reshape(b, t, n_heads, -1)
     out = torch.einsum("btnh,nhd->btd", ctx, p["wo"].to(Compute))
-    if split:
-        from ..launch import mesh as lm
+    if mode is not None:
         out = lm.reduce_parts(out, mesh, "model")
     return out, cache
 
 
-def _model_parallel(p, heads: tuple, mesh) -> tuple[dict, bool]:
-    """(the attention leaves this rank computes with, whether its output
-    is a part to sum over "model").
+def head_dim_rope(x, positions, theta: float, mesh):
+    """``rope`` of this rank's head_dim columns ``x`` [..., T, N, H / m] of
+    a layer split on head_dim over "model": rotate-half pairs column i
+    with i + H / 2, which another rank holds, so the columns are gathered
+    over "model" (a decode step's one token), rotated whole and cut back
+    to the rank's.  The gathered columns' gradient is summed over "model"
+    (each rank's rotated columns read its partner's)."""
+    from ..launch import mesh as lm
+    n = x.shape[-1]
+    whole = lm.gather_shards(x, mesh, [("model", x.dim() - 1)],
+                             summed=("model",))
+    return rope(whole, positions, theta).narrow(
+        -1, mesh.coordinate("model") * n, n)
 
-    Where ``wq`` holds this rank's query heads and they fill whole kv
-    groups or fall within one (``sharding.model_heads``), ``wq`` and
+
+def model_scores(partial, mesh):
+    """Partial float32 scores of each rank's head_dim columns summed over
+    "model" into the whole scores; their gradient is summed over "model"
+    as well, since each rank's value columns read the whole scores."""
+    from ..launch import mesh as lm
+    return lm.sum_grads(lm.reduce_parts(partial, mesh, "model"), mesh,
+                        "model")
+
+
+def _partial_score_attention(p, x, *, heads, mesh, positions, rope_theta,
+                             window, cache, cache_index, memory, causal):
+    """A decode step (or a query past position 0) of a layer split on
+    head_dim: this rank's output part [B, T, D] (summed over "model" by
+    the caller).  q, k and v are the rank's H / m columns of every head
+    (``p``'s leaves as they are); k and v go into the cache's columns;
+    the partial scores over the cached positions are summed over "model"
+    (``model_scores``: [B, K, g, T, S] float32), then the mask, the
+    softmax with the whole head_dim's scale, the rank's value columns and
+    ``wo``'s rows."""
+    n_heads, n_kv, hd = heads
+    b, t, _ = x.shape
+    src = memory if memory is not None else x
+    q = torch.einsum("btd,dnh->btnh", x, p["wq"].to(Compute))
+    k = torch.einsum("bsd,dkh->bskh", src, p["wk"].to(Compute))
+    v = torch.einsum("bsd,dkh->bskh", src, p["wv"].to(Compute))
+    if memory is None:
+        q = head_dim_rope(q, positions, rope_theta, mesh)
+        k = head_dim_rope(k, positions, rope_theta, mesh)
+    kv_valid = None
+    if cache is not None:
+        cache["k"][:, cache_index:cache_index + t] = k
+        cache["v"][:, cache_index:cache_index + t] = v
+        k, v = cache["k"], cache["v"]
+        kv_valid = cache_index + t
+    qg = q.reshape(b, t, n_kv, n_heads // n_kv, q.shape[-1])
+    ctx = direct_attention(
+        qg, k, v, q_offset=cache_index if cache is not None else 0,
+        causal=causal and memory is None, window=window, kv_valid=kv_valid,
+        head_dim=hd, reduce=lambda s: model_scores(s, mesh))
+    return torch.einsum("btnh,nhd->btd", ctx.reshape(b, t, n_heads, -1),
+                        p["wo"].to(Compute))
+
+
+def _model_parallel(p, heads: tuple, mesh) -> tuple[dict, Optional[str]]:
+    """(the attention leaves this rank computes with, how the layer splits
+    over "model": ``"heads"``, ``"head_dim"``, or ``None``, computing as
+    on one device with no sum over "model").
+
+    ``"heads"``: ``wq`` holds this rank's query heads and they fill whole
+    kv groups or fall within one (``sharding.model_heads``); ``wq`` and
     ``wo`` are used as they are, and ``wk``/``wv`` keep the kv heads those
     query heads read: their own shard where the rules split them on the kv
     heads, else made whole over "model" (from a head_dim split: their
     gradient is summed, since the ranks read different heads of it) and
-    cut to those heads.  Otherwise every leaf is made whole over "model"
-    and the layer computes every head on every rank (its gradient is this
-    rank's part of identical ones)."""
-    from ..distributed.sharding import model_heads
+    cut to those heads.  ``"head_dim"``: the query heads do not divide
+    "model" and the rules split all four leaves on head_dim
+    (``sharding.model_head_dim``); they are used as they are (``attention``
+    makes whole what it needs).  Otherwise every leaf is made whole over
+    "model" and the layer computes every head on every rank (its gradient
+    is this rank's part of identical ones): leaves the rules keep whole,
+    and the residual case where the rules split ``wq`` on its heads but
+    ``model_heads`` finds no plan (a rank's query heads neither fill whole
+    kv groups nor fall within one; no published config at m = 2, 4, 8 or
+    16)."""
+    from ..distributed.sharding import model_head_dim, model_heads
     from ..launch import mesh as lm
 
     n_heads, n_kv, hd = heads
     m = mesh.axis_size("model")
+    span = model_head_dim(n_heads, hd, m, mesh.coordinate("model"))
+    if span is not None and p["wq"].shape[2] == span[1] < hd:
+        return p, "head_dim"
     plan = model_heads(n_heads, n_kv, m, mesh.coordinate("model")) \
         if p["wq"].shape[1] < n_heads else None
     full = {"wq": (None, n_heads, hd), "wk": (None, n_kv, hd),
@@ -445,13 +544,13 @@ def _model_parallel(p, heads: tuple, mesh) -> tuple[dict, bool]:
         return lm.sum_grads(w, mesh, "model") if summed else w
 
     if plan is None:
-        return {k: whole(k, False) for k in full}, False
+        return {k: whole(k, False) for k in full}, None
     _, _, k0, nk = plan
     out = dict(p)
     for k in ("wk", "wv"):
         if p[k].shape[1] * m != n_kv:       # not split on the kv heads
             out[k] = whole(k, True).narrow(1, k0, nk)
-    return out, True
+    return out, "heads"
 
 
 # --------------------------------------------------------------------------

@@ -25,10 +25,15 @@ the row-parallel gates ``w_r``/``w_i`` give partial pre-activations over
 all channels, reduce-scattered to the rank's (``launch.mesh
 .scatter_parts``, one collective for both), so the conv, the scan and the
 state [B, d_rnn / m] stay on the rank's channels; ``wo`` is row-parallel
-(one sum over "model").  The attention block splits its query heads as
-``layers.attention`` does, its ring holding the kv heads they read
-(``transformer.cache_heads``); the MLPs, the embedding and the head are
-the transformer's.  A leaf given whole computes as on one device.
+(one sum over "model").  The attention block splits as
+``layers.attention`` does: its query heads where they divide "model",
+the ring holding the kv heads they read; else (recurrentgemma-2b's 10
+heads at m = 4, 8 or 16) head_dim, the ring holding every kv head's
+head_dim / m columns as ``state_specs`` places them
+(``transformer.cache_block``), and a decode step sums its partial scores
+over the ring's positions over "model".  The MLPs, the embedding and the
+head are the transformer's.  A leaf given whole computes as on one
+device.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from . import layers as L
-from .transformer import (attn_heads, cache_heads, embed_tokens,
+from .transformer import (attn_heads, cache_block, embed_tokens,
                           head_logits, model_axis)
 
 __all__ = ["init_hybrid", "forward_hybrid", "init_hybrid_state",
@@ -194,9 +199,10 @@ def attn_block(p, x, cfg: ModelConfig, *, positions, mesh=None):
 
 def init_ring_cache(cfg: ModelConfig, batch: int, *, lead=(), device,
                     mesh=None):
-    """A zero ring [*lead, batch, window, K, H]; on ``mesh`` K is the kv
-    heads this rank's query heads read (``transformer.cache_heads``)."""
-    shape = (*lead, batch, cfg.attn_window, cache_heads(cfg, mesh), cfg.hd)
+    """A zero ring [*lead, batch, window, K, H]; on ``mesh`` (K, H) is
+    this rank's block (``transformer.cache_block``: the kv heads its query
+    heads read, or every kv head's H / m columns)."""
+    shape = (*lead, batch, cfg.attn_window, *cache_block(cfg, mesh))
     return {"k": torch.zeros(shape, dtype=L.Compute, device=device),
             "v": torch.zeros(shape, dtype=L.Compute, device=device)}
 
@@ -204,23 +210,30 @@ def init_ring_cache(cfg: ModelConfig, batch: int, *, lead=(), device,
 def attn_block_decode(p, x, cfg: ModelConfig, ring: dict, pos: int, *,
                       mesh=None):
     """Single-token local attention against the ring buffer (written in
-    place at slot ``pos % w``).  ``mesh``: the heads split as
-    ``layers.attention`` splits them, the ring holding the kv heads the
-    rank's query heads read."""
+    place at slot ``pos % w``).  ``mesh``: the layer splits as
+    ``layers.attention`` splits it, the ring holding the rank's block:
+    the kv heads its query heads read, or, split on head_dim, every kv
+    head's H / m columns, whose partial scores are summed over "model"
+    (``layers.model_scores``: [B, K, g, 1, w] float32) before the mask
+    and the softmax."""
     from ..launch import mesh as lm
     w = cfg.attn_window
     xn = L.rms_norm(p["ln"], x, cfg.norm_eps)
-    ap, split = p["attn"], False
+    ap, mode = p["attn"], None
     if L.model_size(mesh) > 1:
-        ap, split = L._model_parallel(ap, attn_heads(cfg), mesh)
-        if split:
+        ap, mode = L._model_parallel(ap, attn_heads(cfg), mesh)
+        if mode is not None:
             xn = lm.sum_grads(xn, mesh, "model")
     q = torch.einsum("btd,dnh->btnh", xn, ap["wq"].to(L.Compute))
     k = torch.einsum("btd,dkh->btkh", xn, ap["wk"].to(L.Compute))
     v = torch.einsum("btd,dkh->btkh", xn, ap["wv"].to(L.Compute))
     positions = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
-    q = L.rope(q, positions, cfg.rope_theta)
-    k = L.rope(k, positions, cfg.rope_theta)
+    if mode == "head_dim":
+        q = L.head_dim_rope(q, positions, cfg.rope_theta, mesh)
+        k = L.head_dim_rope(k, positions, cfg.rope_theta, mesh)
+    else:
+        q = L.rope(q, positions, cfg.rope_theta)
+        k = L.rope(k, positions, cfg.rope_theta)
     slot = pos % w
     ring["k"][:, slot] = k[:, 0]
     ring["v"][:, slot] = v[:, 0]
@@ -230,19 +243,24 @@ def attn_block_decode(p, x, cfg: ModelConfig, ring: dict, pos: int, *,
     slot_pos = pos - torch.remainder(pos - idx, w)
     b, t = x.shape[0], 1
     n_kv = k.shape[2]
-    hd = q.shape[-1]
-    qg = q.reshape(b, t, n_kv, -1, hd)
+    hd = cfg.hd
+    qg = q.reshape(b, t, n_kv, -1, q.shape[-1])
     # keys were stored post-rope at their absolute positions; mask invalids
-    logits = torch.einsum("btkgh,bskh->bkgts", qg, ring["k"]).float()
+    if mode == "head_dim":
+        logits = L.model_scores(torch.einsum(
+            "btkgh,bskh->bkgts", qg.float(), ring["k"].float()), mesh)
+        logits = logits.to(L.Compute).float()
+    else:
+        logits = torch.einsum("btkgh,bskh->bkgts", qg, ring["k"]).float()
     logits = logits * hd ** -0.5
     ok = (slot_pos >= 0) & (slot_pos <= pos)
     logits = torch.where(ok[None, None, None, None], logits,
                          torch.tensor(-1e30, device=x.device))
     probs = torch.softmax(logits, dim=-1).to(L.Compute)
     ctx = torch.einsum("bkgts,bskh->btkgh", probs, ring["v"])
-    h = torch.einsum("btnh,nhd->btd", ctx.reshape(b, t, q.shape[2], hd),
+    h = torch.einsum("btnh,nhd->btd", ctx.reshape(b, t, q.shape[2], -1),
                      ap["wo"].to(L.Compute))
-    if split:
+    if mode is not None:
         h = lm.reduce_parts(h, mesh, "model")
     x = x + h
     x = x + L.swiglu_mlp(p["mlp"], L.rms_norm(p["ln2"], x, cfg.norm_eps),
@@ -379,7 +397,7 @@ def init_hybrid_state(cfg: ModelConfig, batch: int, *, device,
                       mesh=None) -> dict:
     """The zero decode state of ``batch`` rows; on ``mesh`` (any mesh, or a
     ``MeshLayout``) a rank's: the RG-LRU's d_rnn / m channels where the
-    rules split them, the ring's kv heads of ``transformer.cache_heads``
+    rules split them, the ring's block of ``transformer.cache_block``
     (the rows are the caller's)."""
     n_groups, tail = _pattern_layout(cfg)
     state = {"groups": _group_state(cfg, batch, _pattern(cfg),

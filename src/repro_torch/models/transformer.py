@@ -33,7 +33,7 @@ from . import layers as L
 from .moe import init_moe, moe_mlp
 
 __all__ = ["init_lm", "forward", "init_cache", "decode_step", "lm_loss",
-           "cache_heads", "model_axis", "embed_tokens", "head_logits",
+           "cache_block", "model_axis", "embed_tokens", "head_logits",
            "attn_heads"]
 
 
@@ -87,15 +87,23 @@ def attn_heads(cfg: ModelConfig) -> tuple:
     return cfg.n_heads, cfg.n_kv_heads, cfg.hd
 
 
-def cache_heads(cfg: ModelConfig, mesh=None) -> int:
-    """The kv heads a rank's cache holds on ``mesh``'s "model" axis (any
-    mesh, or a ``MeshLayout``): those its query heads read
-    (``sharding.model_heads``; as many on every rank), or all of them where
-    the layer computes every head.  Not ``cache_specs``' head_dim split:
-    the rank attends with whole heads."""
-    from ..distributed.sharding import model_heads
-    plan = model_heads(cfg.n_heads, cfg.n_kv_heads, L.model_size(mesh), 0)
-    return cfg.n_kv_heads if plan is None else plan[3]
+def cache_block(cfg: ModelConfig, mesh=None) -> tuple[int, int]:
+    """(kv heads, head_dim) of a rank's cache on ``mesh``'s "model" axis
+    (any mesh, or a ``MeshLayout``).  Where the rules split the query
+    heads: the kv heads they read (``sharding.model_heads``; as many on
+    every rank), whole, where ``cache_specs`` would split head_dim at K <
+    m (the rank attends with whole heads; a placement the port keeps, see
+    ROADMAP).  Where the query heads do not divide "model" and head_dim
+    does: every kv head's H / m columns (``sharding.model_head_dim``), as
+    ``cache_specs`` and ``state_specs`` place them.  Otherwise the whole
+    layer's."""
+    from ..distributed.sharding import model_head_dim, model_heads
+    m = L.model_size(mesh)
+    span = model_head_dim(cfg.n_heads, cfg.hd, m, 0)
+    if span is not None:
+        return cfg.n_kv_heads, span[1]
+    plan = model_heads(cfg.n_heads, cfg.n_kv_heads, m, 0)
+    return (cfg.n_kv_heads if plan is None else plan[3]), cfg.hd
 
 
 def _layer_body(cfg: ModelConfig, x, p, *, positions, cache=None,
@@ -189,9 +197,9 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device, mesh=None) -> dict:
-    """A zero cache [L, batch, max_len, K, H]; on ``mesh`` K is the kv
-    heads this rank computes with (``cache_heads``)."""
-    shape = (cfg.n_layers, batch, max_len, cache_heads(cfg, mesh), cfg.hd)
+    """A zero cache [L, batch, max_len, K, H]; on ``mesh`` (K, H) is this
+    rank's block (``cache_block``)."""
+    shape = (cfg.n_layers, batch, max_len, *cache_block(cfg, mesh))
     return {"k": torch.zeros(shape, dtype=L.Compute, device=device),
             "v": torch.zeros(shape, dtype=L.Compute, device=device)}
 

@@ -23,10 +23,16 @@ On an LM mesh (``mesh=``) the blocks run tensor parallelism over its
 rank there.  mLSTM: where the rules split ``wq``/``wk``/``wv`` and
 ``wi``/``wf`` on the heads, the rank runs the cell for its N / m heads
 (state ``C``/``n`` of those heads), whose outputs are its D / m columns of
-``h``; where they split q/k/v on head_dim (the heads do not divide m),
-q/k/v are gathered over "model" and every rank runs every head, then
-keeps its D / m columns of ``h``.  Either way those columns meet the
-rank's ``wog`` columns and ``wo`` rows (one sum over "model").  sLSTM:
+``h``.  Where they split q/k/v on head_dim (xlstm-1.3b's 4 heads at m =
+8 or 16; ``_mlstm_head_dim``), the rank runs every head on its head_dim /
+m value columns: a prefill makes ``wq``/``wk`` whole and computes q . k
+whole, the same on every rank, and its value side (``intra``, ``inter``,
+the state update) on its columns; a decode step keeps ``C``'s value
+columns and ``n``'s key columns, as ``state_specs`` places them, and sums
+the partial ``q . n`` over "model".  An uneven all-to-all then brings the
+rank's columns of every head to its D / m contiguous columns of ``h``
+(``launch.mesh.exchange_v``).  Either way those columns meet the rank's
+``wog`` columns and ``wo`` rows (one sum over "model").  sLSTM:
 ``wz``/``wi``/``wf``/``wo_gate`` are column-parallel, so the recurrence
 runs on the rank's D / m channels (state [B, D / m]) with no collective
 inside the loop, and ``wo`` is row-parallel (one sum).  A leaf given
@@ -44,7 +50,7 @@ from . import layers as L
 from .transformer import embed_tokens, head_logits, model_axis
 
 __all__ = ["init_xlstm", "forward_xlstm", "init_xlstm_state",
-           "decode_step_xlstm", "mlstm_block", "slstm_block", "state_heads",
+           "decode_step_xlstm", "mlstm_block", "slstm_block", "state_block",
            "CHUNK", "GATE_CLAMP"]
 
 CHUNK = 256
@@ -120,80 +126,155 @@ def _mlstm_chunk(C, n, qj, kj, vj, ij, fj):
 
 
 def _mlstm_model_parallel(p, xn, n_heads: int, mesh):
-    """(the leaves this rank computes with, ``xn``, this rank's D / m
-    columns of ``h`` or ``None``) on ``mesh``'s "model" axis: ``p`` as it
-    is where its heads are split (the rank's heads give its columns);
-    where they are not, q/k/v and the gates made whole over "model" (the
-    gradient summed: each rank's columns read every head) and the columns
-    cut from every head's ``h``.  ``None`` and ``p`` as it is where
-    ``wog`` is whole (no leaf split over "model")."""
-    from ..distributed.sharding import model_span
+    """(the leaves this rank computes with, ``xn``, how the block splits
+    over "model") on ``mesh``'s "model" axis: ``None`` where ``wog`` is
+    whole (no leaf split over "model"); ``"heads"``: ``p`` as it is, the
+    rank's heads giving its columns; ``"head_dim"``: q/k/v split on
+    head_dim (``sharding.model_head_dim``), ``_mlstm_head_dim``'s; else
+    ``"whole"``: every head on every rank (head_dim does not divide "model"
+    either), whose ``h`` is cut to the rank's columns.  Outside
+    ``"heads"``, the leaves every rank holds whole have their gradient
+    summed over "model" (each rank's columns read every head)."""
+    from ..distributed.sharding import model_head_dim
     from ..launch import mesh as lm
     d = xn.shape[-1]
     m = L.model_size(mesh)
     if m == 1 or p["wog"].shape[1] == d:
         return p, xn, None
     xn = lm.sum_grads(xn, mesh, "model")
-    cols = model_span(d, m, mesh.coordinate("model"))
     if p["wq"].shape[1] < n_heads:
-        return p, xn, None
+        return p, xn, "heads"
+    hd = d // n_heads
+    span = model_head_dim(n_heads, hd, m, mesh.coordinate("model"))
+    mode = ("head_dim" if span is not None and p["wq"].shape[2] == span[1]
+            < hd else "whole")
     p = dict(p)
-    for k in ("wq", "wk", "wv", "wi", "wf"):
-        dims = [i for i, n in ((1, n_heads), (2, d // n_heads))
-                if i < p[k].dim() and p[k].shape[i] < n]
-        p[k] = (lm.gather_shards(p[k], mesh, [("model", dims[0])],
-                                 summed=("model",)) if dims
-                else lm.sum_grads(p[k], mesh, "model"))
-    return p, xn, cols
+    for k in (("wi", "wf") if mode == "head_dim"
+              else ("wq", "wk", "wv", "wi", "wf")):
+        p[k] = lm.sum_grads(p[k], mesh, "model")
+    return p, xn, mode
+
+
+def _head_dim_to_cols(h, mesh):
+    """``h`` [B, T, N, c], this rank's c = head_dim / m value columns of
+    every head, -> [B, T, N·c], its D / m contiguous columns of the whole
+    ``h`` [B, T, D] (``wog``'s columns, ``wo``'s rows): one uneven
+    all-to-all over "model" (``launch.mesh.exchange_v``).  Block u = n·m +
+    s of the D columns (head n's columns of rank s) goes to rank u // N;
+    the backward sends each block's gradient back."""
+    from ..launch import mesh as lm
+    b, t, n, c = h.shape
+    m, r = mesh.axis_size("model"), mesh.coordinate("model")
+    dest = [(j * m + r) // n for j in range(n)]      # ascending in j
+    got = sorted(range(r * n, (r + 1) * n), key=lambda u: (u % m, u))
+    x = lm.exchange_v(h.permute(2, 0, 1, 3), mesh, "model",
+                      [dest.count(s) for s in range(m)],
+                      [sum(u % m == s for u in got) for s in range(m)])
+    order = sorted(range(n), key=lambda i: got[i])
+    x = x[torch.tensor(order, device=x.device)]
+    return x.permute(1, 2, 0, 3).reshape(b, t, n * c)
+
+
+def _mlstm_prefill(q, k, v, i_log, f):
+    """The chunkwise-parallel form from a zero state: h [B, T, N, g]
+    float32, g the columns ``v`` [B, T, N, g] holds (q and k whole
+    heads)."""
+    b, t, nh, hd = k.shape
+    ck = min(CHUNK, t)
+    assert t % ck == 0, (t, CHUNK)
+    C = torch.zeros((b, nh, hd, v.shape[-1]), dtype=torch.float32,
+                    device=k.device)
+    n = torch.zeros((b, nh, hd), dtype=torch.float32, device=k.device)
+    hs = []
+    for lo in range(0, t, ck):
+        sl = slice(lo, lo + ck)
+        C, n, hj = _mlstm_chunk(C, n, q[:, sl], k[:, sl], v[:, sl],
+                                i_log[:, sl], f[:, sl])
+        hs.append(hj)
+    return torch.cat(hs, dim=1) if len(hs) > 1 else hs[0]
+
+
+def _mlstm_step(state, q, k, v, i_log, f, qn=None, kn=None, reduce=None):
+    """One decode step (T == 1) on ``state`` {"C": [B, N, h, g], "n": [B,
+    N, h_n]}, updated in place: h [B, 1, N, g] float32.  q and k [B, 1, N,
+    h] (whole heads) read and update ``C``'s g columns (``v``'s); ``n``
+    takes ``kn`` and ``q . n`` reads ``qn`` (q and k by default), the
+    columns ``n`` holds, and ``reduce`` sums that partial ``q . n`` over
+    the ranks holding the other columns (a head_dim split)."""
+    i = torch.exp(i_log[:, 0])                                     # [B,N]
+    f0 = f[:, 0]
+    q0, k0, v0 = q[:, 0].float(), k[:, 0].float(), v[:, 0].float()
+    qn0 = q0 if qn is None else qn[:, 0].float()
+    kn0 = k0 if kn is None else kn[:, 0].float()
+    c_new = f0[..., None, None] * state["C"] + \
+        i[..., None, None] * torch.einsum("bnh,bng->bnhg", k0, v0)
+    n_new = f0[..., None] * state["n"] + i[..., None] * kn0
+    num = torch.einsum("bnh,bnhg->bng", q0, c_new)
+    qdotn = torch.einsum("bnh,bnh->bn", qn0, n_new)
+    den = torch.abs(qdotn if reduce is None else reduce(qdotn))
+    state["C"].copy_(c_new)
+    state["n"].copy_(n_new)
+    return (num / torch.clamp(den, min=1.0)[..., None])[:, None]
+
+
+def _mlstm_head_dim(p, xn, n_heads: int, state, mesh):
+    """The mLSTM cell of a block split on head_dim over "model": this
+    rank's D / m columns of ``h`` [B, T, D / m] (compute dtype).  ``p``'s
+    ``wq``/``wk``/``wv`` hold the rank's head_dim / m columns of every
+    head, ``wi``/``wf`` are whole.  Prefill: ``wq``/``wk`` made whole over
+    "model" (their gradient summed), q . k and ``n`` whole on every rank,
+    ``v``, ``C`` and ``h`` on the rank's value columns; no collective
+    inside the chunks.  Decode (``state``: ``C`` [B, N, h, h / m], the
+    value columns, ``n`` [B, N, h / m], the key columns, updated in
+    place): the token's q and k gathered over "model", ``C`` and the
+    numerator local, ``q . n`` the rank's part of the key dims summed over
+    "model" ([B, N] float32, ``layers.model_scores``)."""
+    from ..launch import mesh as lm
+    hd = xn.shape[-1] // n_heads
+    v = _proj(xn, p["wv"])
+    i_log, f = _mlstm_gates(p, xn)
+    if state is not None:
+        q_r = _proj(xn, p["wq"]) * hd ** -0.5
+        k_r = _proj(xn, p["wk"])
+        q, k = (lm.gather_shards(a, mesh, [("model", 3)], summed=("model",))
+                for a in (q_r, k_r))
+        h = _mlstm_step(state, q, k, v, i_log, f, qn=q_r, kn=k_r,
+                        reduce=lambda x: L.model_scores(x, mesh))
+    else:
+        wq, wk = (lm.gather_shards(p[k], mesh, [("model", 2)],
+                                   summed=("model",)) for k in ("wq", "wk"))
+        h = _mlstm_prefill(_proj(xn, wq) * hd ** -0.5, _proj(xn, wk), v,
+                           i_log, f)
+    return _head_dim_to_cols(h.to(L.Compute), mesh)
 
 
 def mlstm_block(p, x, *, n_heads: int, eps: float, state=None, mesh=None):
     """x [B,T,D].  state = {"C": [B,N,h,h], "n": [B,N,h]} for decode
     (T == 1; updated in place).  ``mesh`` (an LM mesh's "model" axis):
     tensor parallelism where ``p``'s leaves are this rank's shards (see the
-    module's docstring); N in the state is the heads the rank runs."""
+    module's docstring); the state is the rank's block
+    (``state_block``)."""
     b, t, d = x.shape
     hd = d // n_heads
     xn = L.rms_norm(p["ln"], x, eps)
-    p, xn, cols = _mlstm_model_parallel(p, xn, n_heads, mesh)
-    nh = p["wq"].shape[1]                    # the heads this rank runs
-    q = _proj(xn, p["wq"]) * hd ** -0.5
-    k = _proj(xn, p["wk"])
-    v = _proj(xn, p["wv"])
-    i_log, f = _mlstm_gates(p, xn)
-
-    if state is not None:  # single-step decode
-        i = torch.exp(i_log[:, 0])                                 # [B,N]
-        f0 = f[:, 0]
-        k0, v0, q0 = k[:, 0].float(), v[:, 0].float(), q[:, 0].float()
-        c_new = f0[..., None, None] * state["C"] + \
-            i[..., None, None] * torch.einsum("bnh,bng->bnhg", k0, v0)
-        n_new = f0[..., None] * state["n"] + i[..., None] * k0
-        num = torch.einsum("bnh,bnhg->bng", q0, c_new)
-        den = torch.abs(torch.einsum("bnh,bnh->bn", q0, n_new))
-        h = (num / torch.clamp(den, min=1.0)[..., None])[:, None]  # [B,1,N,h]
-        state["C"].copy_(c_new)
-        state["n"].copy_(n_new)
-    else:  # chunkwise-parallel prefill
-        ck = min(CHUNK, t)
-        assert t % ck == 0, (t, CHUNK)
-        C = torch.zeros((b, nh, hd, hd), dtype=torch.float32,
-                        device=x.device)
-        n = torch.zeros((b, nh, hd), dtype=torch.float32, device=x.device)
-        hs = []
-        for lo in range(0, t, ck):
-            sl = slice(lo, lo + ck)
-            C, n, hj = _mlstm_chunk(C, n, q[:, sl], k[:, sl], v[:, sl],
-                                    i_log[:, sl], f[:, sl])
-            hs.append(hj)
-        h = torch.cat(hs, dim=1) if len(hs) > 1 else hs[0]
-
-    h = h.reshape(b, -1, nh * hd)
-    if cols is not None:
-        h = h.narrow(-1, *cols)
+    p, xn, mode = _mlstm_model_parallel(p, xn, n_heads, mesh)
+    if mode == "head_dim":
+        h = _mlstm_head_dim(p, xn, n_heads, state, mesh)
+    else:
+        q = _proj(xn, p["wq"]) * hd ** -0.5
+        k = _proj(xn, p["wk"])
+        v = _proj(xn, p["wv"])
+        i_log, f = _mlstm_gates(p, xn)
+        h = (_mlstm_prefill(q, k, v, i_log, f) if state is None
+             else _mlstm_step(state, q, k, v, i_log, f)).reshape(b, t, -1)
+        if mode == "whole":
+            from ..distributed.sharding import model_span
+            h = h.narrow(-1, *model_span(d, L.model_size(mesh),
+                                         mesh.coordinate("model")))
+        h = h.to(L.Compute)
     og = L.sigmoid(_proj(xn, p["wog"]))
-    y = _proj(h.to(L.Compute) * og, p["wo"])
-    if p["wog"].shape[1] < d:
+    y = _proj(h * og, p["wo"])
+    if mode is not None:
         from ..launch import mesh as lm
         y = lm.reduce_parts(y, mesh, "model")
     return x + y, state
@@ -354,21 +435,28 @@ def forward_xlstm(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             torch.zeros((), device=x.device))
 
 
-def state_heads(cfg: ModelConfig, mesh=None) -> int:
-    """The mLSTM heads a rank runs on ``mesh``'s "model" axis (any mesh,
-    or a ``MeshLayout``): N / m where the rules split the heads, else all
-    of them.  Not ``state_specs``' split of the state's last dim: the rank
-    runs whole heads."""
-    from ..distributed.sharding import model_span
-    span = model_span(cfg.n_heads, L.model_size(mesh), 0)
-    return cfg.n_heads if span is None else span[1]
+def state_block(cfg: ModelConfig, mesh=None) -> tuple[int, int]:
+    """(heads, columns) of a rank's mLSTM state on ``mesh``'s "model" axis
+    (any mesh, or a ``MeshLayout``): ``C`` is [heads, h, columns], ``n``
+    [heads, columns].  N / m whole heads where the rules split the heads;
+    every head's h / m columns (``C``'s value columns, ``n``'s key
+    columns) where they split head_dim (``sharding.model_head_dim``), as
+    ``state_specs`` places them; else the whole state."""
+    from ..distributed.sharding import model_head_dim, model_span
+    m = L.model_size(mesh)
+    hd = cfg.d_model // cfg.n_heads
+    span = model_head_dim(cfg.n_heads, hd, m, 0)
+    if span is not None:
+        return cfg.n_heads, span[1]
+    span = model_span(cfg.n_heads, m, 0)
+    return (cfg.n_heads if span is None else span[1]), hd
 
 
 def _group_state(cfg: ModelConfig, batch: int, pattern, *, lead=(),
                  device, mesh=None) -> dict:
     from ..distributed.sharding import model_span
     hd = cfg.d_model // cfg.n_heads
-    nh = state_heads(cfg, mesh)
+    nh, cols = state_block(cfg, mesh)
     span = model_span(cfg.d_model, L.model_size(mesh), 0)
     d = cfg.d_model if span is None else span[1]
     f32 = dict(dtype=torch.float32, device=device)
@@ -376,8 +464,8 @@ def _group_state(cfg: ModelConfig, batch: int, pattern, *, lead=(),
     for i, kind in enumerate(pattern):
         if kind == "mlstm":
             st[f"b{i}_{kind}"] = {
-                "C": torch.zeros((*lead, batch, nh, hd, hd), **f32),
-                "n": torch.zeros((*lead, batch, nh, hd), **f32),
+                "C": torch.zeros((*lead, batch, nh, hd, cols), **f32),
+                "n": torch.zeros((*lead, batch, nh, cols), **f32),
             }
         else:
             st[f"b{i}_{kind}"] = {
@@ -390,7 +478,7 @@ def _group_state(cfg: ModelConfig, batch: int, pattern, *, lead=(),
 def init_xlstm_state(cfg: ModelConfig, batch: int, *, device,
                      mesh=None) -> dict:
     """The zero decode state of ``batch`` rows; on ``mesh`` (any mesh, or a
-    ``MeshLayout``) a rank's: the mLSTM heads of ``state_heads``, the
+    ``MeshLayout``) a rank's: the mLSTM block of ``state_block``, the
     sLSTM's D / m channels where the rules split them (the rows are the
     caller's)."""
     n_groups, pat, tail = _pattern_layout(cfg)

@@ -18,20 +18,26 @@ sides and the JAX side compiled without XLA's excess precision
     granite-moe-1b-a400m (tensor-parallel attention, experts under expert
     parallelism, capacity factor E / top_k), recurrentgemma-2b (the
     RG-LRU's channels split over "model", its attention's query heads;
-    with 3 query heads, ``hybrid_h3``, the attention's leaves made whole
-    and every head run on every rank), xlstm-1.3b (the mLSTM's heads and
-    the sLSTM's channels; with 1 head, ``ssm_h1``, q/k/v split on head_dim,
-    gathered, and ``h`` cut to the rank's columns) and seamless-m4t-medium
+    with 3 query heads, ``hybrid_h3``, the attention split on head_dim:
+    each rank its columns of every head, its ring their block), xlstm-1.3b
+    (the mLSTM's heads and the sLSTM's channels; with 1 head, ``ssm_h1``,
+    the mLSTM split on head_dim: ``C``'s value columns and ``n``'s key
+    columns a rank, ``h`` exchanged to the rank's columns) and
+    seamless-m4t-medium
     (encoder, decoder and cross-attention heads).  The transformer and
     enc-dec decode from the prefill's cache (the enc-dec against a random
     encoder memory), the hybrid and ssm from their zero state;
   * each rank's shapes: the cache [L, B / dp, S, local kv heads, H], the
     query heads N / m of ``wq`` and ``wo``, the MLP's hidden columns and
     the vocab rows; the RG-LRU's d_rnn / m channels in its leaves and
-    state, the mLSTM's N / m heads, the sLSTM's D / m channels;
+    state, the mLSTM's N / m heads, the sLSTM's D / m channels; the split
+    cases' ring and state the block ``sharding.state_specs`` places, and
+    no gather over "model" of their ``wv``/``wo`` (attention) or ``wv``
+    (mLSTM) in a prefill, a decode step or a train step;
   * the tensor-parallel train step of reduced tinyllama-1.1b,
-    granite-moe-1b-a400m, recurrentgemma-2b, xlstm-1.3b and
-    seamless-m4t-medium against the JAX package's unsharded
+    granite-moe-1b-a400m, recurrentgemma-2b (and ``hybrid_h3``),
+    xlstm-1.3b (and ``ssm_h1``) and seamless-m4t-medium against the JAX
+    package's unsharded
     ``make_train_step`` at ``tests/test_torch_mesh.py``'s tolerances (loss
     1e-5, grad_norm 5e-5 relative, each moment leaf 1e-4 of its L2 norm,
     each parameter 2 lr + 1e-6), with the loss vocab-parallel: each rank
@@ -45,12 +51,15 @@ sides and the JAX side compiled without XLA's excess precision
     engine's tokens and the port's one-process tokens.
 
 And without a spawn: the (16, 16) dry run of tinyllama-1.1b
-``prefill_32k`` and ``decode_32k`` peaks below 80 GiB a rank; the rank's
-decode state or cache that ``api.input_specs`` gives the hybrid, ssm and
-enc-dec families on (16, 16); ``launch.mesh.scatter_parts``' gradient
-against the adjoint of its sum, on a stand-in axis of 4 ranks; and
-``vocab_parallel_nll``'s gradient against ``lm_loss``'s on an axis of 4
-ranks run as threads of one process.
+``prefill_32k`` and ``decode_32k`` peaks below 80 GiB a rank, and
+xlstm-1.3b's ``decode_32k`` below 0.5 GiB; the rank's decode state or
+cache that ``api.input_specs`` gives the hybrid, ssm and enc-dec families
+on (16, 16); ``launch.mesh.scatter_parts``' gradient against the adjoint
+of its sum, on a stand-in axis of 4 ranks; and, on an axis of 4 ranks run
+as threads of one process, ``vocab_parallel_nll``'s gradient against
+``lm_loss``'s, and a head_dim split's decode step and prefill (the
+attention's, the ring's, the mLSTM's) against one process in value and
+gradient.
 """
 
 from __future__ import annotations
@@ -85,9 +94,17 @@ CASES = {"dense": ("tinyllama-1.1b", {}),
          "ssm": ("xlstm-1.3b", {}),
          "ssm_h1": ("xlstm-1.3b", {"n_heads": 1, "n_kv_heads": 1}),
          "encdec": ("seamless-m4t-medium", {})}
-TRAIN = {"dense": "tinyllama-1.1b", "moe": "granite-moe-1b-a400m",
-         "hybrid": "recurrentgemma-2b", "ssm": "xlstm-1.3b",
-         "encdec": "seamless-m4t-medium"}
+# the train cases: name -> (arch, config overrides); ``hybrid_h3`` and
+# ``ssm_h1`` split their attention and mLSTM on head_dim over "model"
+TRAIN = {"dense": ("tinyllama-1.1b", {}),
+         "moe": ("granite-moe-1b-a400m", {}),
+         "hybrid": ("recurrentgemma-2b", {}),
+         "hybrid_h3": CASES["hybrid_h3"],
+         "ssm": ("xlstm-1.3b", {}),
+         "ssm_h1": CASES["ssm_h1"],
+         "encdec": ("seamless-m4t-medium", {})}
+# the cases whose attention or mLSTM splits on head_dim over "model"
+SPLIT = ("hybrid_h3", "ssm_h1")
 PREFILL = (8, 24)            # rows, prompt tokens (dp = 4: 2 rows a rank)
 DECODE = 4
 GENERATE = (8, 16, 6)        # rows, prompt bytes, new tokens
@@ -189,8 +206,8 @@ def _make_inputs(path: pathlib.Path) -> None:
         out[f"{name}_decode"] = rng.integers(
             0, cfg.vocab_size, size=(b, DECODE)).astype(np.int32)
     rows, tokens, _ = STEP_BATCH
-    for name, arch in TRAIN.items():
-        cfg = _cfg(arch, {}, False)
+    for name, (arch, over) in TRAIN.items():
+        cfg = _cfg(arch, over, False)
         state = jax.tree.map(np.asarray, init_train_state(
             cfg, jax.random.PRNGKey(2)))
         for k, v in _flat(state).items():
@@ -274,8 +291,8 @@ def _jax_reference(inp_path: str, out_path: str) -> None:
                 cfg, params, ServeConfig(max_new_tokens=n),
                 constraint=gc).generate(z["prompts"]))
     rows, tokens, nm = STEP_BATCH
-    for name, arch in TRAIN.items():
-        cfg = _cfg(arch, {}, False)
+    for name, (arch, over) in TRAIN.items():
+        cfg = _cfg(arch, over, False)
         opts = TrainOptions(num_microbatches=nm,
                             aux_loss_weight=0.0 if name == "moe" else 0.01,
                             optimizer=AdamWConfig(**OPT))
@@ -346,8 +363,12 @@ def _child_cases(rank: int, z) -> dict:
         lm.reset_mesh_stats()
         batch = {k: torch.from_numpy(z[f"{name}_{k}"]) for k in (
             "tokens", "frames") if f"{name}_{k}" in z.files}
-        logits, cache = api.prefill(params, cfg, batch, mesh=mesh,
-                                    last_only=False)
+        spy = _Spy(lm, keep=name in SPLIT).__enter__()
+        try:
+            logits, cache = api.prefill(params, cfg, batch, mesh=mesh,
+                                        last_only=False)
+        finally:
+            spy.__exit__()
         out[f"{name}_prefill"] = logits.numpy()
         out[f"{name}_stats"] = np.array(json.dumps(lm.MESH_STATS))
         b, t = batch["tokens"].shape
@@ -372,11 +393,18 @@ def _child_cases(rank: int, z) -> dict:
                 **_flat(state.get("state", state.get("cache")), "state"),
             }.items()}))
         dec = torch.from_numpy(z[f"{name}_decode"])
-        for i in range(DECODE):
-            logits, new = api.decode(params, cfg, {
-                "tokens": dec[:, i:i + 1], "pos": pos + i, **state},
-                mesh=mesh)
-            out[f"{name}_decode{i}"] = logits[:, -1].numpy()
+        with _Spy(lm, keep=name in SPLIT) as dspy:
+            for i in range(DECODE):
+                logits, new = api.decode(params, cfg, {
+                    "tokens": dec[:, i:i + 1], "pos": pos + i, **state},
+                    mesh=mesh)
+                out[f"{name}_decode{i}"] = logits[:, -1].numpy()
+        if name in SPLIT:
+            blocks = _split_blocks(cfg, tree, mesh)
+            out[f"{name}_gathers"] = np.array([
+                _matches(g, blocks[k]) for g in (spy.gathered,
+                                                 dspy.gathered)
+                for k in ("wq", "kept")])
         if name == "dense":
             b, _, n = GENERATE
             gc = GrammarConstraint(compile_regex(GRAMMAR), cfg.padded_vocab,
@@ -390,8 +418,8 @@ def _child_cases(rank: int, z) -> dict:
                     cfg, whole, ServeConfig(max_new_tokens=n),
                     constraint=gc).generate(z["prompts"])
     rows, _, nm = STEP_BATCH
-    for name, arch in TRAIN.items():
-        cfg = _cfg(arch, {}, True)
+    for name, (arch, over) in TRAIN.items():
+        cfg = _cfg(arch, over, True)
         opts = TrainOptions(num_microbatches=nm,
                             aux_loss_weight=0.0 if name == "moe" else 0.01,
                             optimizer=AdamWConfig(**OPT))
@@ -404,8 +432,13 @@ def _child_cases(rank: int, z) -> dict:
         step = TL.jit_train_step(cfg, mesh, state,
                                  shr.batch_specs(batch, mesh, rows), opts)
         lm.reset_mesh_stats()
-        with _Spy(lm) as spy:
+        with _Spy(lm, keep=name in SPLIT) as spy:
             state, metrics = step(state, batch)
+        if name in SPLIT:
+            blocks = _split_blocks(cfg, _tree(
+                z, f"train_{name}_state")["params"], mesh)
+            out[f"train_{name}_gathers"] = np.array([
+                _matches(spy.gathered, blocks[k]) for k in ("wq", "kept")])
         out[f"train_{name}_stats"] = np.array(json.dumps(lm.MESH_STATS))
         out[f"train_{name}_calls"] = np.array(json.dumps(spy.calls))
         for k, v in _flat(state).items():
@@ -413,6 +446,39 @@ def _child_cases(rank: int, z) -> dict:
         for k in ("loss", "grad_norm", "lr"):
             out[f"train_{name}_{k}"] = metrics[k].numpy()
     return out
+
+
+def _split_blocks(cfg, tree: dict, mesh) -> dict:
+    """This rank's "model" blocks, whole over "data", of the leaves of the
+    layers split on head_dim: {"wq": [...], "kept": [...]}, the attention's
+    and mLSTM's ``wq`` (which a prefill makes whole over "model") and the
+    leaves that stay the rank's (the attention's ``wv``/``wo``, the
+    mLSTM's ``wv``)."""
+    from repro_torch.distributed.sharding import model_head_dim
+    hd = cfg.hd if cfg.family == "hybrid" else cfg.d_model // cfg.n_heads
+    span = model_head_dim(cfg.n_heads, hd, mesh.axis_size("model"),
+                          mesh.coordinate("model"))
+    cols = slice(span[0], span[0] + span[1])
+    out = {"wq": [], "kept": []}
+    for path, leaf in _flat(tree).items():
+        block = "attn/" in path or "_mlstm/" in path
+        name = path.rsplit("/", 1)[-1]
+        if not block or name not in ("wq", "wv", "wo"):
+            continue
+        leaf = np.asarray(leaf, np.float32)
+        entries = leaf if path.startswith("/groups/") else leaf[None]
+        for w in entries:
+            if name == "wo" and "_mlstm/" in path:
+                continue                 # the mLSTM's [D, D] row-parallel
+            w = w[:, cols] if name == "wo" else w[..., cols]
+            out["wq" if name == "wq" else "kept"].append(w)
+    return out
+
+
+def _matches(gathered: list, blocks: list) -> int:
+    """How many of the gathered inputs equal one of ``blocks``."""
+    return sum(any(g.shape == b.shape and np.array_equal(g, b)
+                   for b in blocks) for g in gathered)
 
 
 def _child_nll(mesh, z) -> dict:
@@ -448,10 +514,11 @@ def _child_nll(mesh, z) -> dict:
 
 class _Spy:
     """Records each ``launch.mesh.all_gather`` and ``all_reduce`` while
-    open, as [kind, axes, op, input shape, dtype]."""
+    open, as [kind, axes, op, input shape, dtype]; ``keep``: also the
+    input of each gather over "model" (``gathered``)."""
 
-    def __init__(self, lm):
-        self.lm, self.calls = lm, []
+    def __init__(self, lm, keep: bool = False):
+        self.lm, self.calls, self.keep, self.gathered = lm, [], keep, []
         self.saved = (lm.all_gather, lm.all_reduce)
 
     def _add(self, kind, x, axes, op):
@@ -464,6 +531,8 @@ class _Spy:
 
         def all_gather(x, mesh, axes, dim=0):
             self._add("all_gather", x, axes, "")
+            if self.keep and axes in ("model", ("model",)):
+                self.gathered.append(x.detach().float().numpy().copy())
             return gather(x, mesh, axes, dim)
 
         def all_reduce(x, mesh, axes, op="sum"):
@@ -589,16 +658,17 @@ def _kinds(cfg) -> list:
                                            - n_groups * len(pat)])
 
 
-def _model_sums(case: str, cfg) -> tuple[int, int]:
+def _model_sums(cfg) -> tuple[int, int]:
     """(all-reduces, reduce-scatters) over "model" of one prefill: the
     embedding's sum and one a row-parallel output (the MoE's: its aux
-    loss's mean over the token blocks); the RG-LRU's gates' reduce-scatter;
-    no attention sum where every rank runs every head (``hybrid_h3``)."""
+    loss's mean over the token blocks), the attention's and the mLSTM's
+    where they split on head_dim too (``hybrid_h3``, ``ssm_h1``: the rank's
+    columns of every head through ``wo``'s rows); the RG-LRU's gates'
+    reduce-scatter."""
     if cfg.family == "hybrid":
         n_rglru = _kinds(cfg).count("rglru")
         n_attn = cfg.n_layers - n_rglru
-        per_attn = 1 if case == "hybrid_h3" else 2
-        return 1 + 2 * n_rglru + per_attn * n_attn, n_rglru
+        return 1 + 2 * n_rglru + 2 * n_attn, n_rglru
     if cfg.family == "ssm":
         return 1 + cfg.n_layers, 0
     if cfg.family == "encdec":
@@ -647,24 +717,29 @@ def _expected_shapes(case: str, cfg) -> dict:
                     "state/groups/b0_rglru/conv": [1, rows, 3, r],
                     "state/tail/b1_rglru/h": [rows, r]})
         a = "params/groups/b2_attn/attn/"
-        if cfg.n_heads % m:        # 3 heads: split on head_dim, made whole
+        if cfg.n_heads % m:        # 3 heads: split on head_dim, the ring too
             out[a + "wq"] = [1, d_loc, cfg.n_heads, hd // m]
+            out[a + "wo"] = [1, cfg.n_heads, hd // m, d_loc]
+            ring = hd // m
         else:
             out[a + "wq"] = [1, d_loc, cfg.n_heads // m, hd]
+            ring = hd
         out[a + "wk"] = [1, d_loc, 1, hd // m]
-        out["state/groups/b2_attn/k"] = [1, rows, cfg.attn_window, 1, hd]
+        out["state/groups/b2_attn/k"] = [1, rows, cfg.attn_window, 1, ring]
     elif cfg.family == "ssm":
         hd = cfg.d_model // cfg.n_heads
         g = "params/groups/b0_mlstm/"
         nh = cfg.n_heads // m if cfg.n_heads % m == 0 else cfg.n_heads
+        # one head: C's value columns and n's key columns over "model"
+        cols = hd if nh < cfg.n_heads else hd // m
         out.update({g + "wog": [1, d_loc, cfg.d_model // m],
                     g + "wo": [1, cfg.d_model // m, d_loc],
                     g + "wi": [1, d_loc, nh],
                     "params/groups/b7_slstm/wz": [1, d_loc, cfg.d_model // m],
                     "params/groups/b7_slstm/wo": [1, cfg.d_model // m, d_loc],
-                    "state/groups/b0_mlstm/C": [1, rows, nh, hd, hd],
+                    "state/groups/b0_mlstm/C": [1, rows, nh, hd, cols],
                     "state/groups/b7_slstm/c": [1, rows, cfg.d_model // m],
-                    "state/tail/b1_mlstm/n": [rows, nh, hd]})
+                    "state/tail/b1_mlstm/n": [rows, nh, cols]})
         out[g + "wq"] = ([1, d_loc, nh, hd] if nh < cfg.n_heads
                          else [1, d_loc, cfg.n_heads, hd // m])
     else:                                                       # encdec
@@ -692,11 +767,22 @@ def test_each_rank_holds_its_rows_and_heads(world, case):
     from repro_torch.launch.mesh import MeshLayout
     from repro_torch.models import api as tapi
 
+    from repro_torch.distributed import sharding as shr
+    from repro_torch.models import recurrent as RG
+    from repro_torch.models import xlstm as XL
+
     outs, _, _ = world
     arch, over = CASES[case]
     cfg = _cfg(arch, over, True)
     want = _expected_shapes(case, cfg)
-    sums, scatters = _model_sums(case, cfg)
+    sums, scatters = _model_sums(cfg)
+    layout = MeshLayout(MESH, ("pod", "data", "model"))
+    b, t = PREFILL
+    if case in SPLIT:              # the rules' block of the whole state
+        init = (RG.init_hybrid_state if cfg.family == "hybrid"
+                else XL.init_xlstm_state)
+        whole = _flat(init(cfg, b, device="meta"), "state")
+        specs = shr.state_specs(whole, layout, b)
     for r, got in enumerate(outs):
         shapes = json.loads(str(got[f"{case}_shapes"]))
         assert {k: shapes[k] for k in want} == want, r
@@ -704,13 +790,44 @@ def test_each_rank_holds_its_rows_and_heads(world, case):
         assert stats["all_reduce model"][0] == sums
         assert stats.get("reduce_scatter model", [0])[0] == scatters
         assert stats["all_gather pod,data"][0] == 1     # the logits' rows
+        if case in SPLIT:
+            coord = [int(c) for c in got["coordinate"]]
+            blocks = {k: [s_.stop - s_.start for s_ in shr.local_slices(
+                tuple(v.shape), specs[k], MESH, coord)]
+                for k, v in whole.items()}
+            assert {k: shapes[k] for k in blocks} == blocks, r
+            # wq and wk made whole over "model" a split layer, then the
+            # logits' vocab; the mLSTM's h to its columns, one all-to-all
+            n_split = (_kinds(cfg).count("attn") if cfg.family == "hybrid"
+                       else _kinds(cfg).count("mlstm"))
+            assert stats["all_gather model"][0] == 2 * n_split + 1
+            assert stats.get("all_to_all model", [0])[0] == (
+                n_split if cfg.family == "ssm" else 0)
     # what the dry run places for a decode cell: the same cache or state
-    b, t = PREFILL
     spec = tapi.input_specs(cfg, ShapeSpec("d", "decode", t + DECODE, b),
-                            MeshLayout(MESH, ("pod", "data", "model")))
+                            layout)
     state = spec["state"] if "state" in spec else spec["cache"]
     assert {"state" + k: list(v.shape) for k, v in _flat(state).items()} \
         == {k: v for k, v in shapes.items() if k.startswith("state/")}
+
+
+@pytest.mark.parametrize("case", SPLIT)
+def test_head_dim_split_gathers_no_value_side_leaf(world, case):
+    """A layer split on head_dim over "model" keeps its value side on the
+    rank: no gather over "model" in the prefill, the decode steps or the
+    train step has the rank's block of the attention's ``wv``/``wo`` or
+    the mLSTM's ``wv`` as its input, while the prefill makes each split
+    layer's ``wq`` whole (once a layer) and the train step does too."""
+    outs, _, _ = world
+    cfg = _cfg(*CASES[case], True)
+    n_split = (_kinds(cfg).count("attn") if cfg.family == "hybrid"
+               else _kinds(cfg).count("mlstm"))
+    for r, got in enumerate(outs):
+        pre_wq, pre_kept, dec_wq, dec_kept = (int(v) for v in
+                                              got[f"{case}_gathers"])
+        assert (pre_wq, pre_kept, dec_wq, dec_kept) == (n_split, 0, 0, 0), r
+        train_wq, train_kept = (int(v) for v in got[f"train_{case}_gathers"])
+        assert train_wq > 0 and train_kept == 0, (r, train_wq, train_kept)
 
 
 @pytest.mark.parametrize("family", sorted(TRAIN))
@@ -738,12 +855,14 @@ def test_train_step_matches_jax(world, family):
         else:
             assert _rel_l2(got[k], want[k]) <= leaf_tol, k
     # the layers ran tensor-parallel: sums over "model" in both passes'
-    # forward; the RG-LRU's gates reduce-scattered over it; no gradient
-    # summed over it where every leaf splits on its heads
+    # forward; the RG-LRU's gates reduce-scattered over it, and the
+    # gradient of the ``wq``/``wk`` a head_dim split makes whole; no
+    # gradient summed over it where every leaf splits on its heads
     stats = json.loads(str(got[f"{name}_stats"]))
     assert stats["all_reduce model"][0] > 0
     scatters = stats.get("reduce_scatter model", [0])[0]
-    assert (scatters > 0) == (family == "hybrid")
+    assert (scatters > 0) == (family.startswith("hybrid")
+                              or family in SPLIT)
 
 
 @pytest.mark.parametrize("family", sorted(TRAIN))
@@ -755,7 +874,7 @@ def test_train_step_reduces_the_loss_over_model(world, family):
     outs, _, _ = world
     rows, t, nm = STEP_BATCH
     pod, data, m = MESH
-    cfg = _cfg(TRAIN[family], {}, True)
+    cfg = _cfg(*TRAIN[family], True)
     local = [rows // nm // (pod * data), t]
     numel = local[0] * t * cfg.padded_vocab // m
     for r, got in enumerate(outs):
@@ -827,22 +946,50 @@ def test_dryrun_production_mesh_fits_a_card(tmp_path, shape):
     assert rec["collectives"]["all-reduce"]["count"] == 2 * 22 + 1
 
 
+def test_dryrun_xlstm_decode_holds_its_state_block(tmp_path):
+    """xlstm-1.3b ``decode_32k`` on the (16, 16) fake world: a rank's peak
+    is below 0.5 GiB (8 rows; the 42 mLSTM blocks' ``C`` and ``n`` split
+    on head_dim over "model": 0.08 of the 1.31 GiB whole heads hold), and
+    each mLSTM block sums its ``q . n`` over "model" and exchanges ``h``
+    once."""
+    code = ("import sys\n"
+            "from repro_torch.launch import dryrun\n"
+            "sys.argv = ['dryrun', '--arch', 'xlstm-1.3b', '--shape', "
+            f"'decode_32k', '--mesh', 'single', '--out', {str(tmp_path)!r}]\n"
+            "sys.exit(dryrun.main())\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    with open(tmp_path / "single" / "xlstm-1.3b--decode_32k.json") as f:
+        rec = json.load(f)
+    assert rec["ok"], rec.get("error")
+    assert rec["memory"]["peak_bytes"] < 0.5 * 2 ** 30
+    assert rec["collectives"]["all-to-all"]["count"] == 42
+
+
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-1.3b",
                                   "seamless-m4t-medium"])
 def test_input_specs_give_the_rank_its_state_on_the_production_mesh(arch):
     """``decode_32k`` on (16, 16): 8 of 128 rows a rank and its part over
-    "model": recurrentgemma-2b's d_rnn / 16 RG-LRU channels and its one kv
-    head in the ring (10 query heads do not split 16 ways: every rank runs
-    all of them); xlstm-1.3b's sLSTM D / 16 channels and all 4 mLSTM heads
-    (q/k/v split on head_dim, made whole); seamless-m4t-medium's 1 of 16
-    kv heads in the decoder cache."""
+    "model": recurrentgemma-2b's d_rnn / 16 RG-LRU channels and its ring's
+    head_dim / 16 columns of its one kv head (10 query heads do not split
+    16 ways: the layer splits on head_dim); xlstm-1.3b's sLSTM D / 16
+    channels and, its 4 mLSTM heads split on head_dim, every head's
+    ``C`` value columns and ``n`` key columns / 16; seamless-m4t-medium's
+    1 of 16 kv heads in the decoder cache.  The hybrid's and ssm's blocks
+    are those ``sharding.state_specs`` places on rank 0 of the whole
+    batch's state."""
     from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed import sharding as shr
     from repro_torch.launch.mesh import MeshLayout
     from repro_torch.models import api as tapi
+    from repro_torch.models import recurrent as RG
+    from repro_torch.models import xlstm as XL
 
     cfg = get_config(arch)
-    spec = tapi.input_specs(cfg, SHAPES["decode_32k"],
-                            MeshLayout((16, 16), ("data", "model")))
+    layout = MeshLayout((16, 16), ("data", "model"))
+    spec = tapi.input_specs(cfg, SHAPES["decode_32k"], layout)
     got = {k: v.shape for k, v in _flat(spec).items()
            if k.startswith(("/state", "/cache"))}
     rows, s = 128 // 16, 32_768
@@ -850,16 +997,26 @@ def test_input_specs_give_the_rank_its_state_on_the_production_mesh(arch):
         r = 2560 // 16
         want = {"/state/groups/b0_rglru/h": (8, rows, r),
                 "/state/groups/b1_rglru/conv": (8, rows, 3, r),
-                "/state/groups/b2_attn/k": (8, rows, 2048, 1, 256),
+                "/state/groups/b2_attn/k": (8, rows, 2048, 1, 16),
+                "/state/groups/b2_attn/v": (8, rows, 2048, 1, 16),
                 "/state/tail/b1_rglru/h": (rows, r)}
     elif arch == "xlstm-1.3b":
-        want = {"/state/groups/b0_mlstm/C": (6, rows, 4, 512, 512),
-                "/state/groups/b6_mlstm/n": (6, rows, 4, 512),
+        want = {"/state/groups/b0_mlstm/C": (6, rows, 4, 512, 32),
+                "/state/groups/b6_mlstm/n": (6, rows, 4, 32),
                 "/state/groups/b7_slstm/c": (6, rows, 2048 // 16)}
     else:
         want = {"/cache/k": (12, rows, s, 1, 64),
                 "/cache/v": (12, rows, s, 1, 64)}
     assert {k: got[k] for k in want} == want
+    if cfg.family in ("hybrid", "ssm"):
+        init = (RG.init_hybrid_state if cfg.family == "hybrid"
+                else XL.init_xlstm_state)
+        whole = _flat(init(cfg, 128, device="meta"), "/state")
+        specs = shr.state_specs(whole, layout, 128)
+        placed = {k: tuple(s_.stop - s_.start for s_ in shr.local_slices(
+            tuple(v.shape), specs[k], (16, 16), (0, 0)))
+            for k, v in whole.items()}
+        assert placed == {k: got[k] for k in placed}
 
 
 def test_byte_view_of_a_tensor_whose_last_stride_is_not_one():
@@ -1022,6 +1179,204 @@ def test_vocab_parallel_nll_gradient_is_lm_loss_gradient(monkeypatch):
         scale = float(want_g.abs().max())
         gap = float((g - want_g[..., r * nv:(r + 1) * nv]).abs().max())
         assert gap <= 1e-6 * scale, (r, gap, scale)
+
+
+def _thread_parts(x, mesh) -> list:
+    """Every rank's ``x`` of a ``_ThreadAxis``, in rank order."""
+    board = mesh.board
+    board["parts"][mesh.rank] = x
+    board["barrier"].wait()
+    parts = list(board["parts"])
+    board["barrier"].wait()          # every rank has read the board
+    return parts
+
+
+def _thread_collectives(monkeypatch, lm) -> None:
+    """``launch.mesh``'s collectives over a ``_ThreadAxis``."""
+    def all_reduce(x, mesh, axes, op="sum"):
+        parts = torch.stack(_thread_parts(x.detach().clone(), mesh))
+        return parts.amax(0) if op == "max" else parts.sum(0)
+
+    def all_gather(x, mesh, axes, dim=0):
+        return torch.cat(_thread_parts(x.detach().clone(), mesh), dim)
+
+    def reduce_scatter(x, mesh, axes, dim=0):
+        total = sum(_thread_parts(x.detach().clone(), mesh))
+        return total.chunk(mesh.board["n"], dim)[mesh.rank].contiguous()
+
+    def all_to_all_v(x, mesh, axis, send, recv):
+        parts = _thread_parts((x.detach().clone(), list(send)), mesh)
+        out = []
+        for src, sizes in parts:
+            lo = sum(sizes[:mesh.rank])
+            out.append(src[lo:lo + sizes[mesh.rank]])
+        got = torch.cat(out, 0)
+        assert got.shape[0] == sum(recv)
+        return got
+
+    for name, fn in (("all_reduce", all_reduce), ("all_gather", all_gather),
+                     ("reduce_scatter", reduce_scatter),
+                     ("all_to_all_v", all_to_all_v)):
+        monkeypatch.setattr(lm, name, fn)
+
+
+class _Snapshots(dict):
+    """A decode state whose every read is a fresh copy, the last one read
+    kept in ``last``: the step's in-place update then writes a copy, not
+    the tensor its products saved for the backward pass."""
+
+    def __init__(self, state):
+        super().__init__(state)
+        self.last = {}
+
+    def __getitem__(self, k):
+        self.last[k] = dict.__getitem__(self, k).clone()
+        return self.last[k]
+
+
+SPLIT_HD = (4, 3, 16, 64, 8)     # ranks, query heads, head_dim, D, positions
+PROMPT_HD = 24                   # the prefill cases' tokens (mLSTM: 3 chunks)
+
+
+def _split_case(kind: str, gen):
+    """(the whole layer's leaves, its cache or state, a forward ``run(p,
+    x, mesh, state)`` returning (out, the state or cache it wrote), the
+    dim of each leaf or state cut to a rank's block, d_model) of a decode
+    step of a layer split on head_dim over ``SPLIT_HD[0]`` ranks."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import layers as L
+    from repro_torch.models import recurrent as RG
+    from repro_torch.models import xlstm as XL
+
+    n, heads, hd, d, s = SPLIT_HD
+    pos = s - 3
+    if kind.startswith("mlstm"):         # 3 heads of hd: D = 3 hd
+        p = XL.init_mlstm_block(gen, heads * hd, heads, device="cpu")
+        state = {"C": torch.randn(2, heads, hd, hd, generator=gen) * 0.1,
+                 "n": torch.randn(2, heads, hd, generator=gen)}
+        if kind == "mlstm_prefill":
+            state = {}
+
+        def run(p, x, mesh, st):
+            snap = _Snapshots(st) if st else None
+            out, _ = XL.mlstm_block(p, x, n_heads=heads, eps=1e-5,
+                                    state=snap, mesh=mesh)
+            return out, snap.last if st else {}
+        cut = {"wq": 2, "wk": 2, "wv": 2, "C": 3, "n": 2, "wog": 1, "wo": 0}
+        return p, state, run, cut, heads * hd
+    cfg = dc.replace(reduce_for_smoke(get_config("recurrentgemma-2b")),
+                     d_model=d, n_heads=heads, n_kv_heads=1, head_dim=hd,
+                     attn_window=s)
+    if kind == "ring":
+        p = RG.init_attn_block(gen, cfg, device="cpu")
+        ring = {k: torch.randn(2, s, 1, hd, generator=gen)
+                for k in ("k", "v")}
+
+        def run(p, x, mesh, st):
+            return RG.attn_block_decode(p, x, cfg, st, pos, mesh=mesh)
+        return p, ring, run, {"attn/wq": 2, "attn/wk": 2, "attn/wv": 2,
+                              "attn/wo": 1, "k": 3, "v": 3,
+                              "mlp/wi_gate": 1, "mlp/wi_up": 1,
+                              "mlp/wo": 0}, d
+    p = L.init_attention(gen, d, heads, 1, hd, device="cpu")
+    if kind.startswith("cross"):         # K/V from a memory every rank holds
+        memory = torch.randn(2, 6, d, generator=gen)
+
+        def run(p, x, mesh, st):
+            out, _ = L.attention(p, x, positions=None, rope_theta=10_000.0,
+                                 memory=memory, causal=False, mesh=mesh,
+                                 heads=(heads, 1, hd))
+            return out, {}
+        return p, {}, run, {"wq": 2, "wk": 2, "wv": 2, "wo": 1}, d
+    cache = {k: torch.randn(2, s, 1, hd, generator=gen) for k in ("k", "v")}
+    at, positions = pos, torch.full((1, 1), pos)
+    if kind == "attention_prefill":      # blockwise, from position 0
+        cache = {k: torch.zeros(2, PROMPT_HD, 1, hd) for k in ("k", "v")}
+        at, positions = 0, torch.arange(PROMPT_HD)[None]
+
+    def run(p, x, mesh, st):
+        return L.attention(p, x, positions=positions, rope_theta=10_000.0,
+                           window=5, cache=st, cache_index=at, mesh=mesh,
+                           heads=(heads, 1, hd))
+    return p, cache, run, {"wq": 2, "wk": 2, "wv": 2, "wo": 1, "k": 3,
+                           "v": 3}, d
+
+
+def _block(x, dim, n, r):
+    return x.chunk(n, dim)[r]
+
+
+@pytest.mark.parametrize("kind", ["attention", "ring", "mlstm", "cross",
+                                  "attention_prefill", "mlstm_prefill",
+                                  "cross_prefill"])
+def test_head_dim_split_is_one_process(monkeypatch, kind):
+    """A decode step (and a prefill: ``PROMPT_HD`` tokens, the attention
+    blockwise into a cache from position 0, the mLSTM in 3 chunks) of a
+    layer, and a cross-attention to a memory, whose heads do not divide
+    "model" (3
+    query heads, the mLSTM's too) on an axis of 4 ranks run as
+    threads, each holding its head_dim / 4 columns of ``wq``/``wk``/
+    ``wv``/``wo`` and of the cache, ring or state (``C``'s value columns,
+    ``n``'s key columns): the output equals one process's within 1e-5 of
+    its largest |value|, each rank's cache or state equals its block of
+    one process's, and the gradient of the output's inner product with a
+    random tensor, in x and in the rank's leaves, equals the matching
+    block of one process's.  rope's partner columns lie on another rank
+    (column i pairs with i + 8 of 16); the partial scores (the mLSTM's
+    ``q . n``) are summed over "model" in the forward and their gradient
+    in the backward: dropping either sum fails."""
+    from repro_torch.launch import mesh as lm
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    from repro_torch.models import xlstm as XL
+
+    monkeypatch.setattr(L, "Compute", torch.float32)
+    monkeypatch.setattr(moe, "Compute", torch.float32)
+    monkeypatch.setattr(XL, "CHUNK", PROMPT_HD // 3)
+    _thread_collectives(monkeypatch, lm)
+    n = SPLIT_HD[0]
+    gen = torch.Generator().manual_seed(5)
+    p, state, run, cut, d = _split_case(kind, gen)
+    t = PROMPT_HD if kind.endswith("prefill") else 1
+    x = torch.randn(2, t, d, generator=gen)
+    g = torch.randn(2, t, d, generator=gen)
+    flat = _flat(p)
+    names = sorted(flat)
+
+    def one(leaves, x, mesh, st):
+        out, st = run(_unflat(dict(zip(names, leaves))), x, mesh, st)
+        grads = torch.autograd.grad(torch.sum(out * g), [x, *leaves])
+        return out.detach(), {k: v.detach() for k, v in st.items()}, grads
+
+    leaves = [flat[k].clone().requires_grad_() for k in names]
+    want, want_st, want_g = one(leaves, x.clone().requires_grad_(), None,
+                                {k: v.clone() for k, v in state.items()})
+
+    def key(name):
+        return name.strip("/")
+
+    def rank(axis):
+        r = axis.rank
+        mine = [(_block(flat[k], cut[key(k)], n, r) if key(k) in cut
+                 else flat[k]).clone().requires_grad_() for k in names]
+        st = {k: _block(v, cut[k], n, r).clone() for k, v in state.items()}
+        return one(mine, x.clone().requires_grad_(), axis, st)
+
+    scale = float(want.abs().max())
+    for r, (out, st, grads) in enumerate(_on_threads(n, rank)):
+        assert float((out - want).abs().max()) <= 1e-5 * scale, (kind, r)
+        for k, v in st.items():
+            torch.testing.assert_close(v, _block(want_st[k], cut[k], n, r),
+                                       rtol=0, atol=1e-5 * float(
+                                           want_st[k].abs().max()))
+        for name, got, ref in zip(["x", *names], grads, want_g):
+            if key(name) in cut:
+                ref = _block(ref, cut[key(name)], n, r)
+            gap = float((got - ref).abs().max())
+            assert gap <= 1e-5 * max(float(ref.abs().max()), 1e-30), \
+                (kind, r, name, gap, float(ref.abs().max()))
 
 
 if __name__ == "__main__":
