@@ -32,6 +32,15 @@ Seq plans (documents shorter than ``4 * C``) are torch-eager in both.
 torch scan ``core.lvector.merge_scan_lanes_torch`` in the eager lowering and
 the compose kernels (``kernels.ops.spec_compose_lanes``, mode
 ``compose_mode``) in the kernel lowering.
+
+While a torch profiler records, ``run`` is the range ``executor.run``
+(``kernels.census_hooks.span``), a lowering made on a cache miss
+``executor.lower``, and inside the kernel lowering and the eager bodies
+``executor.upload`` (the operands' host-to-device copies),
+``executor.stages`` (classify, boundary keys, candidate gather) and
+``executor.launch`` (the kernel wrapper's call, or the eager scan and
+merge).  Stages and launch time the host's side of work the device runs
+asynchronously.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ import torch
 
 from ...kernels import ops as kops
 from ...kernels import ref as kref
+from ...kernels.census_hooks import span
 from ..lvector import merge_scan_lanes_torch
 from .plan import ENTRY_LANES, ENTRY_STARTS, ENTRY_STATES, DeviceTables, LanePlan
 
@@ -106,15 +116,17 @@ class LaneExecutor:
     def run(self, plan: LanePlan, bytes_buf: np.ndarray, lengths: np.ndarray,
             *, layout=None, entry: Optional[np.ndarray] = None,
             entry_classes: Optional[np.ndarray] = None):
-        fn = self.lower(plan, layout=layout, batch=int(bytes_buf.shape[0]))
-        return fn(bytes_buf, lengths, entry, entry_classes)
+        with span("executor.run"):
+            fn = self.lower(plan, layout=layout, batch=int(bytes_buf.shape[0]))
+            return fn(bytes_buf, lengths, entry, entry_classes)
 
     def lower(self, plan: LanePlan, *, layout=None, batch: int = 0):
         """The program of one plan (cached; lowering happens once)."""
         key = self._plan_key(plan, batch)
         fn = self._lowered.get(key)
         if fn is None:
-            fn = self._lower(plan, layout, batch)
+            with span("executor.lower"):
+                fn = self._lower(plan, layout, batch)
             self._lowered[key] = fn
             self.traces += 1
         return fn
@@ -171,10 +183,11 @@ class LaneExecutor:
     def _eager(self, body, plan: LanePlan):
         """Upload the host operands and run a torch-eager stage body."""
         def fn(bytes_buf, lengths, entry, entry_cls):
-            return body(plan, self._put(bytes_buf, torch.uint8),
-                        self._put(lengths),
-                        None if entry is None else self._put(entry),
-                        None if entry_cls is None else self._put(entry_cls))
+            with span("executor.upload"):
+                ops = (self._put(bytes_buf, torch.uint8), self._put(lengths),
+                       None if entry is None else self._put(entry),
+                       None if entry_cls is None else self._put(entry_cls))
+            return body(plan, *ops)
         return fn
 
     def steps_for(self, layout) -> int:
@@ -263,7 +276,8 @@ class LaneExecutor:
         ``(kind, fn)`` and runs once per key."""
         fn = self._lowered.get(key)
         if fn is None:
-            self.lowering_kinds[key], fn = lower()
+            with span("executor.lower"):
+                self.lowering_kinds[key], fn = lower()
             self._lowered[key] = fn
             self.traces += 1
         return fn(self._put(lane_maps), self._put(entry_keys))
@@ -293,14 +307,16 @@ class LaneExecutor:
                   entry_cls=None):
         """Batched Algorithm 1: classify -> entry-seed -> scan."""
         b, w = bytes_buf.shape
-        cls = self._classify(bytes_buf, lengths)
-        rows = self._seed_rows(plan, b, entry, entry_cls).reshape(b, -1)
-        finals, pos = self._segmented_match(cls, rows,
-                                            lengths.clamp(max=w), w,
-                                            early_exit=plan.early_exit)
-        if plan.entry == ENTRY_LANES:
-            seg = finals.reshape(b, self.t.n_patterns, self.t.i_max)
-            return self._compose_cursor(entry, seg, entry_cls), pos
+        with span("executor.stages"):
+            cls = self._classify(bytes_buf, lengths)
+            rows = self._seed_rows(plan, b, entry, entry_cls).reshape(b, -1)
+        with span("executor.launch"):
+            finals, pos = self._segmented_match(cls, rows,
+                                                lengths.clamp(max=w), w,
+                                                early_exit=plan.early_exit)
+            if plan.entry == ENTRY_LANES:
+                seg = finals.reshape(b, self.t.n_patterns, self.t.i_max)
+                return self._compose_cursor(entry, seg, entry_cls), pos
         return finals, pos
 
     # -- spec stage bodies (shared by the eager and kernel lowerings) --------
@@ -321,23 +337,24 @@ class LaneExecutor:
         c = self.num_chunks
         lc = w // c
         k, s = t.n_patterns, t.i_max
-        body = self._classify(bytes_buf, lengths).reshape(b, c, lc)
-        last1 = body[:, :-1, -1]                               # [B, C-1]
-        if t.spec_r == 2:
-            if lc < 2:
-                raise ValueError(
-                    f"spec_r=2 boundary keys need chunk_len >= 2, got {lc}")
-            key = body[:, :-1, -2] * t.pad_cls + last1
-            key = torch.where(last1 == t.pad_cls,
-                              torch.full_like(key, t.pad_key), key)
-        else:
-            key = last1  # r=1: the key is the class (pad_cls == pad_key)
-        la = torch.cat([torch.zeros((b, 1), dtype=torch.int32,
-                                    device=body.device), key], dim=1)
-        cand = t.cand_pad_t[la[:, 1:].long()]                  # [B, C-1, K, S]
-        start = self._seed_chunk0(plan, b, entry, entry_cls)   # [B, 1, K, S]
-        init = torch.cat([start, cand], dim=1).reshape(b, c, k * s)
-        return body.contiguous(), la.contiguous(), init.contiguous()
+        with span("executor.stages"):
+            body = self._classify(bytes_buf, lengths).reshape(b, c, lc)
+            last1 = body[:, :-1, -1]                           # [B, C-1]
+            if t.spec_r == 2:
+                if lc < 2:
+                    raise ValueError(f"spec_r=2 boundary keys need "
+                                     f"chunk_len >= 2, got {lc}")
+                key = body[:, :-1, -2] * t.pad_cls + last1
+                key = torch.where(last1 == t.pad_cls,
+                                  torch.full_like(key, t.pad_key), key)
+            else:
+                key = last1  # r=1: the key is the class (pad_cls == pad_key)
+            la = torch.cat([torch.zeros((b, 1), dtype=torch.int32,
+                                        device=body.device), key], dim=1)
+            cand = t.cand_pad_t[la[:, 1:].long()]              # [B, C-1, K, S]
+            start = self._seed_chunk0(plan, b, entry, entry_cls)  # [B, 1, K, S]
+            init = torch.cat([start, cand], dim=1).reshape(b, c, k * s)
+            return body.contiguous(), la.contiguous(), init.contiguous()
 
     def _spec_body(self, plan: LanePlan, bytes_buf, lengths, entry=None,
                    entry_cls=None):
@@ -349,17 +366,18 @@ class LaneExecutor:
         k, s = t.n_patterns, t.i_max
         body, la, init = self._spec_stages(plan, bytes_buf, lengths, entry,
                                            entry_cls)
-        lvecs, pos = self._segmented_match(body.reshape(b * c, lc),
-                                           init.reshape(b * c, k * s),
-                                           lengths.clamp(max=lc), lc,
-                                           early_exit=plan.early_exit)
-        lv = lvecs.reshape(b, c, k, s)
-        if plan.entry == ENTRY_LANES:
-            seg = kref.spec_merge_lanes_ref(lv, la, t.cidx_pad_t, t.sinks_t,
-                                            pad_cls=t.pad_key)
-            return self._compose_cursor(entry, seg, entry_cls), pos
-        finals = kref.spec_merge_ref(lv, la, t.cidx_pad_t, t.sinks_t,
-                                     pad_cls=t.pad_key)
+        with span("executor.launch"):
+            lvecs, pos = self._segmented_match(body.reshape(b * c, lc),
+                                               init.reshape(b * c, k * s),
+                                               lengths.clamp(max=lc), lc,
+                                               early_exit=plan.early_exit)
+            lv = lvecs.reshape(b, c, k, s)
+            if plan.entry == ENTRY_LANES:
+                seg = kref.spec_merge_lanes_ref(lv, la, t.cidx_pad_t,
+                                                t.sinks_t, pad_cls=t.pad_key)
+                return self._compose_cursor(entry, seg, entry_cls), pos
+            finals = kref.spec_merge_ref(lv, la, t.cidx_pad_t, t.sinks_t,
+                                         pad_cls=t.pad_key)
         return finals, pos
 
 
@@ -383,16 +401,14 @@ class LocalExecutor(LaneExecutor):
         # sequential fold) or "tree" (B4, the pairwise reduce); read when an
         # N is first lowered
         self.compose_mode = compose_mode
-        # device tensors of per-doc skipped blocks, summed lazily
-        self._skipped_log: list = []
-        self._skipped_total = 0
+        # symbol blocks skipped by the in-kernel early exit: one device
+        # counter, added to on the device with each launch
+        self._skipped = torch.zeros((), dtype=torch.int64, device=self.device)
 
     def kernel_skipped_steps(self) -> int:
         """Total symbol blocks skipped by the in-kernel early exit so far
-        (draining the log synchronises with the device)."""
-        while self._skipped_log:
-            self._skipped_total += int(self._skipped_log.pop().sum())
-        return self._skipped_total
+        (reading the counter synchronises with the device)."""
+        return int(self._skipped)
 
     def compose_lane_maps(self, lane_maps, entry_keys) -> torch.Tensor:
         """The gap-close fold on the compose kernels when this executor runs
@@ -454,16 +470,19 @@ class LocalExecutor(LaneExecutor):
             if plan.early_exit and bucket_done:
                 pos = np.where(doc_abs, 0, NO_EXIT).astype(np.int32)
                 return self._put(e), self._put(pos)
-            buf, lens = self._put(bytes_buf, torch.uint8), self._put(lengths)
-            ent = None if entry is None else self._put(entry)
-            ecls = None if entry_cls is None else self._put(entry_cls)
+            with span("executor.upload"):
+                buf = self._put(bytes_buf, torch.uint8)
+                lens = self._put(lengths)
+                ent = None if entry is None else self._put(entry)
+                ecls = None if entry_cls is None else self._put(entry_cls)
             body, la, init = self._spec_stages(plan, buf, lens, ent, ecls)
             fn = kops.spec_match_merge_lanes if lanes_mode else kops.spec_match_merge
-            out, skipped, _ = fn(t.table_pad_t, body, init, la, t.cidx_pad_t,
-                                 t.sinks_t, t.absorbing_t, pad_cls=t.pad_cls,
-                                 pad_key=t.pad_key,
-                                 early_exit=plan.early_exit, l_blk=l_blk)
-            self._skipped_log.append(skipped)
+            with span("executor.launch"):
+                out, skipped, _ = fn(t.table_pad_t, body, init, la,
+                                     t.cidx_pad_t, t.sinks_t, t.absorbing_t,
+                                     pad_cls=t.pad_cls, pad_key=t.pad_key,
+                                     early_exit=plan.early_exit, l_blk=l_blk)
+            self._skipped += skipped.sum()
             if lanes_mode:
                 out = self._compose_cursor(ent, out, ecls)
             if not plan.early_exit:

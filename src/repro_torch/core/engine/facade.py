@@ -14,6 +14,14 @@ backend, mesh shape and capacity profile.  The facade packs the patterns,
 owns a sticky-bucket ``Planner`` and an executor (``LocalExecutor``, or the
 mesh's ``ShardedExecutor``), packs bucket tiles on the host and scatters the
 results back.
+
+While a torch profiler records, the facade and its executor mark their
+layer boundaries as profiler ranges (``kernels.census_hooks.span``):
+``repro_torch.matcher.membership_batch`` once a call, around
+``matcher.plan``, and per bucket tile ``matcher.pack``, the executor's
+``executor.run``, ``matcher.readback`` (the host's wait for the device) and
+``matcher.scatter``; a last ``matcher.scatter`` for the accept lookup and
+the work model.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ...kernels.census_hooks import span
 from ..automata import DFA, PackedDFA, pack_dfas, packed_signature
 from ..partition import capacity_weights
 from .executors import LocalExecutor
@@ -554,47 +563,51 @@ class Matcher:
             for lo in range(0, bucket.doc_idx.size, self.batch_tile):
                 sel = bucket.doc_idx[lo:lo + self.batch_tile]
                 n = sel.size
-                # ragged doc tiling: capacity-weighted mesh layouts place
-                # documents into row-blocks by Eq. 7 on the doc axis; rowpos
-                # is each document's tile row, and results come back through
-                # the same placement
-                rowpos = (layout.tile_rows(n, self.batch_tile) if ragged
-                          else np.arange(n))
-                buf = np.zeros((self.batch_tile, bucket.width), np.uint8)
-                lens = np.zeros(self.batch_tile, np.int32)
-                for r, i in enumerate(sel):
-                    buf[rowpos[r], :lengths[i]] = arrs[i]
-                    lens[rowpos[r]] = lengths[i]
-                if tile_hook is not None:
-                    tile_hook(bucket, layout, sel, lens)
-                self.traffic.record(n, lengths[sel])
-                ent = ecls = None
-                if entry_mode == ENTRY_STATES:
-                    # pad rows scan from the pattern starts (ignored)
-                    ent = np.tile(self.packed.starts,
-                                  (self.batch_tile, 1)).astype(np.int32)
-                    ent[rowpos] = entry[sel]
-                elif entry_mode == ENTRY_LANES:
-                    # pad rows carry in-range lanes and the pad boundary key,
-                    # which the merge composes as the identity
-                    s = self.tables.i_max
-                    ent = np.broadcast_to(
-                        self.packed.starts.astype(np.int32)[None, :, None],
-                        (self.batch_tile, k, s)).copy()
-                    ent[rowpos] = entry[sel]
-                    ecls = np.full(self.batch_tile, self.dev.pad_key,
-                                   np.int32)
-                    ecls[rowpos] = entry_cls[sel]
+                with span("matcher.pack"):
+                    # ragged doc tiling: capacity-weighted mesh layouts place
+                    # documents into row-blocks by Eq. 7 on the doc axis;
+                    # rowpos is each document's tile row, and results come
+                    # back through the same placement
+                    rowpos = (layout.tile_rows(n, self.batch_tile) if ragged
+                              else np.arange(n))
+                    buf = np.zeros((self.batch_tile, bucket.width), np.uint8)
+                    lens = np.zeros(self.batch_tile, np.int32)
+                    for r, i in enumerate(sel):
+                        buf[rowpos[r], :lengths[i]] = arrs[i]
+                        lens[rowpos[r]] = lengths[i]
+                    if tile_hook is not None:
+                        tile_hook(bucket, layout, sel, lens)
+                    self.traffic.record(n, lengths[sel])
+                    ent = ecls = None
+                    if entry_mode == ENTRY_STATES:
+                        # pad rows scan from the pattern starts (ignored)
+                        ent = np.tile(self.packed.starts,
+                                      (self.batch_tile, 1)).astype(np.int32)
+                        ent[rowpos] = entry[sel]
+                    elif entry_mode == ENTRY_LANES:
+                        # pad rows carry in-range lanes and the pad boundary
+                        # key, which the merge composes as the identity
+                        s = self.tables.i_max
+                        ent = np.broadcast_to(
+                            self.packed.starts.astype(np.int32)[None, :, None],
+                            (self.batch_tile, k, s)).copy()
+                        ent[rowpos] = entry[sel]
+                        ecls = np.full(self.batch_tile, self.dev.pad_key,
+                                       np.int32)
+                        ecls[rowpos] = entry_cls[sel]
                 res, pos = self.executor.run(lane, buf, lens, layout=layout,
                                              entry=ent, entry_classes=ecls)
-                out[sel] = res.cpu().numpy()[rowpos]
-                pos = pos.cpu().numpy()[rowpos]
-                # a doc "exited early" if all its lanes hit absorbing states
-                # before its real symbols ran out (spec positions are
-                # chunk-local, so compare against the per-chunk fill)
-                eff = (np.minimum(bucket.chunk_len, lengths[sel]) if spec
-                       else lengths[sel])
-                early += int((pos < eff).sum())
+                with span("matcher.readback"):
+                    res, pos = res.cpu().numpy(), pos.cpu().numpy()
+                with span("matcher.scatter"):
+                    out[sel] = res[rowpos]
+                    pos = pos[rowpos]
+                    # a doc "exited early" if all its lanes hit absorbing
+                    # states before its real symbols ran out (spec positions
+                    # are chunk-local, so compare against the per-chunk fill)
+                    eff = (np.minimum(bucket.chunk_len, lengths[sel]) if spec
+                           else lengths[sel])
+                    early += int((pos < eff).sum())
                 calls += 1
                 rows += self.batch_tile
         return calls, rows, early
@@ -605,18 +618,23 @@ class Matcher:
         ``docs`` is a ragged sequence of B byte strings / uint8 arrays; the
         [B, K] decisions are bit-identical to sequential matching.
         """
+        with span("matcher.membership_batch"):
+            return self._membership_batch(docs)
+
+    def _membership_batch(self, docs) -> BatchResult:
         b = len(docs)
         k = self.packed.n_patterns
         if b == 0:
             z = np.zeros(0, np.int64)
             return BatchResult(np.zeros((0, k), bool), np.zeros((0, k), np.int32),
                                z, z, z, 0)
-        arrs, lengths = self._as_arrays(docs)
-        plan = self.planner.plan(lengths)
-        finals = np.tile(self.packed.starts, (b, 1)).astype(np.int32)
-        steps = np.where(plan.spec_mask, 0, lengths)
-        device_work = (np.zeros(self.n_devices, np.int64)
-                       if self.backend == "sharded" else None)
+        with span("matcher.plan"):
+            arrs, lengths = self._as_arrays(docs)
+            plan = self.planner.plan(lengths)
+            finals = np.tile(self.packed.starts, (b, 1)).astype(np.int32)
+            steps = np.where(plan.spec_mask, 0, lengths)
+            device_work = (np.zeros(self.n_devices, np.int64)
+                           if self.backend == "sharded" else None)
         seen_buckets: set[int] = set()
 
         def account(bucket, layout, sel, lens):
@@ -639,10 +657,12 @@ class Matcher:
         calls, _, early = self._dispatch(plan, arrs, lengths, finals,
                                          entry_mode=ENTRY_STARTS,
                                          tile_hook=account)
-        accepted = self.packed.accepting[finals]
-        # lanes forces the lazy lookahead tables — only on speculative work
-        lanes = k * self.tables.i_max if plan.spec_mask.any() else k
-        work_par = np.where(plan.spec_mask, steps * lanes, lengths * k)
+        with span("matcher.scatter"):
+            accepted = self.packed.accepting[finals]
+            # lanes forces the lazy lookahead tables — only on speculative
+            # work
+            lanes = k * self.tables.i_max if plan.spec_mask.any() else k
+            work_par = np.where(plan.spec_mask, steps * lanes, lengths * k)
         return BatchResult(accepted, finals, work_par, lengths * k, steps,
                            calls, early_exits=early, device_work=device_work)
 

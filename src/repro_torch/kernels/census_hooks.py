@@ -1,5 +1,5 @@
-"""What the port's layers tell a census (``launch.census``), and the card
-route's test for fake tensors.
+"""What the port's layers tell a census (``launch.census``) and a running
+torch profiler, and the card route's test for fake tensors.
 
 The kernels' wrappers, the model's attention and the mesh's collectives
 report here; ``launch.census`` reads the reports.  Outside a census
@@ -11,6 +11,11 @@ report here; ``launch.census`` reads the reports.  Outside a census
     CPU tensors: ``launch.dryrun``).  Real tensors are never affected.
   * ``recording(census)``: the census that ``record_kernel`` and
     ``record_collective`` report to while it is open.
+  * ``span(name)``: a named range of host time at a layer boundary (the
+    matcher facade's plan, tile packing, read-back and scatter; the
+    executor's lowering, upload, stages and launch), recorded as
+    ``repro_torch.<name>`` on the profiler's own clock while a torch
+    profiler records, and nothing otherwise (one flag test).
 """
 
 from __future__ import annotations
@@ -21,12 +26,14 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensor
 
 __all__ = ["is_fake", "on_card", "fake_card", "active", "recording",
-           "record_collective", "record_kernel", "tensor_bytes"]
+           "record_collective", "record_kernel", "tensor_bytes", "span"]
 
 # the censuses being taken (innermost last)
 _ACTIVE: list = []
 # whether FakeTensors stand for card tensors (``fake_card``)
 _FAKE_CARD = [False]
+# the span of every call made while no profiler records
+_NO_SPAN = contextlib.nullcontext()
 
 
 def is_fake(x) -> bool:
@@ -103,3 +110,13 @@ def record_kernel(name: str, launches: int, flops: float,
     work in every census being taken."""
     for c in _ACTIVE:
         c.kernel(name, launches, flops, nbytes)
+
+
+def span(name: str):
+    """A context manager that records ``repro_torch.<name>`` as a range of
+    the running torch profiler (``record_function``: the profiler's host
+    event, on the clock it places the card's activity on), or does nothing
+    where no profiler records.  Spans nest on the caller's thread."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function("repro_torch." + name)
+    return _NO_SPAN
